@@ -1,0 +1,242 @@
+"""Linear operators.
+
+Counterpart of ``rla4mor_tpu/core/linops.py``. Vectors are columns: a batch
+of b vectors of dimension n is an ``(n, b)`` tensor (or ``(n,)``).
+
+Two worlds, as in the JAX package:
+
+* device ops (``DenseOp``, embeddings, chains of them) hold tensors on an
+  explicit device and take their input to that device;
+* host ops (:class:`HostOp`: ``HostSparseOp``, ``HostLUInverse``,
+  ``SparseCholeskyOp``) wrap scipy matrices and factorisations. They compute
+  in float64 numpy on the host and hand back a tensor on their ``device`` in
+  its working dtype (``utils.config.default_dtype``). ``apply_host`` keeps
+  the result in numpy, so a :class:`ChainOp` of several host ops (R^-1 A,
+  then the sqrt factor inside an embedding) moves a vector to the device
+  once, not after every factor.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import numpy as np
+import scipy.sparse as sps
+import scipy.sparse.linalg as spla
+import torch
+
+from rla4mor_tpu_torch.utils.config import as_tensor, default_dtype, resolve_device
+
+
+def to_numpy(U) -> np.ndarray:
+    """Host float64 (or complex128) numpy copy of a tensor or array."""
+    if isinstance(U, torch.Tensor):
+        U = U.detach().cpu().numpy()
+    U = np.asarray(U)
+    return U.astype(np.complex128 if np.iscomplexobj(U) else np.float64,
+                    copy=False)
+
+
+class LinOp:
+    """Abstract linear operator: y = A x with x (source_dim, b)."""
+
+    source_dim: int
+    range_dim: int
+
+    def apply(self, U, mu=None):
+        raise NotImplementedError
+
+    def apply_adjoint(self, V, mu=None):
+        raise NotImplementedError
+
+    def matrix(self) -> torch.Tensor:
+        """Dense matrix of the operator (small ops only)."""
+        return torch.as_tensor(
+            self.apply(torch.eye(self.source_dim, dtype=torch.float64)))
+
+
+class IdentityOp(LinOp):
+    def __init__(self, dim: int):
+        self.source_dim = self.range_dim = dim
+
+    def apply(self, U, mu=None):
+        return U
+
+    def apply_adjoint(self, V, mu=None):
+        return V
+
+    def matrix(self):
+        return torch.eye(self.source_dim, dtype=torch.float64)
+
+
+class DenseOp(LinOp):
+    """Dense matrix operator on ``device`` (working dtype by default)."""
+
+    def __init__(self, A, device=None, dtype=None):
+        self.A = as_tensor(A, device, dtype)
+        if self.A.dim() != 2:
+            raise ValueError(f"DenseOp needs a matrix, got {tuple(self.A.shape)}")
+        self.range_dim, self.source_dim = self.A.shape
+
+    def _in(self, U):
+        return as_tensor(U, self.A.device, self.A.dtype)
+
+    def apply(self, U, mu=None):
+        return self.A @ self._in(U)
+
+    def apply_adjoint(self, V, mu=None):
+        return self.A.conj().T @ self._in(V)
+
+    def matrix(self):
+        return self.A
+
+
+class ChainOp(LinOp):
+    """Composition ``ops[0] @ ops[1] @ ... @ ops[-1]`` (applied right-first).
+
+    Consecutive host ops pass numpy between them; the first device op (or
+    the end of the chain) moves the result to the device once."""
+
+    def __init__(self, ops: Sequence[LinOp]):
+        flat = []
+        for op in ops:
+            flat.extend(op.ops if isinstance(op, ChainOp) else (op,))
+        self.ops = tuple(flat)
+        for a, b in zip(self.ops[:-1], self.ops[1:]):
+            if a.source_dim != b.range_dim:
+                raise ValueError(f"ChainOp: dims {a.source_dim} != {b.range_dim}")
+        self.source_dim = self.ops[-1].source_dim
+        self.range_dim = self.ops[0].range_dim
+
+    @staticmethod
+    def _run(ops, U, mu, adjoint: bool):
+        last_host = None
+        for op in ops:
+            if isinstance(op, HostOp):
+                U = op.apply_host(U, adjoint=adjoint)
+                last_host = op
+            else:
+                U = op.apply_adjoint(U, mu) if adjoint else op.apply(U, mu)
+        if isinstance(U, np.ndarray):
+            U = torch.as_tensor(U) if last_host is None else last_host.to_device(U)
+        return U
+
+    def apply(self, U, mu=None):
+        return self._run(reversed(self.ops), U, mu, adjoint=False)
+
+    def apply_adjoint(self, V, mu=None):
+        return self._run(self.ops, V, mu, adjoint=True)
+
+
+# ---------------------------------------------------------------------------
+# Host (CPU / scipy) operators
+# ---------------------------------------------------------------------------
+
+
+class HostOp(LinOp):
+    """A LinOp computed by scipy on the host, returning tensors on
+    ``device`` in its working dtype."""
+
+    def __init__(self, dim_range: int, dim_source: int, device=None, dtype=None):
+        self.range_dim, self.source_dim = dim_range, dim_source
+        self.device = resolve_device(device)
+        self.dtype = default_dtype(self.device) if dtype is None else dtype
+
+    def _host(self, U: np.ndarray, adjoint: bool) -> np.ndarray:
+        raise NotImplementedError
+
+    def apply_host(self, U, adjoint: bool = False) -> np.ndarray:
+        """numpy result of the op (or its adjoint) on a tensor or array."""
+        return self._host(to_numpy(U), adjoint)
+
+    def to_device(self, X: np.ndarray) -> torch.Tensor:
+        return as_tensor(X, self.device, self.dtype)
+
+    def apply(self, U, mu=None):
+        return self.to_device(self.apply_host(U))
+
+    def apply_adjoint(self, V, mu=None):
+        return self.to_device(self.apply_host(V, adjoint=True))
+
+    def matrix(self):
+        return self.to_device(self.apply_host(np.eye(self.source_dim)))
+
+
+class HostSparseOp(HostOp):
+    """scipy sparse matrix as a LinOp (host execution, f64)."""
+
+    def __init__(self, S, device=None, dtype=None):
+        self.S = sps.csr_matrix(S)
+        super().__init__(*self.S.shape, device=device, dtype=dtype)
+
+    def _host(self, U, adjoint):
+        return (self.S.conj().T @ U) if adjoint else (self.S @ U)
+
+
+class HostLUInverse(HostOp):
+    """Implicit inverse of a sparse matrix via a SuperLU factorisation."""
+
+    def __init__(self, S, symmetric: bool = False, device=None, dtype=None,
+                 **splu_kwargs):
+        S = sps.csc_matrix(S)
+        if symmetric:
+            self.factorization = spla.splu(
+                S, permc_spec="MMD_AT_PLUS_A", diag_pivot_thresh=0,
+                options={"SymmetricMode": True},
+            )
+        else:
+            self.factorization = spla.splu(S, **splu_kwargs)
+        super().__init__(S.shape[0], S.shape[0], device=device, dtype=dtype)
+
+    def _host(self, U, adjoint):
+        trans = "H" if adjoint else "N"
+        if np.iscomplexobj(U) and not np.iscomplexobj(self.factorization.U):
+            # a real factorisation solves complex right-hand sides by
+            # real-linearity (scipy refuses the complex->f64 cast)
+            return (self.factorization.solve(np.ascontiguousarray(U.real), trans=trans)
+                    + 1j * self.factorization.solve(
+                        np.ascontiguousarray(U.imag), trans=trans))
+        return self.factorization.solve(U, trans=trans)
+
+
+class SparseCholeskyOp(HostOp):
+    """Sparse Cholesky square root Q = G^H P with Q^H Q = S (G lower
+    triangular from the symmetric-mode SuperLU factorisation):
+
+    * ``apply(u)         = G^T (P u)``
+    * ``apply_adjoint(v) = P^T (G v)``
+    * ``apply_inverse(v) = P^T solve_Lt(v)``
+    * ``apply_inverse_adjoint(u) = solve_L(P u)``
+    """
+
+    def __init__(self, S, device=None, dtype=None):
+        S = sps.csc_matrix(S)
+        factor = spla.splu(
+            S, permc_spec="MMD_AT_PLUS_A", diag_pivot_thresh=0,
+            options={"SymmetricMode": True},
+        )
+        dsq = np.sqrt(factor.U.diagonal())
+        self._G = sps.csr_matrix(factor.L @ sps.diags(dsq))   # lower
+        self._GT = sps.csr_matrix(self._G.T)                   # upper
+        self._perm = factor.perm_r  # row permutation: (P u) = u[perm]
+        super().__init__(S.shape[0], S.shape[0], device=device, dtype=dtype)
+
+    def _scatter(self, U):  # P u  with P[perm[j], j] = 1
+        out = np.empty_like(U)
+        out[self._perm] = U
+        return out
+
+    def _host(self, U, adjoint):
+        if adjoint:
+            return (self._G @ U)[self._perm]
+        return self._GT @ self._scatter(U)
+
+    def apply_inverse(self, V, mu=None):
+        """x with Q x = v: solve G^T y = v (upper), x = P^T y."""
+        y = spla.spsolve_triangular(self._GT, to_numpy(V), lower=False)
+        return self.to_device(y[self._perm])
+
+    def apply_inverse_adjoint(self, U, mu=None):
+        """x with Q^H x = u: solve G x = P u (lower)."""
+        return self.to_device(spla.spsolve_triangular(
+            self._G, self._scatter(to_numpy(U)), lower=True))

@@ -1,0 +1,208 @@
+"""Sketched reduced-basis reductor.
+
+Counterpart of ``rla4mor_tpu/mor/sketched_reductor.py``:
+
+* state = sketched basis ``srb = Theta U`` (k x r), optional full basis
+  ``rb``, affine sketched residual ``Theta R^-1 A U`` (terms, k x r) and rhs
+  ``Theta R^-1 b``, projected output functional — all tensors on the
+  primal embedding's device;
+* ``extend_basis`` appends snapshots and concatenates affine terms
+  column-wise;
+* orthonormalisation happens in sketch space: Gram-Schmidt on ``srb``,
+  T = pinv(R) applied to rb, residual and output;
+* ``reduce`` emits a Galerkin or minimal-residual :class:`StationaryROM`
+  whose error estimator is the online-sketched residual norm.
+
+The FOM-side applies (A_j, R^-1 and the sqrt factor Q inside the
+embedding) run on the host; each snapshot reaches the device once, where
+the embedding sketches it (the one-pass SRHT kernel for n >= 2^16).
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from rla4mor_tpu_torch.core.affine import (
+    AffineDense,
+    compose,
+    concat_affine,
+    materialize,
+    project,
+)
+from rla4mor_tpu_torch.core.linops import ChainOp
+from rla4mor_tpu_torch.core.orthonormalize import gram_schmidt
+from rla4mor_tpu_torch.core.products import Product
+from rla4mor_tpu_torch.models.stationary import (
+    ResidualErrorEstimator,
+    StationaryFOM,
+    StationaryROM,
+)
+from rla4mor_tpu_torch.ops.embeddings import Embedding, IdentityEmbedding
+from rla4mor_tpu_torch.utils.logger import get_logger
+
+
+def _pinv(R: torch.Tensor) -> torch.Tensor:
+    """Pseudo-inverse with the JAX package's cutoff, 10 * max(shape) * eps
+    relative (torch's default is max(shape) * eps)."""
+    rtol = 10 * max(R.shape) * torch.finfo(R.dtype).eps
+    return torch.linalg.pinv(R, rtol=rtol)
+
+
+class SketchedReductor:
+    """Online-efficient sketched RB with Galerkin / minres projection."""
+
+    def __init__(
+        self,
+        fom: StationaryFOM,
+        embedding_primal: Optional[Embedding] = None,
+        embedding_online: Optional[Embedding] = None,
+        product: Optional[Product] = None,
+        save_rb: bool = True,
+        orthonormalize: bool = True,
+        projection: str = "galerkin",
+        log_level: int = 20,
+    ):
+        if projection not in ("galerkin", "minres"):
+            raise ValueError(f"unknown projection {projection!r}")
+        self.fom = fom
+        n = fom.solution_dim
+        self.product = product if product is not None else Product.identity(n)
+        self.embedding_primal = (
+            embedding_primal if embedding_primal is not None
+            else IdentityEmbedding(n, device=fom.device)
+        )
+        emb = self.embedding_primal
+        self.embedding_online = (
+            embedding_online if embedding_online is not None
+            else IdentityEmbedding(emb.range_dim, device=emb.device, dtype=emb.dtype)
+        )
+        self.save_rb = save_rb
+        self.orthonormalize = orthonormalize
+        self.projection = projection
+        self.logger = get_logger("mor.sketched_reductor", log_level)
+
+        k = emb.range_dim
+        self.device, self.dtype = emb.device, emb.dtype
+        self.mu_basis: list = []
+        self.srb = torch.zeros((k, 0), dtype=self.dtype, device=self.device)
+        self.rb = torch.zeros((n, 0), dtype=self.dtype, device=self.device)
+        self.residual_lhs: Optional[AffineDense] = None  # (T, k, r)
+        self.residual_rhs: Optional[AffineDense] = None  # (Tb, k, 1)
+        self.output_functional: Optional[AffineDense] = None  # (To, q, r)
+        # Theta o R^-1, reused for every residual sketch
+        self._sketch_map = ChainOp((emb, self.product.inv))
+
+    @property
+    def basis_size(self) -> int:
+        return self.srb.shape[1]
+
+    def extend_basis(self, U, mu=None) -> None:
+        """Append snapshot columns U (n, m) or (n,) to the sketched state."""
+        U = torch.as_tensor(U).to(self.device)
+        if U.dim() == 1:
+            U = U[:, None]
+        if mu is not None:
+            self.mu_basis.extend([mu] * U.shape[1])
+
+        if self.save_rb:
+            self.rb = torch.cat([self.rb.to(U.dtype), U], dim=1)
+
+        if self.fom.output_functional is not None:
+            out_proj = project(self.fom.output_functional, None, U)
+            if self.output_functional is not None:
+                out_proj = concat_affine((self.output_functional, out_proj), axis=1)
+            self.output_functional = out_proj
+
+        self.logger.info("sketch the basis")
+        su = self.embedding_primal.apply(U)
+        self.srb = torch.cat([self.srb.to(su.dtype), su], dim=1)
+
+        self.logger.info("sketch the residual")
+        sop = project(compose(self._sketch_map, self.fom.operator), None, U)
+        if self.residual_lhs is None:
+            self.residual_lhs = sop
+            self.residual_rhs = materialize(compose(self._sketch_map, self.fom.rhs))
+        else:
+            self.residual_lhs = concat_affine((self.residual_lhs, sop), axis=1)
+
+        if self.orthonormalize:
+            self.orthonormalize_basis(offset=self.basis_size - U.shape[1])
+
+    def orthonormalize_basis(self, offset: int = 0, T=None) -> torch.Tensor:
+        """Orthonormalise ``srb`` (l2, sketch space) and push the change of
+        basis T = pinv(R) through rb, residual and output (or apply a given
+        T). Returns T."""
+        if T is None:
+            Q, R = gram_schmidt(self.srb, offset=offset, return_R=True)
+            T = _pinv(R)
+        else:
+            Q = self.srb @ T
+        self.srb = Q
+        if self.save_rb and self.rb.shape[1]:
+            self.rb = self.rb @ T.to(self.rb.dtype)
+        if self.residual_lhs is not None:
+            self.residual_lhs = self.residual_lhs.rmul(T)
+        if self.output_functional is not None:
+            self.output_functional = self.output_functional.rmul(T)
+        return T
+
+    def truncate_basis(self, r: int) -> None:
+        """Keep only the FIRST ``r`` basis columns (no-op if r >= size);
+        needs an orthonormalised sketched basis."""
+        if r < 0:
+            raise ValueError(f"truncate_basis: negative rank {r}")
+        if r >= self.basis_size:
+            return
+        T = torch.eye(self.basis_size, r, dtype=self.srb.dtype, device=self.device)
+        self.orthonormalize_basis(T=T)
+        self.mu_basis = self.mu_basis[:r]
+
+    def _sketch_residual(self, embedding: Embedding) -> Tuple[AffineDense, AffineDense]:
+        return (compose(embedding, self.residual_lhs),
+                compose(embedding, self.residual_rhs))
+
+    def reduce(self, embedding=None, seed=None, ls_rcond: float = 1e-13) -> StationaryROM:
+        """Emit the online ROM, drawing a fresh online sketch (Galerkin: one
+        embedding; minres: one for the system, one for the estimator)."""
+        if self.basis_size == 0:
+            raise NotImplementedError(
+                "reduce on an empty basis needs the classical residual "
+                "reductor, which the PyTorch port does not have yet")
+        if self.projection == "galerkin":
+            if embedding is None:
+                embedding = self.embedding_online.with_seed(seed)
+            est_lhs, est_rhs = self._sketch_residual(embedding)
+            return StationaryROM(
+                self.residual_lhs.lmul(self.srb.conj().T),
+                self.residual_rhs.lmul(self.srb.conj().T),
+                output_functional=self.output_functional,
+                error_estimator=ResidualErrorEstimator(est_lhs, est_rhs),
+                ls=False,
+            )
+        if not isinstance(seed, (tuple, list)):
+            seed = (seed, None if seed is None else seed + 1)
+        if embedding is None:
+            embedding = (self.embedding_online.with_seed(seed[0]),
+                         self.embedding_online.with_seed(seed[1]))
+        sys_lhs, sys_rhs = self._sketch_residual(embedding[0])
+        est_lhs, est_rhs = self._sketch_residual(embedding[1])
+        return StationaryROM(
+            sys_lhs, sys_rhs,
+            output_functional=self.output_functional,
+            error_estimator=ResidualErrorEstimator(est_lhs, est_rhs),
+            ls=True, ls_rcond=ls_rcond,
+        )
+
+    def reduce_adaptive(self, *args, **kwargs):
+        raise NotImplementedError(
+            "reduce_adaptive is not ported to PyTorch yet (see ROADMAP.md)")
+
+    def reconstruct(self, u_reduced) -> torch.Tensor:
+        """Lift reduced coefficients to the full space (needs save_rb)."""
+        if not self.save_rb:
+            raise ValueError("reconstruct requires save_rb=True")
+        u = torch.as_tensor(u_reduced).to(self.device)
+        dt = torch.promote_types(self.rb.dtype, u.dtype)
+        return self.rb.to(dt) @ u.to(dt)

@@ -1,0 +1,16 @@
+from rla4mor_tpu_torch.ops.fwht import fwht, srht, srht_rows, hadamard_matrix
+from rla4mor_tpu_torch.ops.dims import gaussian_dim, srht_dim, resolve_dim
+from rla4mor_tpu_torch.ops.srht_cuda import srht_onepass, srht_onepass_plain
+from rla4mor_tpu_torch.ops.embeddings import (
+    Embedding,
+    GaussianEmbedding,
+    IdentityEmbedding,
+    SrhtEmbedding,
+)
+
+__all__ = [
+    "fwht", "srht", "srht_rows", "hadamard_matrix",
+    "gaussian_dim", "srht_dim", "resolve_dim",
+    "srht_onepass", "srht_onepass_plain",
+    "Embedding", "GaussianEmbedding", "IdentityEmbedding", "SrhtEmbedding",
+]

@@ -1,0 +1,258 @@
+"""Random embeddings (oblivious l2 -> l2 and U -> l2 subspace embeddings).
+
+Counterpart of ``rla4mor_tpu/ops/embeddings.py`` for the Gaussian, identity
+and SRHT embeddings. Contract: an embedding Theta wraps an optional
+``sqrt_product`` Q with Q^H Q = R; ``apply(U) = Omega (Q U)`` where Omega is
+the l2 -> l2 random matrix; ``matrix()`` is the (k, n) map Omega Q.
+
+An embedding lives on an explicit ``device``. Its random operator is drawn
+from explicit CPU generators (``ops/seeding.py``) and moved there, or carried
+across from the JAX package (``GaussianEmbedding.from_matrix``,
+``SrhtEmbedding.from_plan``), which is how the parity tests hold the two
+packages to the same operator.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+from rla4mor_tpu_torch.core.linops import LinOp
+from rla4mor_tpu_torch.ops import dims as _dims
+from rla4mor_tpu_torch.ops.fwht import Plan, _srht_plan, ceil_log2, srht, srht_rows
+from rla4mor_tpu_torch.ops.srht_cuda import srht_onepass
+from rla4mor_tpu_torch.utils.config import as_tensor, default_dtype, resolve_device
+
+
+class Embedding(LinOp):
+    """Base class. ``range_dim`` = k, ``source_dim`` = n (U-space)."""
+
+    def __init__(self, range_dim: int, source_dim: int, seed: int = 0,
+                 sqrt_product: Optional[LinOp] = None, device=None, dtype=None):
+        if sqrt_product is not None and sqrt_product.source_dim != source_dim:
+            raise ValueError("sqrt_product does not act on the source space")
+        self.range_dim = int(range_dim)
+        self.source_dim = int(source_dim)
+        self.seed = int(seed)
+        self.sqrt_product = sqrt_product
+        self.device = resolve_device(device)
+        self.dtype = default_dtype(self.device) if dtype is None else dtype
+        self._omega = None
+        self._theta = None
+
+    def with_seed(self, seed: Optional[int]) -> "Embedding":
+        """Same family and sizes, fresh randomness drawn from ``seed``."""
+        raise NotImplementedError
+
+    @property
+    def l2_dim(self) -> int:
+        """Dimension of the intermediate l2 space (= Q's range)."""
+        return (self.sqrt_product.range_dim if self.sqrt_product is not None
+                else self.source_dim)
+
+    def _in(self, X) -> torch.Tensor:
+        return as_tensor(X, self.device, self.dtype)
+
+    def _apply_q(self, U) -> torch.Tensor:
+        if self.sqrt_product is None:
+            return self._in(U)
+        return self._in(self.sqrt_product.apply(U))
+
+    def apply_random(self, X) -> torch.Tensor:
+        """l2 -> l2 sketch Omega @ X, X (l2_dim,) or (l2_dim, b)."""
+        return self.random_matrix_cached() @ self._in(X)
+
+    def apply(self, U, mu=None) -> torch.Tensor:
+        return self.apply_random(self._apply_q(U))
+
+    def apply_adjoint(self, V, mu=None):
+        """Theta^H V = Q^H (Omega^H V)."""
+        W = self.random_matrix_cached().conj().T @ self._in(V)
+        if self.sqrt_product is None:
+            return W
+        return self._in(self.sqrt_product.apply_adjoint(W))
+
+    def random_matrix(self) -> torch.Tensor:
+        """The (k, l2_dim) l2 -> l2 matrix Omega."""
+        raise NotImplementedError
+
+    def random_matrix_cached(self) -> torch.Tensor:
+        if self._omega is None:
+            self._omega = self.random_matrix()
+        return self._omega
+
+    def matrix(self) -> torch.Tensor:
+        """The (k, n) U -> l2 matrix Theta = Omega Q."""
+        if self._theta is None:
+            om = self.random_matrix_cached()
+            if self.sqrt_product is None:
+                self._theta = om
+            else:  # Theta = (Q^H Omega^H)^H
+                self._theta = self._in(
+                    self.sqrt_product.apply_adjoint(om.conj().T)).conj().T
+        return self._theta
+
+
+class GaussianEmbedding(Embedding):
+    """Omega with iid N(0, 1/k) entries, drawn on the canonical tile grid
+    (``ops/seeding.py``) or carried in with :meth:`from_matrix`."""
+
+    @classmethod
+    def make(cls, source_dim, sqrt_product=None, range_dim=None, epsilon=None,
+             delta=None, oblivious_dim=None, seed=0, device=None, dtype=None):
+        k = _dims.resolve_dim("gaussian", source_dim, range_dim, epsilon,
+                              delta, oblivious_dim)
+        return cls(k, source_dim, seed, sqrt_product, device, dtype)
+
+    @classmethod
+    def from_matrix(cls, omega, sqrt_product=None, seed=0, device=None,
+                    dtype=None) -> "GaussianEmbedding":
+        """Embedding with a given (k, l2_dim) Omega (e.g. the JAX package's
+        ``random_matrix()``, for parity)."""
+        omega = np.array(omega)
+        k, l2 = omega.shape
+        n = sqrt_product.source_dim if sqrt_product is not None else l2
+        emb = cls(k, n, seed, sqrt_product, device, dtype)
+        emb._omega = emb._in(omega)
+        return emb
+
+    def with_seed(self, seed):
+        if seed is None:
+            seed = int(np.random.randint(0, 2**31 - 1))
+        return GaussianEmbedding(self.range_dim, self.source_dim, seed,
+                                 self.sqrt_product, self.device, self.dtype)
+
+    def random_matrix(self):
+        from rla4mor_tpu_torch.ops.seeding import gaussian_matrix
+
+        return gaussian_matrix(self.seed, self.range_dim, self.l2_dim,
+                               torch.float64).to(self.device, self.dtype)
+
+
+class IdentityEmbedding(Embedding):
+    """Theta = Q: maps U to l2 w.r.t. the product, no randomness."""
+
+    def __init__(self, source_dim, sqrt_product=None, seed=0, device=None,
+                 dtype=None):
+        l2 = sqrt_product.range_dim if sqrt_product is not None else source_dim
+        super().__init__(l2, source_dim, seed, sqrt_product, device, dtype)
+
+    def apply_random(self, X):
+        return self._in(X)
+
+    def apply(self, U, mu=None):
+        return self._apply_q(U)
+
+    def apply_adjoint(self, V, mu=None):
+        if self.sqrt_product is None:
+            return self._in(V)
+        return self._in(self.sqrt_product.apply_adjoint(V))
+
+    def random_matrix(self):
+        return torch.eye(self.l2_dim, dtype=self.dtype, device=self.device)
+
+    def with_seed(self, seed):
+        return self  # deterministic operator: redrawing is a no-op
+
+
+class SrhtEmbedding(Embedding):
+    """Subsampled randomised Hadamard transform (semantics in ops/fwht.py).
+
+    ``apply_random`` keeps the JAX package's dispatch: for n >= 2^16
+    (``_ONEPASS_MIN_DIM``), and for pre-blocked ``(m, B, R)`` input, the
+    sketch is the one-pass SRHT of ``ops/srht_cuda.py`` — the hand-written
+    kernel on a CUDA tensor; below, the Kronecker FWHT of ``ops/fwht.py``.
+    """
+
+    _ONEPASS_MIN_DIM = 1 << 16
+
+    def __init__(self, range_dim, source_dim, seed=0, sqrt_product=None,
+                 device=None, dtype=None, plan: Optional[Plan] = None):
+        super().__init__(range_dim, source_dim, seed, sqrt_product, device, dtype)
+        if plan is None:
+            plan = _srht_plan(self.seed, self.l2_dim, self.range_dim)
+        rademacher, sampling, d = plan
+        if rademacher.shape != (self.l2_dim,) or sampling.shape != (self.range_dim,):
+            raise ValueError("SRHT plan does not match (n, k)")
+        if d != ceil_log2(self.l2_dim) or int(sampling.max()) >= 1 << d:
+            raise ValueError("SRHT sampling must lie in [0, 2^ceil(log2 n))")
+        # the plan lives on the device once; every sketch reuses it
+        self.plan = (rademacher.to(self.device, torch.int8),
+                     sampling.to(self.device, torch.int64), int(d))
+
+    @classmethod
+    def make(cls, source_dim, sqrt_product=None, range_dim=None, epsilon=None,
+             delta=None, oblivious_dim=None, seed=0, device=None, dtype=None):
+        k = _dims.resolve_dim("srht", source_dim, range_dim, epsilon, delta,
+                              oblivious_dim)
+        return cls(k, source_dim, seed, sqrt_product, device, dtype)
+
+    @classmethod
+    def from_plan(cls, n, k, signs, sampling, sqrt_product=None, seed=0,
+                  device=None, dtype=None) -> "SrhtEmbedding":
+        """Embedding with a given plan: ``signs`` (n,) +-1 and ``sampling``
+        (k,) rows of [0, 2^ceil(log2 n)) (e.g. the JAX package's
+        ``ops.fwht._srht_plan``, for parity). ``n`` is the l2 dimension."""
+        plan = (torch.as_tensor(np.array(signs)).to(torch.int8),
+                torch.as_tensor(np.array(sampling)).to(torch.int64),
+                ceil_log2(n))
+        source = sqrt_product.source_dim if sqrt_product is not None else n
+        return cls(k, source, seed, sqrt_product, device, dtype, plan=plan)
+
+    def with_seed(self, seed):
+        if seed is None:
+            seed = int(np.random.randint(0, 2**31 - 1))
+        return SrhtEmbedding(self.range_dim, self.source_dim, seed,
+                             self.sqrt_product, self.device, self.dtype)
+
+    @property
+    def blocked_shape(self):
+        """(B, R) of the blocked rows layout: B = ceil(n / R) blocks of
+        R = 2^min(11, d) entries (``to_blocked``)."""
+        n = self.l2_dim
+        R = 1 << min(11, ceil_log2(n))
+        return -(-n // R), R
+
+    def to_blocked(self, X) -> torch.Tensor:
+        """Columns (n, m) or (n,) -> zero-padded rows layout (m, B, R)."""
+        X = self._in(X)
+        if X.dim() == 1:
+            X = X[:, None]
+        n, m = X.shape
+        B, R = self.blocked_shape
+        out = X.new_zeros((m, B * R))
+        out[:, :n] = X.T
+        return out.reshape(m, B, R)
+
+    def _onepass(self, x_cols: torch.Tensor) -> torch.Tensor:
+        rademacher, sampling, _ = self.plan
+        return srht_onepass(x_cols, self.range_dim, rademacher, sampling)
+
+    def apply_random(self, X):
+        """Sketch of X: (n,) -> (k,), (n, m) -> (k, m), blocked (m, B, R)
+        with zero tail -> (k, m)."""
+        X = self._in(X)
+        n = self.l2_dim
+        if X.dim() == 3:
+            m = X.shape[0]
+            if tuple(X.shape[1:]) != self.blocked_shape:
+                raise ValueError(f"blocked input {tuple(X.shape)} is not "
+                                 f"(m, {self.blocked_shape})")
+            B, R = self.blocked_shape
+            # (m, B, R) -> (n, m) strided view: read in place by the kernel
+            return self._onepass(X.reshape(m, B * R)[:, :n].T)
+        single = X.dim() == 1
+        Xm = X[:, None] if single else X
+        if Xm.shape[0] != n:
+            raise ValueError(f"input has {Xm.shape[0]} rows, embedding n={n}")
+        if n >= self._ONEPASS_MIN_DIM:
+            out = self._onepass(Xm)
+        else:
+            out = srht(Xm.T, self.range_dim, self.plan).T
+        return out[:, 0] if single else out
+
+    def random_matrix(self):
+        return srht_rows(self.plan, self.l2_dim, self.range_dim,
+                         dtype=torch.float64).to(self.device, self.dtype)

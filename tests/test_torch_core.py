@@ -1,0 +1,182 @@
+"""The port's core algebra held against the JAX package (f64, CPU):
+parameters and coefficients, affine projection / composition /
+concatenation, Gram-Schmidt, sparse products and the ROM solves."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import rla4mor_tpu.core as jcore
+from rla4mor_tpu.models import ThermalBlockFOM as JaxFOM
+from rla4mor_tpu.models.stationary import StationaryROM as JaxROM
+
+import rla4mor_tpu_torch.core as tcore
+from rla4mor_tpu_torch.models import ThermalBlockFOM
+from rla4mor_tpu_torch.models.stationary import StationaryROM
+
+
+def rel(a, b):
+    a, b = np.asarray(a), np.asarray(b)
+    assert a.shape == b.shape, (a.shape, b.shape)
+    return np.abs(a - b).max() / np.abs(b).max()
+
+
+@pytest.fixture(scope="module")
+def foms():
+    return JaxFOM((2, 2), 16), ThermalBlockFOM((2, 2), 16)
+
+
+def test_coefficients_single_and_batched():
+    coeffs = (tcore.ONE, tcore.ProjectionCoefficient("a", 1),
+              tcore.ProjectionCoefficient("a", 0) * tcore.ProjectionCoefficient("b", 0),
+              tcore.ConstantCoefficient(2.0) * 3.0)
+    mus = [{"a": torch.tensor([0.5, 2.0]), "b": torch.tensor([3.0])},
+           {"a": torch.tensor([1.5, 4.0]), "b": torch.tensor([-1.0])}]
+    single = tcore.eval_coefficients(coeffs, mus[0])
+    assert torch.equal(single, torch.tensor([1.0, 2.0, 1.5, 6.0], dtype=torch.float64))
+    batched = tcore.eval_coefficients(coeffs, tcore.mu_stack(mus))
+    assert batched.shape == (2, 4)
+    assert torch.equal(batched[1], tcore.eval_coefficients(coeffs, mus[1]))
+    jv = jcore.eval_coefficients(
+        (jcore.ONE, jcore.ProjectionCoefficient("a", 1),
+         jcore.ProjectionCoefficient("a", 0) * jcore.ProjectionCoefficient("b", 0),
+         jcore.ConstantCoefficient(6.0)),
+        {"a": jnp.asarray([0.5, 2.0]), "b": jnp.asarray([3.0])})
+    assert np.array_equal(np.asarray(jv), single.numpy())
+    assert torch.equal(tcore.mu_stack(mus)["a"], torch.tensor([[0.5, 2.0], [1.5, 4.0]]))
+
+
+def test_parameter_space_sampling():
+    space = tcore.ParameterSpace.make({"diffusion": 4}, 0.1, 1.0)
+    a = space.sample_randomly(5, seed=3)
+    b = space.sample_randomly(8, seed=3)
+    for x, y in zip(a, b):  # sample i does not depend on the count
+        assert torch.equal(x["diffusion"], y["diffusion"])
+    vals = torch.stack([m["diffusion"] for m in b])
+    assert vals.dtype == torch.float64 and vals.min() >= 0.1 and vals.max() <= 1.0
+    assert space.names == ("diffusion",) and space.dim() == 4
+
+
+def test_affine_dense_batched_assemble_and_apply():
+    rs = np.random.RandomState(0)
+    stack = torch.tensor(rs.normal(size=(3, 5, 4)))
+    coeffs = (tcore.ONE, tcore.ProjectionCoefficient("p", 0),
+              tcore.ProjectionCoefficient("p", 1))
+    A = tcore.AffineDense(stack, coeffs)
+    mus = [{"p": torch.tensor(rs.uniform(size=2))} for _ in range(3)]
+    batched = A.assemble(tcore.mu_stack(mus))
+    U = torch.tensor(rs.normal(size=(3, 4)))
+    applied = A.apply(U, tcore.mu_stack(mus))
+    jA = jcore.AffineDense(jnp.asarray(stack.numpy()),
+                           (jcore.ONE, jcore.ProjectionCoefficient("p", 0),
+                            jcore.ProjectionCoefficient("p", 1)))
+    for i, mu in enumerate(mus):
+        jmu = {"p": jnp.asarray(mu["p"].numpy())}
+        assert rel(batched[i], jA.assemble(jmu)) < 1e-14
+        assert rel(applied[i], jA.apply(jnp.asarray(U[i].numpy()), jmu)) < 1e-14
+
+
+def test_project_compose_concat_match_jax(foms):
+    jfom, tfom = foms
+    rs = np.random.RandomState(1)
+    W = rs.normal(size=(225, 3))
+    V = rs.normal(size=(225, 2))
+    jp = jcore.project(jfom.operator, jnp.asarray(V), jnp.asarray(W))
+    tp = tcore.project(tfom.operator, torch.tensor(V), torch.tensor(W))
+    assert rel(tp.stack, jp.stack) < 1e-12
+    # W only: the range side stays full
+    jw = jcore.project(jfom.operator, None, jnp.asarray(W))
+    tw = tcore.project(tfom.operator, None, torch.tensor(W))
+    assert rel(tw.stack, jw.stack) < 1e-12
+    # V only: through apply_adjoint
+    jv = jcore.project(jfom.operator, jnp.asarray(V), None)
+    tv = tcore.project(tfom.operator, torch.tensor(V), None)
+    assert rel(tv.stack, jv.stack) < 1e-12
+    # compose with R^-1 (a host chain) and with a dense left factor
+    jc = jcore.project(jcore.compose(jfom.h1_0_product.inv, jfom.operator), None,
+                       jnp.asarray(W))
+    tc = tcore.project(tcore.compose(tfom.h1_0_product.inv, tfom.operator), None,
+                       torch.tensor(W))
+    assert rel(tc.stack, jc.stack) < 1e-12
+    M = rs.normal(size=(4, 225))
+    jd = jcore.compose(jcore.DenseOp(jnp.asarray(M)), jw)
+    td = tcore.compose(tcore.DenseOp(M), tw)
+    assert rel(td.stack, jd.stack) < 1e-12
+    # concatenation along the source and the range axis
+    for axis in (0, 1):
+        jcat = jcore.concat_affine((jw, jw.rmul(jnp.eye(3))), axis=axis)
+        tcat = tcore.concat_affine((tw, tw.rmul(torch.eye(3, dtype=torch.float64))),
+                                   axis=axis)
+        assert rel(tcat.stack, jcat.stack) < 1e-12
+    # materialize of the rhs chain R^-1 b
+    jm = jcore.materialize(jcore.compose(jfom.h1_0_product.inv, jfom.rhs))
+    tm = tcore.materialize(tcore.compose(tfom.h1_0_product.inv, tfom.rhs))
+    assert rel(tm.stack, jm.stack) < 1e-12
+
+
+@pytest.mark.parametrize("offset", [0, 2])
+def test_gram_schmidt_matches_jax(offset):
+    rs = np.random.RandomState(offset)
+    U = rs.normal(size=(30, 6))
+    if offset:
+        U[:, :offset] = np.linalg.qr(U[:, :offset])[0]
+    U[:, 4] = U[:, 1] + U[:, 2]  # dependent: becomes a zero column under atol
+    jQ, jR = jcore.gram_schmidt(jnp.asarray(U), offset=offset, return_R=True,
+                                atol=1e-10)
+    tQ, tR = tcore.gram_schmidt(torch.tensor(U), offset=offset, return_R=True,
+                                atol=1e-10)
+    assert np.abs(np.asarray(tQ) - np.asarray(jQ)).max() < 1e-12
+    assert np.abs(np.asarray(tR) - np.asarray(jR)).max() < 1e-12
+    assert float(tQ[:, 4].abs().max()) == 0.0
+    keep = [0, 1, 2, 3, 5]
+    G = tQ[:, keep].T @ tQ[:, keep]
+    assert torch.allclose(G, torch.eye(5, dtype=torch.float64), atol=1e-12)
+
+
+def test_product_from_sparse_matches_jax(foms):
+    jfom, tfom = foms
+    jP, tP = jfom.h1_0_product, tfom.h1_0_product
+    S = tP.op.S.toarray()
+    rs = np.random.RandomState(3)
+    U = rs.normal(size=(225, 2))
+    ju, tu = jnp.asarray(U), torch.tensor(U)
+    assert rel(tP.inv.apply(tu), jP.inv.apply(ju)) < 1e-12
+    for name in ("apply", "apply_adjoint", "apply_inverse", "apply_inverse_adjoint"):
+        assert rel(getattr(tP.sqrt, name)(tu), getattr(jP.sqrt, name)(ju)) < 1e-12
+    Q = tP.sqrt.matrix().numpy()
+    assert np.abs(Q.T @ Q - S).max() < 1e-12 * np.abs(S).max()
+    assert rel(tP.norm(tu), jP.norm(ju)) < 1e-12
+    assert rel(tP.inner(tu), jP.inner(ju)) < 1e-12
+    # a chain of host ops stays on the host until its end
+    chain = tcore.ChainOp((tP.sqrt, tP.inv))
+    assert rel(chain.apply(tu), jP.sqrt.apply(jP.inv.apply(ju))) < 1e-12
+
+
+@pytest.mark.parametrize("ls", [False, True], ids=["galerkin", "lstsq"])
+def test_rom_solve_matches_jax(ls):
+    rs = np.random.RandomState(4)
+    k, r = (12, 4) if ls else (4, 4)
+    lhs = rs.normal(size=(3, k, r))
+    if ls:
+        lhs[:, :, 3] = lhs[:, :, 0]  # rank deficient: the SVD cutoff drops it
+    rhs = rs.normal(size=(1, k, 1))
+    out = rs.normal(size=(1, 1, r))
+    tcoef = (tcore.ONE, tcore.ProjectionCoefficient("p", 0),
+             tcore.ProjectionCoefficient("p", 1))
+    jcoef = (jcore.ONE, jcore.ProjectionCoefficient("p", 0),
+             jcore.ProjectionCoefficient("p", 1))
+    trom = StationaryROM(tcore.AffineDense(torch.tensor(lhs), tcoef),
+                         tcore.AffineDense(torch.tensor(rhs), (tcore.ONE,)),
+                         tcore.AffineDense(torch.tensor(out), (tcore.ONE,)), ls=ls)
+    jrom = JaxROM(jcore.AffineDense(jnp.asarray(lhs), jcoef),
+                  jcore.AffineDense(jnp.asarray(rhs), (jcore.ONE,)),
+                  jcore.AffineDense(jnp.asarray(out), (jcore.ONE,)), ls=ls)
+    P = rs.uniform(0.5, 1.0, size=(5, 2))
+    tu = trom.solve({"p": torch.tensor(P)})
+    ju = jax.vmap(jrom.solve)({"p": jnp.asarray(P)})
+    assert rel(tu, ju) < 1e-10
+    assert rel(trom.solve({"p": torch.tensor(P[2])}), ju[2]) < 1e-10
+    assert rel(trom.output(tu, {"p": torch.tensor(P)}),
+               jax.vmap(jrom.output)(ju, {"p": jnp.asarray(P)})) < 1e-10

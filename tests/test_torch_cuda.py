@@ -1,0 +1,156 @@
+"""The one-pass SRHT kernel and the port's slice on an NVIDIA GPU.
+
+Every test here needs the card (a CUDA kernel has no CPU mode) and skips
+without one. The file imports no JAX, so it also runs where JAX is not
+installed; there, skip the JAX-importing ``tests/conftest.py``:
+
+    python -m pytest --noconftest tests/test_torch_cuda.py -q
+
+Each case compares the kernel with its plain PyTorch version on the same
+CUDA tensor. Tolerances, relative to max|ref|: 1e-12 in float64, 1e-4 in
+float32 (the two sum in different orders).
+"""
+
+import pytest
+import torch
+
+from rla4mor_tpu_torch.ops import srht_cuda
+from rla4mor_tpu_torch.ops import embeddings as temb
+from rla4mor_tpu_torch.ops.fwht import _srht_plan
+
+pytestmark = pytest.mark.cuda
+
+TOL = {torch.float32: 1e-4, torch.float64: 1e-12}
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda:0")
+
+
+def rel_err(out, ref):
+    scale = ref.abs().max().clamp_min(torch.finfo(ref.dtype).tiny)
+    return ((out - ref).abs().max() / scale).item()
+
+
+def _input(n, m, layout, dtype, device):
+    g = torch.Generator(device=device).manual_seed(n * 31 + m)
+    if layout == "cols":
+        return torch.randn((n, m), generator=g, device=device, dtype=dtype)
+    if layout == "rows":
+        return torch.randn((m, n), generator=g, device=device, dtype=dtype).T
+    if layout == "every_other_row":
+        return torch.randn((2 * n, m), generator=g, device=device, dtype=dtype)[::2]
+    if layout == "column_slice":
+        return torch.randn((n, m + 2), generator=g, device=device, dtype=dtype)[:, 1:-1]
+    raise ValueError(layout)
+
+
+CASES = [
+    (1, 1, 1, "cols"),
+    (7, 3, 129, "cols"),
+    (256, 2, 300, "rows"),
+    (257, 9, 64, "cols"),
+    (4099, 4, 300, "every_other_row"),
+    (65541, 1, 300, "rows"),
+    (65541, 9, 129, "column_slice"),
+    (261121, 1, 300, "cols"),
+    (261121, 8, 300, "rows"),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("n,m,k,layout", CASES)
+def test_kernel_matches_plain(cuda, n, m, k, layout, dtype):
+    x = _input(n, m, layout, dtype, cuda)
+    signs, sampling, _ = _srht_plan(n, n, k)
+    before = srht_cuda.srht_onepass.launches
+    out = srht_cuda.srht_onepass(x, k, signs, sampling)
+    torch.cuda.synchronize()
+    assert srht_cuda.srht_onepass.launches == before + 1
+    assert out.shape == (k, m) and out.dtype == dtype and out.is_cuda
+    ref = srht_cuda.srht_onepass_plain(x, k, signs, sampling)
+    assert rel_err(out, ref) < TOL[dtype]
+
+
+def test_kernel_is_deterministic(cuda):
+    x = _input(261121, 8, "cols", torch.float32, cuda)
+    signs, sampling, _ = _srht_plan(0, 261121, 300)
+    a = srht_cuda.srht_onepass(x, 300, signs, sampling)
+    b = srht_cuda.srht_onepass(x, 300, signs, sampling)
+    assert torch.equal(a, b)
+
+
+def test_complex_input_launches_twice(cuda):
+    n, m, k = 70000, 2, 50
+    x = torch.complex(_input(n, m, "cols", torch.float64, cuda),
+                      _input(n, m, "rows", torch.float64, cuda))
+    signs, sampling, _ = _srht_plan(1, n, k)
+    before = srht_cuda.srht_onepass.launches
+    out = srht_cuda.srht_onepass(x, k, signs, sampling)
+    assert srht_cuda.srht_onepass.launches == before + 2
+    ref = torch.complex(srht_cuda.srht_onepass_plain(x.real, k, signs, sampling),
+                        srht_cuda.srht_onepass_plain(x.imag, k, signs, sampling))
+    assert rel_err(out, ref) < 1e-12
+
+
+def test_unsupported_input_raises_on_the_card(cuda):
+    signs, sampling, _ = _srht_plan(0, 100, 8)
+    with pytest.raises(NotImplementedError):
+        srht_cuda.srht_onepass(torch.ones(100, 2, dtype=torch.bfloat16, device=cuda),
+                               8, signs, sampling)
+    with pytest.raises(ValueError):
+        srht_cuda.srht_onepass(torch.ones(100, 2, device=cuda), 8, signs[:50],
+                               sampling)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+def test_embedding_dispatches_to_the_kernel(cuda, dtype):
+    """n >= 2^16: 1-D, (n, m) and blocked (m, B, R) input all launch the
+    kernel and agree with the same sketch of the data on the CPU."""
+    n, k = 65541, 200
+    emb = temb.SrhtEmbedding(k, n, seed=3, device=cuda, dtype=dtype)
+    cpu = temb.SrhtEmbedding(k, n, seed=3, dtype=torch.float64)
+    x = _input(n, 5, "cols", dtype, cuda)
+    for X, expect in ((x[:, 0], 1), (x, 1), (emb.to_blocked(x), 1)):
+        before = srht_cuda.srht_onepass.launches
+        out = emb.apply_random(X)
+        assert srht_cuda.srht_onepass.launches == before + expect
+        ref = cpu.apply_random(x[:, 0].double().cpu() if X.dim() == 1
+                               else x.double().cpu())
+        assert rel_err(out.double().cpu(), ref) < TOL[dtype]
+
+
+def test_slice_on_the_card_matches_the_cpu(cuda, monkeypatch):
+    """The small slice (one-pass branch forced) on CUDA in float32 selects
+    the same parameters as on the CPU in float64, with ROM outputs close."""
+    from rla4mor_tpu_torch.core import mu_stack
+    from rla4mor_tpu_torch.models import ThermalBlockFOM
+    from rla4mor_tpu_torch.mor import SketchedReductor, rb_greedy
+    from rla4mor_tpu_torch.serve import serve_batch
+
+    monkeypatch.setattr(temb.SrhtEmbedding, "_ONEPASS_MIN_DIM", 1)
+    results = {}
+    for dev in (torch.device("cpu"), cuda):
+        fom = ThermalBlockFOM((2, 2), 32, device=dev)
+        Ru = fom.h1_0_product
+        theta = temb.SrhtEmbedding.make(fom.solution_dim, sqrt_product=Ru.sqrt,
+                                        range_dim=120, seed=0, device=dev)
+        red = SketchedReductor(fom, embedding_primal=theta, product=Ru,
+                               log_level=30)
+        train = fom.parameter_space.sample_randomly(40, seed=0, device=dev)
+        before = srht_cuda.srht_onepass.launches
+        res = rb_greedy(fom, red, train, max_extensions=4, log_level=30)
+        launched = srht_cuda.srht_onepass.launches - before
+        out = serve_batch(res.rom, mu_stack(train[:16]))
+        results[dev.type] = (res, out, launched)
+    (rc, oc, lc), (rg, og, lg) = results["cpu"], results["cuda"]
+    assert lc == 0 and lg > 0
+    picked = [float(v) for m in rg.selected_mus for v in m["diffusion"]]
+    assert picked == pytest.approx(
+        [float(v) for m in rc.selected_mus for v in m["diffusion"]], rel=1e-6)
+    assert rg.max_estimates == pytest.approx(rc.max_estimates, rel=1e-3)
+    assert rel_err(og["output"].double().cpu(), oc["output"]) < 1e-4

@@ -1,0 +1,50 @@
+"""Importing the PyTorch port pulls in no JAX and compiles nothing."""
+
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent.parent
+
+_CHILD = r"""
+import importlib, os, pkgutil, subprocess, sys
+
+import numpy, numpy.testing, scipy.sparse.linalg, torch  # third-party first
+
+def refuse(*args, **kwargs):
+    raise AssertionError(f"importing started a process: {args!r}")
+
+subprocess.run = subprocess.Popen = subprocess.check_call = refuse
+
+import rla4mor_tpu_torch as pkg
+
+build = os.path.join(pkg.__path__[0], "_build")
+before = sorted(os.listdir(build)) if os.path.isdir(build) else None
+names = [m.name for m in pkgutil.walk_packages(pkg.__path__, "rla4mor_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+after = sorted(os.listdir(build)) if os.path.isdir(build) else None
+
+from rla4mor_tpu_torch.utils import nvcc
+
+assert "jax" not in sys.modules, sorted(m for m in sys.modules if "jax" in m)
+assert "rla4mor_tpu" not in sys.modules
+assert before == after, (before, after)
+assert nvcc.loaded() == ()
+print(len(names))
+"""
+
+
+def test_port_imports_no_jax_and_builds_nothing():
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    proc = subprocess.run([sys.executable, "-c", _CHILD], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert int(proc.stdout.strip()) >= 18  # every module of the slice
+
+
+def test_chip_smoke_imports_no_jax():
+    src = (ROOT / "chip_smoke.py").read_text()
+    assert "import jax" not in src and "rla4mor_tpu." not in src.replace(
+        "rla4mor_tpu_torch", "")

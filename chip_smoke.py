@@ -7,25 +7,52 @@ Phases, each printing one line (any failed check raises and exits non-zero):
 
 1. device: requires CUDA; prints the card's name and power limit
    (nvidia-smi) and turns TF32 off;
-2. build: compiles the one-pass SRHT kernel from ``rla4mor_tpu_torch/csrc``
-   with nvcc and prints the build time;
-3. kernel vs plain: the hand-written kernel against its plain PyTorch
+2. build: compiles every kernel source of ``rla4mor_tpu_torch/csrc`` with
+   nvcc, one process per source, all started together, and prints each
+   build time;
+3. SRHT kernel vs plain: the one-pass SRHT kernel against its plain PyTorch
    version on the same inputs on the card, float32 and float64, at the
    slice's shapes (n = 261,121, m = 1 and 8) and the bench shape
    (``SrhtEmbedding(k=256, n=2^24).apply_random`` on a (56, B, R) float32
    block and on (n, 56) columns). Tolerance relative to max|ref|: 1e-12 in
    float64, 1e-4 in float32 (sums of up to 1.7e7 terms); the plain float32
-   version's own error against float64 is printed beside it. Times come
-   from CUDA events;
-4. the slice: thermal block 2x2 at ``--grid`` intervals (n = 261,121 at
-   512, so every sketch takes the kernel), SRHT k = 300 over the h1_0
+   version's own error against float64 is printed beside it;
+4. Gaussian kernels vs plain: the strip kernel against its plain version
+   (Rademacher bit-equal, normal to 1e-5 absolute; seeds and strips differ,
+   redraws are equal; mean, standard deviation and tails), and the sketch
+   kernel against its plain version to 1e-4 relative at the HwPrng path's
+   shapes (n = 261,121, m = 1 and 5; k = 256 and 300 normal, 256
+   Rademacher) and the bench shape (n = 2^23, k = 256, m = 8, 32, 128,
+   both dists);
+5. the SRHT slice: thermal block 2x2 at ``--grid`` intervals (n = 261,121
+   at 512, so every sketch takes the kernel), SRHT k = 300 over the h1_0
    sqrt factor, Galerkin reductor, weak greedy over 200 training
    parameters with ``--extensions`` extensions, then ``serve_batch`` on 4
-   request batches padded to 256. Checks: finite outputs, the last max
-   estimate below the first, ROM outputs within 5e-2 of the host FOM at 4
-   held-out parameters, the sketched estimate within a factor 2 of the
-   exact dual residual norm there, and SRHT kernel launches > 0;
-5. the kernels' JSON line, then the result line.
+   request batches padded to 256;
+6. the HwPrng path on the same FOM: ``HwPrngGaussianEmbedding`` k = 256
+   over the sqrt factor, online Gaussian k = 64, Galerkin greedy with
+   ``HW_EXTENSIONS`` extensions, ``reduce_adaptive`` over 64 held-out
+   parameters (tol 0.2), ``serve_batch`` on one batch padded to 256, and
+   ``apply == random_matrix() @ (Q U)`` on the final basis (1e-4 relative);
+   then a second ``reduce_adaptive`` from an online k = 32 at tol 0.05,
+   which must double the online sketch at least once.
+   Checks of both paths: finite outputs, the last max estimate below the
+   first, ROM outputs within 5e-2 of the host FOM at 4 held-out
+   parameters, the sketched estimate within a factor 2 of the exact dual
+   residual norm there, and each kernel of the path launched (counts set
+   to 0 just before the path and read just after);
+7. the kernels' JSON line, then the result line.
+
+Times are CUDA-event means after a warm-up. Every kernel row also times
+one library call on the same input (``torch.matmul`` with the explicit
+operator, TF32 off: the SRHT matrix built on the card, a pre-drawn Gaussian
+Omega), a yardstick that the port never calls. Bounds: the larger of the bytes
+the function must move (each input read once, each output written once)
+at 3.35 TB/s and the operations the function needs at the card's peak for
+their type (67 TFLOP/s float32 on the CUDA cores, 67 TFLOP/s float64 on
+the tensor cores), from this run's shapes. For the SRHT that is the
+cheaper of the direct product (2 k n flop per column) and an FWHT
+(2^d d adds per column, n <= 2^d); for the Gaussian sketch 2 k n m flop.
 
 Imports no JAX. Needs the repository (it imports ``rla4mor_tpu_torch``).
 """
@@ -38,6 +65,7 @@ import math
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -45,7 +73,12 @@ import torch
 SLICE_N = 261_121  # (512 - 1)^2 thermal-block unknowns
 SLICE_K = 300
 BENCH_LOG2N, BENCH_K, BENCH_M = 24, 256, 56
+GAUSS_K, GAUSS_W = 256, 2048
+HW_EXTENSIONS = 6  # the HwPrng greedy runs at full width
+GAUSS_BENCH_LOG2N, GAUSS_BENCH_MS = 23, (8, 32, 128)
 TOL = {torch.float64: 1e-12, torch.float32: 1e-4}
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 67e12}
 
 
 def check(ok: bool, message: str) -> None:
@@ -71,7 +104,14 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def compare(label, x_cols, k, signs, sampling, reps, kernel):
+def bound(nbytes: float, flops: float, dtype) -> tuple[float, str]:
+    """(least time in ms, the term that sets it)."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def compare(label, x_cols, k, signs, sampling, reps, kernel, library=None):
     """``kernel()`` (a call that launches the kernel on ``x_cols``) against
     the plain version on the same input; returns the row of numbers."""
     from rla4mor_tpu_torch.ops import srht_cuda
@@ -93,9 +133,18 @@ def compare(label, x_cols, k, signs, sampling, reps, kernel):
     row["ms"] = cuda_ms(kernel, reps)
     row["plain_ms"] = cuda_ms(
         lambda: srht_cuda.srht_onepass_plain(x_cols, k, signs, sampling), reps)
-    nbytes = x_cols.numel() * x_cols.element_size()
+    row["library_ms"] = None if library is None else cuda_ms(library, reps)
+    n, m = x_cols.shape
+    size = x_cols.element_size()
+    nbytes = n * m * size
     row["GBps"] = nbytes / row["ms"] / 1e6
     row["plain_GBps"] = nbytes / row["plain_ms"] / 1e6
+    # x, the int8 signs and int32 sampled rows read once, the output written;
+    # the operations of the cheaper algorithm: direct product or FWHT
+    d = max(1, (n - 1).bit_length())
+    ops = m * min(2.0 * k * n, float(d << d))
+    row["bound_ms"], row["bound_by"] = bound(nbytes + n + 4 * k + k * m * size,
+                                             ops, x_cols.dtype)
     phase("kernel", **row)
     check(row["rel_err"] <= TOL[x_cols.dtype],
           f"{label} {row['dtype']}: kernel vs plain {row['rel_err']:.3e} > "
@@ -103,23 +152,50 @@ def compare(label, x_cols, k, signs, sampling, reps, kernel):
     return row
 
 
+def explicit_srht(signs, sampling, n: int, k: int, dtype, device,
+                  chunk: int = 1 << 20) -> torch.Tensor:
+    """The (k, n) SRHT matrix built on the card, column chunk by chunk:
+    S[s, i] = signs[i] (-1)^popcount(sampling[s] & i) / sqrt(k) (the
+    library yardstick's operand; the port never forms it)."""
+    S = torch.empty((k, n), dtype=dtype, device=device)
+    samp = sampling.to(device=device, dtype=torch.int64)[:, None]
+    sg = signs.to(device=device, dtype=dtype)
+    for c0 in range(0, n, chunk):
+        c1 = min(n, c0 + chunk)
+        a = samp & torch.arange(c0, c1, device=device, dtype=torch.int64)[None, :]
+        for shift in (32, 16, 8, 4, 2, 1):  # parity folds into bit 0
+            a ^= a >> shift
+        S[:, c0:c1] = (1 - 2 * (a & 1)).to(dtype) * sg[c0:c1] / math.sqrt(k)
+        del a
+    return S
+
+
 def kernel_phase(device) -> list[dict]:
     from rla4mor_tpu_torch.ops import srht_cuda
     from rla4mor_tpu_torch.ops.embeddings import SrhtEmbedding
-    from rla4mor_tpu_torch.ops.fwht import _srht_plan
+    from rla4mor_tpu_torch.ops.fwht import _srht_plan, srht_rows
 
     gen = torch.Generator(device=device).manual_seed(0)
     rows = []
-    signs, sampling, _ = _srht_plan(1, SLICE_N, SLICE_K)
-    signs, sampling = signs.to(device), sampling.to(device)
+    plan = _srht_plan(1, SLICE_N, SLICE_K)
+    signs, sampling = plan[0].to(device), plan[1].to(device)
+    # the library yardstick: one product with the explicit (k, n) SRHT matrix
+    explicit = srht_rows(plan, SLICE_N, SLICE_K, device=device)
+    built = explicit_srht(signs, sampling, SLICE_N, SLICE_K, torch.float64, device)
+    check(torch.allclose(built, explicit, rtol=0, atol=1e-15),
+          "explicit SRHT matrix built on the card differs from srht_rows")
+    del built
     for m in (1, 8):
         for dt in (torch.float32, torch.float64):
             x = torch.randn((SLICE_N, m), generator=gen, device=device, dtype=dt)
+            S = explicit.to(dt)
             rows.append(compare(
                 f"slice n={SLICE_N} m={m} k={SLICE_K}", x, SLICE_K, signs, sampling,
                 reps=20, kernel=lambda x=x: srht_cuda.srht_onepass(
-                    x, SLICE_K, signs, sampling)))
-            del x
+                    x, SLICE_K, signs, sampling),
+                library=lambda x=x, S=S: torch.matmul(S, x)))
+            del x, S
+    del explicit
 
     n = 1 << BENCH_LOG2N
     for dt in (torch.float32, torch.float64):
@@ -128,19 +204,112 @@ def kernel_phase(device) -> list[dict]:
         B, R = emb.blocked_shape
         rows_x = torch.randn((BENCH_M, n), generator=gen, device=device, dtype=dt)
         blocked = rows_x.view(BENCH_M, B, R)
+        S = explicit_srht(b_signs, b_samp, n, BENCH_K, dt, device)
         rows.append(compare(
             f"bench blocked (m,B,R)=({BENCH_M},{B},{R}) k={BENCH_K}", rows_x.T,
             BENCH_K, b_signs, b_samp, reps=3,
-            kernel=lambda: emb.apply_random(blocked)))
+            kernel=lambda: emb.apply_random(blocked),
+            library=lambda: torch.matmul(S, rows_x.T)))
         del blocked
         cols = rows_x.T.contiguous()
         del rows_x
         rows.append(compare(
             f"bench columns (n,m)=({n},{BENCH_M}) k={BENCH_K}", cols, BENCH_K,
-            b_signs, b_samp, reps=3, kernel=lambda: emb.apply_random(cols)))
-        del cols
+            b_signs, b_samp, reps=3, kernel=lambda: emb.apply_random(cols),
+            library=lambda: torch.matmul(S, cols)))
+        del cols, S
         torch.cuda.empty_cache()
     return rows
+
+
+def gaussian_strip_phase(device) -> dict:
+    """The strip kernel against its plain version, and its statistics;
+    returns the normal strip's row."""
+    from rla4mor_tpu_torch.ops import gaussian_cuda as gcu
+
+    rows = {}
+    for dist in ("normal", "rademacher"):
+        strips, errs = {}, []
+        for k, seed, b in ((GAUSS_K, 7, 0), (GAUSS_K, 7, 1), (GAUSS_K, 8, 0), (300, 7, 5)):
+            S = gcu.gaussian_strip(k, seed, b, GAUSS_W, dist, device=device)
+            P = gcu.gaussian_strip_plain(k, seed, b, GAUSS_W, dist, device=device)
+            errs.append((S - P).abs().max().item())
+            if dist == "rademacher":
+                check(torch.equal(S, P), f"rademacher strip {(k, seed, b)} not bit-equal")
+            check(errs[-1] <= 1e-5, f"{dist} strip {(k, seed, b)}: |kernel - plain| "
+                  f"{errs[-1]:.2e} > 1e-5")
+            strips[(k, seed, b)] = S
+        S0 = strips[(GAUSS_K, 7, 0)]
+        check(torch.equal(S0, gcu.gaussian_strip(GAUSS_K, 7, 0, GAUSS_W, dist,
+                                                 device=device)), "redraw differs")
+        check(not torch.equal(S0, strips[(GAUSS_K, 7, 1)]), "strips 0 and 1 equal")
+        check(not torch.equal(S0, strips[(GAUSS_K, 8, 0)]), "seeds 7 and 8 equal")
+        v = S0.double().ravel()
+        mean, std = v.mean().item(), v.std().item()
+        check(abs(mean) < 5e-3 and abs(std - 1.0) < 5e-3, f"{dist} mean {mean} std {std}")
+        if dist == "rademacher":
+            check(set(torch.unique(v).tolist()) == {-1.0, 1.0}, "rademacher values")
+        else:
+            check(v.min().item() < -3.5 and v.max().item() > 3.5, "normal tails")
+        row = {"dist": dist, "k": GAUSS_K, "W": GAUSS_W, "mean": mean, "std": std,
+               "min": v.min().item(), "max": v.max().item(), "max_abs_err": max(errs)}
+        row["ms"] = cuda_ms(lambda: gcu.gaussian_strip(
+            GAUSS_K, 7, 0, GAUSS_W, dist, device=device), 50)
+        row["plain_ms"] = cuda_ms(lambda: gcu.gaussian_strip_plain(
+            GAUSS_K, 7, 0, GAUSS_W, dist, device=device), 10)
+        # no input; the (k, W) float32 output written once
+        row["bound_ms"], row["bound_by"] = bound(4.0 * GAUSS_K * GAUSS_W, 0.0,
+                                                 torch.float32)
+        row["library_ms"] = None
+        phase("gaussian strip", **row)
+        rows[dist] = row
+    return rows["normal"]
+
+
+def gaussian_sketch_row(label, x, k, dist, reps, gen) -> dict:
+    from rla4mor_tpu_torch.ops import gaussian_cuda as gcu
+
+    out = gcu.gaussian_sketch(x, k, 3, GAUSS_W, dist)
+    plain = gcu.gaussian_sketch_plain(x, k, 3, GAUSS_W, dist)
+    torch.cuda.synchronize()
+    err = (out - plain).abs().max().item()
+    n, m = x.shape
+    row = {"label": label, "dist": dist, "max_abs_err": err,
+           "rel_err": err / plain.abs().max().item()}
+    del out, plain
+    row["ms"] = cuda_ms(lambda: gcu.gaussian_sketch(x, k, 3, GAUSS_W, dist), reps)
+    row["plain_ms"] = cuda_ms(lambda: gcu.gaussian_sketch_plain(x, k, 3, GAUSS_W, dist),
+                              max(1, reps // 5))
+    omega = torch.randn((k, n), generator=gen, device=x.device) / math.sqrt(k)
+    row["library_ms"] = cuda_ms(lambda: torch.matmul(omega, x), reps)
+    del omega
+    row["GBps"] = 4.0 * n * m / row["ms"] / 1e6
+    row["bound_ms"], row["bound_by"] = bound(4.0 * (n * m + k * m), 2.0 * k * n * m,
+                                             torch.float32)
+    phase("gaussian sketch", **row)
+    check(row["rel_err"] <= 1e-4, f"{label}: kernel vs plain {row['rel_err']:.3e} > 1e-4")
+    return row
+
+
+def gaussian_kernel_phase(device) -> tuple[dict, list[dict]]:
+    gen = torch.Generator(device=device).manual_seed(1)
+    strip_row = gaussian_strip_phase(device)
+    rows = []
+    for m in (1, 5):
+        x = torch.randn((SLICE_N, m), generator=gen, device=device)
+        for k, dist in ((GAUSS_K, "normal"), (300, "normal"), (GAUSS_K, "rademacher")):
+            rows.append(gaussian_sketch_row(f"path n={SLICE_N} m={m} k={k}", x, k,
+                                            dist, 20, gen))
+        del x
+    n = 1 << GAUSS_BENCH_LOG2N
+    for m in GAUSS_BENCH_MS:
+        x = torch.randn((n, m), generator=gen, device=device)
+        for dist in ("normal", "rademacher"):
+            rows.append(gaussian_sketch_row(f"bench n={n} m={m} k={GAUSS_K}", x,
+                                            GAUSS_K, dist, 5, gen))
+        del x
+        torch.cuda.empty_cache()
+    return strip_row, rows
 
 
 def dual_residual_norm(fom, Ru, u: np.ndarray, mu) -> float:
@@ -150,58 +319,19 @@ def dual_residual_norm(fom, Ru, u: np.ndarray, mu) -> float:
     return float(np.sqrt(max(r @ v, 0.0)))
 
 
-def slice_phase(device, grid: int, extensions: int, training: int = 200,
-                batch: int = 256, requests=(256, 200, 97, 256)) -> dict:
-    """The main path once: FOM, SRHT-sketched greedy, checks, serving."""
-    from rla4mor_tpu_torch.core import mu_stack
-    from rla4mor_tpu_torch.models import ThermalBlockFOM
-    from rla4mor_tpu_torch.mor import SketchedReductor, rb_greedy
-    from rla4mor_tpu_torch.ops import SrhtEmbedding, srht_cuda
-    from rla4mor_tpu_torch.serve import pad_batch, serve_batch
-
-    def sync():
-        if device.type == "cuda":
-            torch.cuda.synchronize()
-
-    t0 = time.perf_counter()
-    fom = ThermalBlockFOM((2, 2), grid, device=device)
-    t_fom = time.perf_counter() - t0
-    n = fom.solution_dim
-    Ru = fom.h1_0_product
-    theta = SrhtEmbedding.make(n, sqrt_product=Ru.sqrt, range_dim=SLICE_K,
-                               seed=0, device=device)
-    reductor = SketchedReductor(fom, embedding_primal=theta, product=Ru,
-                                projection="galerkin", log_level=30)
-    train = fom.parameter_space.sample_randomly(training, seed=0, device=device)
-
-    host_solve = []
-    solve = fom.solve
-
-    def timed_solve(mu):
-        t = time.perf_counter()
-        u = solve(mu)
-        host_solve.append(time.perf_counter() - t)
-        return u
-
-    fom.solve = timed_solve
-    srht_cuda.srht_onepass.launches = 0
-    t0 = time.perf_counter()
-    result = rb_greedy(fom, reductor, train, max_extensions=extensions,
-                       log_level=30)
-    sync()
-    t_greedy = time.perf_counter() - t0
-    fom.solve = solve
-    rom = result.rom
-    est = result.max_estimates
-
-    check(all(math.isfinite(e) for e in est), f"greedy estimates {est}")
+def check_rom(fom, reductor, result, device, label) -> dict:
+    """The checks both paths share: finite ROM, falling estimates, outputs
+    and estimates against the host FOM at 4 held-out parameters."""
+    rom, est = result.rom, result.max_estimates
+    check(all(math.isfinite(e) for e in est), f"{label}: greedy estimates {est}")
     for name, op in (("lhs", rom.lhs), ("rhs", rom.rhs),
                      ("est_lhs", rom.error_estimator.lhs),
                      ("est_rhs", rom.error_estimator.rhs),
                      ("out", rom.output_functional)):
-        check(bool(torch.isfinite(op.stack).all()), f"ROM {name} not finite")
-    check(est[-1] < est[0], f"max estimate did not drop: {est[0]} -> {est[-1]}")
+        check(bool(torch.isfinite(op.stack).all()), f"{label}: ROM {name} not finite")
+    check(est[-1] < est[0], f"{label}: max estimate did not drop: {est[0]} -> {est[-1]}")
 
+    Ru = reductor.product
     held = fom.parameter_space.sample_randomly(4, seed=1, device=device)
     out_vec = fom.output_functional.stack[0, 0].double().cpu().numpy()
     rows = []
@@ -217,15 +347,64 @@ def slice_phase(device, grid: int, extensions: int, training: int = 200,
                      "est_over_true": est_mu / true})
     for r in rows:
         check(math.isfinite(r["out_rel_err"]) and r["out_rel_err"] <= 5e-2,
-              f"ROM output error {r['out_rel_err']:.3e} > 5e-2")
+              f"{label}: ROM output error {r['out_rel_err']:.3e} > 5e-2")
         check(0.5 <= r["est_over_true"] <= 2.0,
-              f"estimate / exact dual residual {r['est_over_true']:.3f} "
+              f"{label}: estimate / exact dual residual {r['est_over_true']:.3f} "
               "outside [0.5, 2]")
+    return {"max_est_first": est[0], "max_est_last": est[-1],
+            "out_rel_err_max": max(r["out_rel_err"] for r in rows),
+            "est_over_true": [round(r["est_over_true"], 4) for r in rows]}
+
+
+def timed_greedy(fom, reductor, train, extensions):
+    """rb_greedy with the host FOM solves timed -> (result, s, solve s)."""
+    from rla4mor_tpu_torch.mor import rb_greedy
+
+    host_solve = []
+    solve = fom.solve
+
+    def timed_solve(mu):
+        t = time.perf_counter()
+        u = solve(mu)
+        host_solve.append(time.perf_counter() - t)
+        return u
+
+    fom.solve = timed_solve
+    t0 = time.perf_counter()
+    try:
+        result = rb_greedy(fom, reductor, train, max_extensions=extensions,
+                           log_level=30)
+        torch.cuda.synchronize()
+    finally:
+        fom.solve = solve
+    return result, time.perf_counter() - t0, host_solve
+
+
+def slice_phase(fom, device, extensions: int, training: int = 200,
+                batch: int = 256, requests=(256, 200, 97, 256)) -> dict:
+    """The SRHT path once: SRHT-sketched greedy, checks, serving."""
+    from rla4mor_tpu_torch.core import mu_stack
+    from rla4mor_tpu_torch.mor import SketchedReductor
+    from rla4mor_tpu_torch.ops import SrhtEmbedding, srht_cuda
+    from rla4mor_tpu_torch.serve import pad_batch, serve_batch
+
+    n = fom.solution_dim
+    Ru = fom.h1_0_product
+    theta = SrhtEmbedding.make(n, sqrt_product=Ru.sqrt, range_dim=SLICE_K,
+                               seed=0, device=device)
+    reductor = SketchedReductor(fom, embedding_primal=theta, product=Ru,
+                                projection="galerkin", log_level=30)
+    train = fom.parameter_space.sample_randomly(training, seed=0, device=device)
+
+    srht_cuda.srht_onepass.launches = 0
+    result, t_greedy, host_solve = timed_greedy(fom, reductor, train, extensions)
+    checks = check_rom(fom, reductor, result, device, "srht")
+    rom = result.rom
 
     pool = fom.parameter_space.sample_randomly(sum(requests), seed=2,
                                                device=device)
     serve_batch(rom, pad_batch(mu_stack(pool[:requests[0]]), batch)[0])  # warm-up
-    sync()
+    torch.cuda.synchronize()
     served, off = 0, 0
     t0 = time.perf_counter()
     outs = []
@@ -235,25 +414,120 @@ def slice_phase(device, grid: int, extensions: int, training: int = 200,
         outs.append({k: v[:valid] for k, v in out.items()})
         off += count
         served += valid
-    sync()
+    torch.cuda.synchronize()
     t_serve = time.perf_counter() - t0
+    launches = srht_cuda.srht_onepass.launches
     for out in outs:
         for key, v in out.items():
             check(bool(torch.isfinite(v).all()), f"served {key} not finite")
-    launches = srht_cuda.srht_onepass.launches
 
     ext = result.extension_times
-    summary = {
-        "n": n, "fom_build_s": t_fom, "greedy_s": t_greedy,
+    return {
+        "n": n, "greedy_s": t_greedy,
         "extensions": len(ext), "s_per_extension": sum(ext) / len(ext),
         "host_solve_s_per_extension": sum(host_solve) / len(host_solve),
-        "max_est_first": est[0], "max_est_last": est[-1],
-        "out_rel_err_max": max(r["out_rel_err"] for r in rows),
-        "est_over_true": [round(r["est_over_true"], 4) for r in rows],
-        "requests": served, "serve_s": t_serve,
+        **checks, "requests": served, "serve_s": t_serve,
         "requests_per_s": served / t_serve, "srht_launches": launches,
     }
-    return summary
+
+
+def hwprng_phase(fom, device, extensions: int, training: int = 200,
+                 batch: int = 256) -> dict:
+    """The HwPrng path once: in-kernel Gaussian greedy, reduce_adaptive,
+    serving, and the embedding's apply against its explicit matrix."""
+    from rla4mor_tpu_torch.core import mu_stack
+    from rla4mor_tpu_torch.mor import SketchedReductor
+    from rla4mor_tpu_torch.ops import GaussianEmbedding, HwPrngGaussianEmbedding
+    from rla4mor_tpu_torch.ops import gaussian_cuda as gcu
+    from rla4mor_tpu_torch.serve import pad_batch, serve_batch
+
+    n = fom.solution_dim
+    Ru = fom.h1_0_product
+    theta = HwPrngGaussianEmbedding.make(n, sqrt_product=Ru.sqrt, range_dim=GAUSS_K,
+                                         seed=1, dist="normal", device=device)
+    phi = GaussianEmbedding.make(GAUSS_K, range_dim=64, seed=7, device=device)
+    reductor = SketchedReductor(fom, embedding_primal=theta, embedding_online=phi,
+                                product=Ru, projection="galerkin", log_level=30)
+    train = fom.parameter_space.sample_randomly(training, seed=0, device=device)
+    held = mu_stack(fom.parameter_space.sample_randomly(64, seed=3, device=device))
+
+    gcu.gaussian_sketch.launches = 0
+    gcu.gaussian_strip.launches = 0
+    result, t_greedy, host_solve = timed_greedy(fom, reductor, train, extensions)
+    greedy_sketches = gcu.gaussian_sketch.launches
+    t0 = time.perf_counter()
+    rom, info = reductor.reduce_adaptive(held, seed=0, tol=0.2)
+    torch.cuda.synchronize()
+    t_adaptive = time.perf_counter() - t0
+    result.rom = rom  # the held-out checks use the ROM reduce_adaptive returns
+    checks = check_rom(fom, reductor, result, device, "hwprng")
+
+    # the online sketch above is accepted in its first round, so a second
+    # call from k = 32 at a tighter tol drives the doubling branch
+    reductor.embedding_online = GaussianEmbedding.make(GAUSS_K, range_dim=32, seed=11,
+                                                       device=device)
+    t0 = time.perf_counter()
+    _, doubled = reductor.reduce_adaptive(held, seed=0, tol=0.05)
+    torch.cuda.synchronize()
+    t_doubling = time.perf_counter() - t0
+    check(doubled["rounds"] >= 2 and doubled["online_dim"] > 32,
+          f"reduce_adaptive from k_online=32 at tol 0.05 did not double: {doubled}")
+
+    mus, valid = pad_batch(mu_stack(fom.parameter_space.sample_randomly(
+        200, seed=2, device=device)), batch)
+    serve_batch(rom, mus)  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = serve_batch(rom, mus)
+    torch.cuda.synchronize()
+    t_serve = time.perf_counter() - t0
+    for key, v in out.items():
+        check(bool(torch.isfinite(v[:valid]).all()), f"hwprng served {key} not finite")
+
+    U = reductor.rb
+    applied = theta.apply(U)
+    explicit = theta.random_matrix() @ theta.sqrt_product.apply(U)
+    matrix_rel = ((applied - explicit).abs().max() / explicit.abs().max()).item()
+    del explicit
+    sketch_launches = gcu.gaussian_sketch.launches
+    strip_launches = gcu.gaussian_strip.launches
+    check(matrix_rel <= 1e-4, f"hwprng apply vs random_matrix @ QU {matrix_rel:.2e}")
+    check(sketch_launches > 0, "the HwPrng path launched no Gaussian sketch kernel")
+    check(strip_launches > 0, "the HwPrng path launched no Gaussian strip kernel")
+
+    ext = result.extension_times
+    return {
+        "n": n, "k": GAUSS_K, "greedy_s": t_greedy, "extensions": len(ext),
+        "s_per_extension": sum(ext) / len(ext),
+        "host_solve_s_per_extension": sum(host_solve) / len(host_solve),
+        "greedy_sketch_launches": greedy_sketches,
+        "reduce_adaptive_s": t_adaptive, "online_dim": info["online_dim"],
+        "certified": info["certified"], "max_rel_dev": info["max_rel_dev"],
+        "rounds": info["rounds"], "doubling_s": t_doubling,
+        "doubling_online_dim": doubled["online_dim"],
+        "doubling_certified": doubled["certified"],
+        "doubling_max_rel_dev": doubled["max_rel_dev"],
+        "doubling_rounds": doubled["rounds"], **checks, "serve_s": t_serve,
+        "requests_per_s": valid / t_serve, "apply_vs_matrix_rel": matrix_rel,
+        "sketch_launches": sketch_launches, "strip_launches": strip_launches,
+    }
+
+
+def build_all(sources) -> dict:
+    """nvcc of every source, all started together -> {source: seconds}."""
+    from rla4mor_tpu_torch.utils import nvcc
+
+    with ThreadPoolExecutor(len(sources)) as pool:
+        built = dict(zip(sources, pool.map(nvcc.build, sources)))
+    return {src: seconds for src, (_, seconds) in built.items()}
+
+
+def kernel_entry(name, source, replaces, launches, row, dtype="float32") -> dict:
+    return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": launches, "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+            "shape": row.get("label", f"k={row.get('k')} W={row.get('W')}") + " " + dtype}
 
 
 def main(argv=None) -> int:
@@ -277,37 +551,48 @@ def main(argv=None) -> int:
           cuda=torch.version.cuda, python=sys.version.split()[0])
 
     # 2. build
-    from rla4mor_tpu_torch.ops import srht_cuda
-    from rla4mor_tpu_torch.utils import nvcc
+    from rla4mor_tpu_torch.ops import gaussian_cuda, srht_cuda
 
     t0 = time.perf_counter()
+    seconds = build_all([srht_cuda.SOURCE, gaussian_cuda.SOURCE])
     srht_cuda._lib()
-    phase("build", source=srht_cuda.SOURCE,
-          nvcc_s=nvcc.build_seconds(srht_cuda.SOURCE),
-          load_s=time.perf_counter() - t0)
+    gaussian_cuda._lib()
+    phase("build", **{f"nvcc_s[{src}]": s for src, s in seconds.items()},
+          wall_s=time.perf_counter() - t0)
 
-    # 3. kernel vs plain on the card
+    # 3-4. kernels vs plain on the card
     rows = kernel_phase(device)
+    strip_row, gauss_rows = gaussian_kernel_phase(device)
 
-    # 4. the slice, through the entry points a user calls
-    summary = slice_phase(device, args.grid, args.extensions)
+    # 5-6. the paths, through the entry points a user calls
+    from rla4mor_tpu_torch.models import ThermalBlockFOM
+
+    t0 = time.perf_counter()
+    fom = ThermalBlockFOM((2, 2), args.grid, device=device)
+    phase("fom", n=fom.solution_dim, build_s=time.perf_counter() - t0)
+    summary = slice_phase(fom, device, args.extensions)
     phase("slice", **summary)
     check(summary["srht_launches"] > 0, "the main path launched no SRHT kernel")
+    hw = hwprng_phase(fom, device, HW_EXTENSIONS)
+    phase("hwprng", **hw)
 
-    # 5. result
+    # 7. result
     main_row = next(r for r in rows if r["label"].startswith("slice")
                     and r["dtype"] == "float32" and "m=1 " in r["label"])
-    print(json.dumps({"kernels": [{
-        "name": "srht_onepass",
-        "route": "cuda",
-        "source": "rla4mor_tpu_torch/csrc/srht_onepass.cu",
-        "replaces": "rla4mor_tpu/ops/srht_pallas.py:580",
-        "launches": summary["srht_launches"],
-        "max_abs_err": main_row["max_abs_err"],
-        "ms": main_row["ms"],
-        "plain_ms": main_row["plain_ms"],
-        "shape": main_row["label"] + " float32",
-    }]}), flush=True)
+    gauss_row = next(r for r in gauss_rows if r["label"].startswith("path")
+                     and "m=1 " in r["label"] and r["label"].endswith(f"k={GAUSS_K}")
+                     and r["dist"] == "normal")
+    print(json.dumps({"kernels": [
+        kernel_entry("srht_onepass", "rla4mor_tpu_torch/csrc/srht_onepass.cu",
+                     "rla4mor_tpu/ops/srht_pallas.py:580", summary["srht_launches"],
+                     main_row),
+        kernel_entry("gaussian_sketch", "rla4mor_tpu_torch/csrc/gaussian_sketch.cu",
+                     "rla4mor_tpu/ops/gaussian_pallas.py:116", hw["sketch_launches"],
+                     gauss_row),
+        kernel_entry("gaussian_strip", "rla4mor_tpu_torch/csrc/gaussian_sketch.cu",
+                     "rla4mor_tpu/ops/gaussian_pallas.py:189", hw["strip_launches"],
+                     strip_row),
+    ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -61,7 +61,7 @@ class AffineOp:
 
     def assemble_dense(self, mu: Mu | None = None) -> np.ndarray:
         """Host float64 dense matrix at one parameter."""
-        theta = eval_coefficients(self.coefficients, mu).cpu().numpy()
+        theta = eval_coefficients(self.coefficients, mu, device="cpu").numpy()
         out = None
         for t, term in enumerate(self.terms):
             m = np.asarray(torch.as_tensor(term.matrix()).cpu()) * theta[t]
@@ -106,17 +106,22 @@ class AffineDense:
             return (A @ U[..., None])[..., 0]
         return A @ U
 
+    def _promoted(self, M):
+        """(stack, M) on the stack's device in their promoted dtype, as the
+        JAX package's products promote."""
+        M = torch.as_tensor(M).to(self.stack.device)
+        dt = torch.promote_types(self.stack.dtype, M.dtype)
+        return self.stack.to(dt), M.to(dt)
+
     def lmul(self, M) -> "AffineDense":
         """M @ self, term-wise (M dense (p, k))."""
-        M = torch.as_tensor(M).to(self.stack.device)
-        return AffineDense(torch.einsum("pk,tkm->tpm", M, self.stack),
-                           self.coefficients)
+        stack, M = self._promoted(M)
+        return AffineDense(torch.einsum("pk,tkm->tpm", M, stack), self.coefficients)
 
     def rmul(self, M) -> "AffineDense":
         """self @ M, term-wise (M dense (m, q))."""
-        M = torch.as_tensor(M).to(self.stack.device)
-        return AffineDense(torch.einsum("tkm,mq->tkq", self.stack, M),
-                           self.coefficients)
+        stack, M = self._promoted(M)
+        return AffineDense(torch.einsum("tkm,mq->tkq", stack, M), self.coefficients)
 
     def map_terms(self, fn: Callable) -> "AffineDense":
         """terms'_t = fn(terms_t), as one call on the (k, T*m) matrix."""

@@ -135,12 +135,13 @@ def eval_coefficients(coefficients: Sequence[Coefficient], mu: Mu | None,
                       dtype=None, device=None) -> torch.Tensor:
     """Coefficient values as a (..., T) tensor: (T,) for one Mu, (B, T)
     for a batched Mu (constants broadcast over the batch). dtype/device
-    default to those of the Mu leaves (float64 on the CPU without any)."""
+    default to those of the Mu leaves; without any, float64 on
+    :func:`~rla4mor_tpu_torch.utils.config.resolve_device` of ``device``."""
     leaf = None if not mu else torch.as_tensor(next(iter(mu.values())))
     if dtype is None:
         dtype = leaf.dtype if leaf is not None else torch.float64
     if device is None:
-        device = leaf.device if leaf is not None else torch.device("cpu")
+        device = leaf.device if leaf is not None else resolve_device(None)
     batch = () if leaf is None else leaf.shape[:-1]
     vals = [torch.as_tensor(c(mu), dtype=dtype, device=device).expand(batch)
             for c in coefficients]

@@ -50,7 +50,8 @@ class StationaryFOM:
         self.solution_dim = operator.source_dim
 
     def assemble_sparse(self, mu: Mu) -> sps.csc_matrix:
-        theta = eval_coefficients(self.operator.coefficients, mu).cpu().numpy()
+        theta = eval_coefficients(self.operator.coefficients, mu,
+                                  device="cpu").numpy()
         out = None
         for t, term in enumerate(self.operator.terms):
             if not isinstance(term, HostSparseOp):

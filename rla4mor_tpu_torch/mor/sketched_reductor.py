@@ -11,11 +11,15 @@ Counterpart of ``rla4mor_tpu/mor/sketched_reductor.py``:
 * orthonormalisation happens in sketch space: Gram-Schmidt on ``srb``,
   T = pinv(R) applied to rb, residual and output;
 * ``reduce`` emits a Galerkin or minimal-residual :class:`StationaryROM`
-  whose error estimator is the online-sketched residual norm.
+  whose error estimator is the online-sketched residual norm (on an empty
+  basis: the classical reductor's exact estimator);
+* ``reduce_adaptive`` doubles the online sketch until two independent
+  online sketches agree on a parameter batch.
 
 The FOM-side applies (A_j, R^-1 and the sqrt factor Q inside the
 embedding) run on the host; each snapshot reaches the device once, where
-the embedding sketches it (the one-pass SRHT kernel for n >= 2^16).
+the embedding sketches it (the one-pass SRHT kernel for n >= 2^16, the
+in-kernel Gaussian for ``HwPrngGaussianEmbedding``).
 """
 
 from __future__ import annotations
@@ -33,12 +37,14 @@ from rla4mor_tpu_torch.core.affine import (
 )
 from rla4mor_tpu_torch.core.linops import ChainOp
 from rla4mor_tpu_torch.core.orthonormalize import gram_schmidt
+from rla4mor_tpu_torch.core.parameters import Mu
 from rla4mor_tpu_torch.core.products import Product
 from rla4mor_tpu_torch.models.stationary import (
     ResidualErrorEstimator,
     StationaryFOM,
     StationaryROM,
 )
+from rla4mor_tpu_torch.mor.classical_reductor import ClassicalReductor
 from rla4mor_tpu_torch.ops.embeddings import Embedding, IdentityEmbedding
 from rla4mor_tpu_torch.utils.logger import get_logger
 
@@ -48,6 +54,17 @@ def _pinv(R: torch.Tensor) -> torch.Tensor:
     relative (torch's default is max(shape) * eps)."""
     rtol = 10 * max(R.shape) * torch.finfo(R.dtype).eps
     return torch.linalg.pinv(R, rtol=rtol)
+
+
+def _adaptive_rel_dev(rom: StationaryROM, est2: ResidualErrorEstimator,
+                      mus: Mu) -> float:
+    """Max relative deviation between the ROM's estimator and an independent
+    check estimator over a batched Mu."""
+    u = rom.solve(mus)
+    e1 = rom.error_estimator.estimate_error(u, mus)
+    e2 = est2.estimate_error(u, mus)
+    tiny = torch.finfo(e1.dtype).tiny
+    return float(((e1 - e2).abs() / torch.clamp(torch.maximum(e1, e2), min=tiny)).max())
 
 
 class SketchedReductor:
@@ -167,9 +184,10 @@ class SketchedReductor:
         """Emit the online ROM, drawing a fresh online sketch (Galerkin: one
         embedding; minres: one for the system, one for the estimator)."""
         if self.basis_size == 0:
-            raise NotImplementedError(
-                "reduce on an empty basis needs the classical residual "
-                "reductor, which the PyTorch port does not have yet")
+            # classical fallback: the exact Riesz residual estimator of the
+            # empty basis instead of an error
+            self.logger.info("empty basis: classical residual reduction")
+            return ClassicalReductor(self.fom, product=self.product).reduce()
         if self.projection == "galerkin":
             if embedding is None:
                 embedding = self.embedding_online.with_seed(seed)
@@ -195,9 +213,50 @@ class SketchedReductor:
             ls=True, ls_rcond=ls_rcond,
         )
 
-    def reduce_adaptive(self, *args, **kwargs):
-        raise NotImplementedError(
-            "reduce_adaptive is not ported to PyTorch yet (see ROADMAP.md)")
+    def reduce_adaptive(self, mus_batched: Mu, seed=None, tol: float = 0.2,
+                        max_rounds: int = 3, ls_rcond: float = 1e-13):
+        """Emit the ROM, cross-check its error estimator against an
+        independent online sketch over the batched Mu ``mus_batched``, and
+        double the online sketch size until the two agree to relative
+        ``tol`` (or the online size reaches the primal sketch size). The
+        accepted size stays in ``embedding_online``, so later ``reduce``
+        calls keep it.
+
+        Returns ``(rom, info)`` with ``info = {"online_dim", "max_rel_dev",
+        "rounds", "certified"}``."""
+        if self.basis_size == 0:
+            raise ValueError("adaptive reduce needs a nonempty basis")
+        mus = {k: torch.as_tensor(v).to(self.device) for k, v in mus_batched.items()}
+        base_seed = 0 if seed is None else int(seed)
+        k_max = self.embedding_primal.range_dim
+        for rnd in range(max_rounds + 1):
+            rom = self.reduce(seed=base_seed + 2 * rnd, ls_rcond=ls_rcond)
+            # the check sketch comes from a disjoint seed stream (minres
+            # reduce() uses (s, s + 1) itself)
+            est2 = ResidualErrorEstimator(*self._sketch_residual(
+                self.embedding_online.with_seed(base_seed + 100003 + rnd)))
+            dev = _adaptive_rel_dev(rom, est2, mus)
+            k_now = self.embedding_online.range_dim
+            info = {"online_dim": k_now, "max_rel_dev": dev, "rounds": rnd + 1,
+                    "certified": dev <= tol}
+            self.logger.info("adaptive online sketch: k_online=%d max_rel_dev=%.3e",
+                             k_now, dev)
+            if dev <= tol or k_now >= k_max:
+                if dev > tol:
+                    self.logger.warning(
+                        "online sketch at primal size %d still deviates %.2e > "
+                        "tol %.2e", k_now, dev, tol)
+                return rom, info
+            if rnd == max_rounds:
+                # rounds exhausted: keep embedding_online at the size that
+                # produced the returned (uncertified) ROM
+                self.logger.warning(
+                    "adaptive online sketch: rounds exhausted at k_online=%d "
+                    "with max_rel_dev=%.2e > tol %.2e", k_now, dev, tol)
+                return rom, info
+            self.embedding_online = self.embedding_online.with_range_dim(
+                min(2 * k_now, k_max))
+        raise AssertionError("unreachable")
 
     def reconstruct(self, u_reduced) -> torch.Tensor:
         """Lift reduced coefficients to the full space (needs save_rb)."""

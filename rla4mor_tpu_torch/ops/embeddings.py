@@ -1,7 +1,7 @@
 """Random embeddings (oblivious l2 -> l2 and U -> l2 subspace embeddings).
 
-Counterpart of ``rla4mor_tpu/ops/embeddings.py`` for the Gaussian, identity
-and SRHT embeddings. Contract: an embedding Theta wraps an optional
+Counterpart of ``rla4mor_tpu/ops/embeddings.py`` for the Gaussian, identity,
+SRHT and hardware-PRNG Gaussian embeddings. Contract: an embedding Theta wraps an optional
 ``sqrt_product`` Q with Q^H Q = R; ``apply(U) = Omega (Q U)`` where Omega is
 the l2 -> l2 random matrix; ``matrix()`` is the (k, n) map Omega Q.
 
@@ -14,6 +14,7 @@ packages to the same operator.
 
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import numpy as np
@@ -22,6 +23,11 @@ import torch
 from rla4mor_tpu_torch.core.linops import LinOp
 from rla4mor_tpu_torch.ops import dims as _dims
 from rla4mor_tpu_torch.ops.fwht import Plan, _srht_plan, ceil_log2, srht, srht_rows
+from rla4mor_tpu_torch.ops.gaussian_cuda import (
+    DEFAULT_BLOCK_ROWS,
+    gaussian_sketch,
+    gaussian_strip,
+)
 from rla4mor_tpu_torch.ops.srht_cuda import srht_onepass
 from rla4mor_tpu_torch.utils.config import as_tensor, default_dtype, resolve_device
 
@@ -44,6 +50,11 @@ class Embedding(LinOp):
 
     def with_seed(self, seed: Optional[int]) -> "Embedding":
         """Same family and sizes, fresh randomness drawn from ``seed``."""
+        raise NotImplementedError
+
+    def with_range_dim(self, range_dim: int) -> "Embedding":
+        """Same family and seed at sketch size ``range_dim`` (the
+        ``reduce_adaptive`` doubling)."""
         raise NotImplementedError
 
     @property
@@ -124,11 +135,15 @@ class GaussianEmbedding(Embedding):
         return GaussianEmbedding(self.range_dim, self.source_dim, seed,
                                  self.sqrt_product, self.device, self.dtype)
 
+    def with_range_dim(self, range_dim):
+        return GaussianEmbedding(range_dim, self.source_dim, self.seed,
+                                 self.sqrt_product, self.device, self.dtype)
+
     def random_matrix(self):
         from rla4mor_tpu_torch.ops.seeding import gaussian_matrix
 
         return gaussian_matrix(self.seed, self.range_dim, self.l2_dim,
-                               torch.float64).to(self.device, self.dtype)
+                               torch.float64, self.device).to(self.dtype)
 
 
 class IdentityEmbedding(Embedding):
@@ -155,6 +170,13 @@ class IdentityEmbedding(Embedding):
 
     def with_seed(self, seed):
         return self  # deterministic operator: redrawing is a no-op
+
+    def with_range_dim(self, range_dim):
+        if int(range_dim) != self.range_dim:
+            raise ValueError(
+                "IdentityEmbedding has no adjustable sketch size: its range "
+                f"dim is fixed to the l2 dim {self.range_dim}")
+        return self
 
 
 class SrhtEmbedding(Embedding):
@@ -207,6 +229,10 @@ class SrhtEmbedding(Embedding):
         return SrhtEmbedding(self.range_dim, self.source_dim, seed,
                              self.sqrt_product, self.device, self.dtype)
 
+    def with_range_dim(self, range_dim):
+        return SrhtEmbedding(range_dim, self.source_dim, self.seed,
+                             self.sqrt_product, self.device, self.dtype)
+
     @property
     def blocked_shape(self):
         """(B, R) of the blocked rows layout: B = ceil(n / R) blocks of
@@ -255,4 +281,70 @@ class SrhtEmbedding(Embedding):
 
     def random_matrix(self):
         return srht_rows(self.plan, self.l2_dim, self.range_dim,
-                         dtype=torch.float64).to(self.device, self.dtype)
+                         dtype=torch.float64, device=self.device).to(self.dtype)
+
+
+class HwPrngGaussianEmbedding(Embedding):
+    """Gaussian (or Rademacher) embedding whose Omega is drawn inside the
+    sketch kernel (``ops/gaussian_cuda.py``): it exists one shared-memory
+    tile at a time and is never stored.
+
+    Bitstream contract (``ops/philox.py``): the operator is determined by
+    ``(seed, range_dim, block_rows, dist)``. Strip b (columns
+    ``[b W, (b + 1) W)`` of Omega, W = ``block_rows``) is drawn by
+    Philox4x32-10 under the key ``(seed mod 2^32, b)`` in the draw order of
+    the JAX package's TPU kernel: Box-Muller pairs of 64-row draws for
+    ``k % 128 == 0``, cos halves otherwise, sign bits for
+    ``dist="rademacher"``. The same seed names another Omega than
+    :class:`GaussianEmbedding`, and another than the JAX package's
+    ``HwPrngGaussianEmbedding``, whose TPU hardware bits exist only on a
+    TPU. Real only: the sketch and ``random_matrix`` are float32.
+    """
+
+    def __init__(self, range_dim, source_dim, seed=0, sqrt_product=None,
+                 device=None, dtype=None, block_rows: int = DEFAULT_BLOCK_ROWS,
+                 dist: str = "normal"):
+        super().__init__(range_dim, source_dim, seed, sqrt_product, device, dtype)
+        if self.dtype.is_complex:
+            raise TypeError("HwPrngGaussianEmbedding is real-only (the kernel "
+                            "draws real float32 strips); use GaussianEmbedding "
+                            "for complex data")
+        self.block_rows = int(block_rows)
+        self.dist = dist
+
+    @classmethod
+    def make(cls, source_dim, sqrt_product=None, range_dim=None, epsilon=None,
+             delta=None, oblivious_dim=None, seed=0, block_rows=DEFAULT_BLOCK_ROWS,
+             dist="normal", device=None, dtype=None):
+        k = _dims.resolve_dim("gaussian", source_dim, range_dim, epsilon, delta,
+                              oblivious_dim)
+        return cls(k, source_dim, seed, sqrt_product, device, dtype,
+                   block_rows=block_rows, dist=dist)
+
+    def _replace(self, range_dim, seed):
+        return HwPrngGaussianEmbedding(range_dim, self.source_dim, seed,
+                                       self.sqrt_product, self.device, self.dtype,
+                                       self.block_rows, self.dist)
+
+    def with_seed(self, seed):
+        if seed is None:
+            seed = int(np.random.randint(0, 2**31 - 1))
+        return self._replace(self.range_dim, seed)
+
+    def with_range_dim(self, range_dim):
+        return self._replace(range_dim, self.seed)
+
+    def apply_random(self, X):
+        """Omega @ X in float32: (l2_dim,) -> (k,), (l2_dim, m) -> (k, m)."""
+        return gaussian_sketch(self._in(X), self.range_dim, self.seed,
+                               self.block_rows, self.dist)
+
+    def random_matrix(self):
+        """The (k, l2_dim) Omega: the strips side by side, cut to l2_dim and
+        scaled by 1/sqrt(k) in float32, then held in the working dtype."""
+        W = self.block_rows
+        strips = [gaussian_strip(self.range_dim, self.seed, b, W, self.dist,
+                                 device=self.device)
+                  for b in range(-(-self.l2_dim // W))]
+        full = torch.cat(strips, dim=1)[:, :self.l2_dim]
+        return (full / math.sqrt(self.range_dim)).to(self.dtype)

@@ -24,6 +24,7 @@ from typing import Optional, Tuple
 import torch
 
 from rla4mor_tpu_torch.ops.seeding import generator, rademacher_vector
+from rla4mor_tpu_torch.utils.config import resolve_device
 
 _MAX_FACTOR_LOG = 8
 
@@ -50,8 +51,9 @@ def _hadamard_cpu(log2n: int) -> torch.Tensor:
 
 
 def hadamard_matrix(log2n: int, dtype=torch.float64, device=None) -> torch.Tensor:
-    """Sylvester-ordered Hadamard matrix H[i, j] = (-1)^popcount(i & j)."""
-    return _hadamard_cpu(log2n).to(device=device or "cpu", dtype=dtype)
+    """Sylvester-ordered Hadamard matrix H[i, j] = (-1)^popcount(i & j),
+    built on the CPU once per size and moved to ``device``."""
+    return _hadamard_cpu(log2n).to(device=resolve_device(device), dtype=dtype)
 
 
 def _split_factors(d: int) -> Tuple[int, ...]:
@@ -113,7 +115,8 @@ def srht_rows(
     dtype=torch.float64, device=None,
 ) -> torch.Tensor:
     """Explicit rows of the (k, n) SRHT matrix: FWHT'ed one-hots at the
-    sampled positions, truncated to n, sign-flipped, scaled sqrt(2^d/k)."""
+    sampled positions, truncated to n, sign-flipped, scaled sqrt(2^d/k).
+    Built on the CPU and moved to ``device``."""
     rademacher, sampling, d = plan
     if indices is None:
         indices = torch.arange(k)
@@ -121,4 +124,4 @@ def srht_rows(
     onehot = torch.nn.functional.one_hot(sel, 1 << d).to(dtype)
     rows = fwht(onehot, normalize=True)[:, :n]
     rows = math.sqrt((1 << d) / k) * rows * rademacher.cpu().to(dtype)[None, :]
-    return rows.to(device=device or "cpu")
+    return rows.to(device=resolve_device(device))

@@ -25,6 +25,8 @@ import math
 import numpy as np
 import torch
 
+from rla4mor_tpu_torch.utils.config import resolve_device
+
 TILE_K = 128
 TILE_N = 4096
 SIGN_BLOCK = 4096
@@ -64,9 +66,10 @@ def gaussian_rows(seed: int, n: int, r0: int, r1: int,
 
 def gaussian_matrix(seed: int, k: int, n: int, dtype=torch.float64,
                     device=None) -> torch.Tensor:
-    """The canonical (k, n) Gaussian Omega with iid N(0, 1/k) entries."""
+    """The canonical (k, n) Gaussian Omega with iid N(0, 1/k) entries,
+    drawn on the CPU and moved to ``device``."""
     omega = gaussian_rows(seed, n, 0, k, dtype) / math.sqrt(k)
-    return omega.to(device=device or "cpu")
+    return omega.to(device=resolve_device(device))
 
 
 def gaussian_cols(seed: int, k: int, c0: int, width: int,

@@ -2,14 +2,14 @@
 
 Counterpart of ``rla4mor_tpu/utils/config.py``. The JAX package picks its
 real dtype from the x64 flag: float64 in the CPU tests, float32 on its chip.
-The port makes the same choice from the device a tensor lives on, and every
-constructor takes an explicit ``device=``:
+The port makes the same choice from the device a tensor lives on:
 
-* CPU: float64 (the parity tests hold the port against the JAX package in
-  f64);
-* CUDA: float32, with TF32 switched off, so a float32 matrix product is an
+* CUDA (the default: an entry point given no ``device`` runs on the current
+  card): float32, with TF32 switched off, so a float32 matrix product is an
   IEEE float32 product (TF32 keeps ~3 decimal digits, which would floor the
-  sketched residual estimators).
+  sketched residual estimators);
+* CPU, only where a caller names it (``device="cpu"``): float64 (the parity
+  tests hold the port against the JAX package in f64).
 """
 
 from __future__ import annotations
@@ -18,11 +18,19 @@ import torch
 
 
 def resolve_device(device=None) -> torch.device:
-    """``torch.device`` for ``device``; ``None`` means the CPU.
+    """``torch.device`` for ``device``; ``None`` means the current CUDA
+    device, and raises without one (the CPU is used only when named).
 
     A CUDA device turns TF32 off for matrix products and convolutions: the
     port's float32 contract is IEEE float32."""
-    dev = torch.device("cpu" if device is None else device)
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device: rla4mor_tpu_torch runs on the GPU by default; "
+                'pass device="cpu" to run on the CPU')
+        dev = torch.device("cuda", torch.cuda.current_device())
+    else:
+        dev = torch.device(device)
     if dev.type == "cuda":
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False

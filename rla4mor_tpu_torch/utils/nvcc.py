@@ -26,8 +26,8 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-# loaded libraries by source name: (library, seconds the build took or 0.0)
-_LOADED: dict[str, tuple[ctypes.CDLL, float]] = {}
+# loaded libraries by source name
+_LOADED: dict[str, ctypes.CDLL] = {}
 
 
 def _nvcc() -> str:
@@ -83,15 +83,8 @@ def build(source: str) -> tuple[Path, float]:
 def load(source: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<source>``, building it first if needed."""
     if source not in _LOADED:
-        path, seconds = build(source)
-        _LOADED[source] = (ctypes.CDLL(str(path)), seconds)
-    return _LOADED[source][0]
-
-
-def build_seconds(source: str) -> float | None:
-    """Seconds this process spent compiling ``source`` (None: not loaded)."""
-    entry = _LOADED.get(source)
-    return None if entry is None else entry[1]
+        _LOADED[source] = ctypes.CDLL(str(build(source)[0]))
+    return _LOADED[source]
 
 
 def loaded() -> tuple[str, ...]:

@@ -13,8 +13,10 @@ from rla4mor_tpu.models import ThermalBlockFOM as JaxFOM
 from rla4mor_tpu.models.stationary import StationaryROM as JaxROM
 
 import rla4mor_tpu_torch.core as tcore
+import rla4mor_tpu_torch.ops.embeddings as temb
 from rla4mor_tpu_torch.models import ThermalBlockFOM
 from rla4mor_tpu_torch.models.stationary import StationaryROM
+from rla4mor_tpu_torch.utils.config import resolve_device
 
 
 def rel(a, b):
@@ -25,7 +27,7 @@ def rel(a, b):
 
 @pytest.fixture(scope="module")
 def foms():
-    return JaxFOM((2, 2), 16), ThermalBlockFOM((2, 2), 16)
+    return JaxFOM((2, 2), 16), ThermalBlockFOM((2, 2), 16, device="cpu")
 
 
 def test_coefficients_single_and_batched():
@@ -50,8 +52,8 @@ def test_coefficients_single_and_batched():
 
 def test_parameter_space_sampling():
     space = tcore.ParameterSpace.make({"diffusion": 4}, 0.1, 1.0)
-    a = space.sample_randomly(5, seed=3)
-    b = space.sample_randomly(8, seed=3)
+    a = space.sample_randomly(5, seed=3, device="cpu")
+    b = space.sample_randomly(8, seed=3, device="cpu")
     for x, y in zip(a, b):  # sample i does not depend on the count
         assert torch.equal(x["diffusion"], y["diffusion"])
     vals = torch.stack([m["diffusion"] for m in b])
@@ -102,7 +104,7 @@ def test_project_compose_concat_match_jax(foms):
     assert rel(tc.stack, jc.stack) < 1e-12
     M = rs.normal(size=(4, 225))
     jd = jcore.compose(jcore.DenseOp(jnp.asarray(M)), jw)
-    td = tcore.compose(tcore.DenseOp(M), tw)
+    td = tcore.compose(tcore.DenseOp(M, device="cpu"), tw)
     assert rel(td.stack, jd.stack) < 1e-12
     # concatenation along the source and the range axis
     for axis in (0, 1):
@@ -180,3 +182,27 @@ def test_rom_solve_matches_jax(ls):
     assert rel(trom.solve({"p": torch.tensor(P[2])}), ju[2]) < 1e-10
     assert rel(trom.output(tu, {"p": torch.tensor(P)}),
                jax.vmap(jrom.output)(ju, {"p": jnp.asarray(P)})) < 1e-10
+
+
+# ---------------------------------------------------------------------------
+# default device: the card, never a quiet CPU fallback
+
+DEFAULT_DEVICE_CTORS = {
+    "thermal_block": lambda: ThermalBlockFOM((2, 2), 8),
+    "gaussian_embedding": lambda: temb.GaussianEmbedding.make(50, range_dim=5),
+    "hwprng_embedding": lambda: temb.HwPrngGaussianEmbedding.make(50, range_dim=5),
+    "parameter_sample": lambda: tcore.ParameterSpace.make(
+        {"diffusion": 4}, 0.1, 1.0).sample_randomly(3),
+    "resolve_device": lambda: resolve_device(None),
+}
+
+
+@pytest.mark.parametrize("name", sorted(DEFAULT_DEVICE_CTORS))
+def test_no_device_without_cuda_raises(monkeypatch, name):
+    """Without a card, an entry point given no device raises and names the
+    CPU opt-in; naming the CPU works."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        DEFAULT_DEVICE_CTORS[name]()
+    assert resolve_device("cpu") == torch.device("cpu")
+    assert ThermalBlockFOM((2, 2), 8, device="cpu").device.type == "cpu"

@@ -113,7 +113,7 @@ def test_embedding_dispatches_to_the_kernel(cuda, dtype):
     kernel and agree with the same sketch of the data on the CPU."""
     n, k = 65541, 200
     emb = temb.SrhtEmbedding(k, n, seed=3, device=cuda, dtype=dtype)
-    cpu = temb.SrhtEmbedding(k, n, seed=3, dtype=torch.float64)
+    cpu = temb.SrhtEmbedding(k, n, seed=3, device="cpu", dtype=torch.float64)
     x = _input(n, 5, "cols", dtype, cuda)
     for X, expect in ((x[:, 0], 1), (x, 1), (emb.to_blocked(x), 1)):
         before = srht_cuda.srht_onepass.launches
@@ -154,3 +154,119 @@ def test_slice_on_the_card_matches_the_cpu(cuda, monkeypatch):
         [float(v) for m in rc.selected_mus for v in m["diffusion"]], rel=1e-6)
     assert rg.max_estimates == pytest.approx(rc.max_estimates, rel=1e-3)
     assert rel_err(og["output"].double().cpu(), oc["output"]) < 1e-4
+
+
+# ---------------------------------------------------------------------------
+# Gaussian / Rademacher sketch with Omega drawn in the kernel. Strips:
+# Rademacher bit-equal to the plain version, normals to 1e-5 absolute (the
+# same float32 formulas; the values are at most ~6). Sketches: 1e-4 relative
+# (float32 sums in different orders).
+
+from rla4mor_tpu_torch.ops import gaussian_cuda as gcu  # noqa: E402
+
+STRIP_CASES = [(256, 2048, "normal"), (300, 2048, "normal"), (100, 256, "normal"),
+               (256, 2048, "rademacher"), (300, 100, "rademacher")]
+
+
+@pytest.mark.parametrize("k,W,dist", STRIP_CASES)
+def test_gaussian_strip_kernel_matches_plain(cuda, k, W, dist):
+    before = gcu.gaussian_strip.launches
+    out = gcu.gaussian_strip(k, 7, 3, W, dist, device=cuda)
+    torch.cuda.synchronize()
+    assert gcu.gaussian_strip.launches == before + 1
+    assert out.shape == (k, W) and out.dtype == torch.float32 and out.is_cuda
+    ref = gcu.gaussian_strip_plain(k, 7, 3, W, dist, device=cuda)
+    if dist == "rademacher":
+        assert torch.equal(out, ref)
+    else:
+        assert (out - ref).abs().max().item() <= 1e-5
+
+
+def _x32(n, m, layout, device):
+    return _input(n, m, layout, torch.float32, device)
+
+
+SKETCH_CASES = [
+    (1, 1, 1, 2048, "normal", "cols"),
+    (1000, 1, 300, 256, "normal", "cols"),
+    (4099, 5, 256, 2048, "normal", "rows"),
+    (4099, 9, 128, 100, "rademacher", "every_other_row"),
+    (65541, 33, 100, 2048, "normal", "column_slice"),
+    (65541, 40, 256, 2048, "rademacher", "rows"),
+    (261121, 1, 256, 2048, "normal", "cols"),
+    (261121, 5, 300, 2048, "normal", "cols"),
+]
+
+
+@pytest.mark.parametrize("n,m,k,W,dist,layout", SKETCH_CASES)
+def test_gaussian_sketch_kernel_matches_plain(cuda, n, m, k, W, dist, layout):
+    x = _x32(n, m, layout, cuda)
+    before = gcu.gaussian_sketch.launches
+    out = gcu.gaussian_sketch(x, k, 11, W, dist)
+    torch.cuda.synchronize()
+    assert gcu.gaussian_sketch.launches == before + 1
+    assert out.shape == (k, m) and out.dtype == torch.float32 and out.is_cuda
+    ref = gcu.gaussian_sketch_plain(x, k, 11, W, dist)
+    assert rel_err(out, ref) < 1e-4
+
+
+def test_gaussian_sketch_vector_and_casts(cuda):
+    x = _input(5000, 2, "cols", torch.float64, cuda)
+    out = gcu.gaussian_sketch(x[:, 0], 64, 3, 256)
+    assert out.shape == (64,) and out.dtype == torch.float32
+    ref = gcu.gaussian_sketch_plain(x[:, 0].float(), 64, 3, 256)
+    assert rel_err(out, ref) < 1e-4
+    half = gcu.gaussian_sketch(x.to(torch.bfloat16), 64, 3, 256)
+    assert rel_err(half, gcu.gaussian_sketch_plain(x.to(torch.bfloat16), 64, 3, 256)) < 1e-4
+
+
+def test_gaussian_kernels_are_deterministic(cuda):
+    x = _x32(261121, 8, "cols", cuda)
+    a = gcu.gaussian_sketch(x, 256, 1)
+    b = gcu.gaussian_sketch(x, 256, 1)
+    assert torch.equal(a, b)
+    assert not torch.equal(a, gcu.gaussian_sketch(x, 256, 2))
+    assert torch.equal(gcu.gaussian_strip(256, 1, 5, device=cuda),
+                       gcu.gaussian_strip(256, 1, 5, device=cuda))
+
+
+def test_gaussian_unsupported_input_raises_on_the_card(cuda):
+    x = torch.ones(100, 2, device=cuda)
+    with pytest.raises(TypeError):
+        gcu.gaussian_sketch(torch.complex(x, x), 8, 0)
+    with pytest.raises(ValueError):
+        gcu.gaussian_sketch(x, 8, 0, block_rows=6)
+    with pytest.raises(ValueError):
+        gcu.gaussian_sketch(x, 8, 0, dist="uniform")
+    with pytest.raises(ValueError):
+        gcu.gaussian_strip(8, 0, 0, block_rows=10, device=cuda)
+
+
+def test_hwprng_embedding_dispatches_to_the_kernels(cuda):
+    n, k = 5000, 128
+    emb = temb.HwPrngGaussianEmbedding.make(n, range_dim=k, seed=4, block_rows=1024,
+                                            device=cuda)
+    x = _x32(n, 3, "cols", cuda)
+    s0, t0 = gcu.gaussian_sketch.launches, gcu.gaussian_strip.launches
+    y = emb.apply(x)
+    M = emb.random_matrix()
+    assert gcu.gaussian_sketch.launches == s0 + 1
+    assert gcu.gaussian_strip.launches == t0 + 5
+    assert M.shape == (k, n) and M.is_cuda
+    assert rel_err(y, M @ x) < 1e-4
+
+
+def test_entry_points_default_to_the_card(cuda):
+    """Given no device, the entry points land on the current card (cuda:0
+    here), in float32 with TF32 off."""
+    from rla4mor_tpu_torch.models import ThermalBlockFOM
+
+    torch.backends.cuda.matmul.allow_tf32 = True
+    fom = ThermalBlockFOM((2, 2), 8)
+    assert fom.device == torch.device("cuda:0")
+    assert not torch.backends.cuda.matmul.allow_tf32
+    emb = temb.HwPrngGaussianEmbedding.make(fom.solution_dim, range_dim=8)
+    assert emb.device == torch.device("cuda:0")
+    mu = fom.parameter_space.sample_randomly(2)[0]
+    assert mu["diffusion"].device == torch.device("cuda:0")
+    assert emb.apply(torch.ones(fom.solution_dim, device=cuda)).is_cuda

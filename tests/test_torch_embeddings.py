@@ -30,7 +30,7 @@ def rel(a, b):
 @pytest.fixture(scope="module")
 def sqrts():
     return (JaxFOM((2, 2), 16).h1_0_product.sqrt,
-            ThermalBlockFOM((2, 2), 16).h1_0_product.sqrt)
+            ThermalBlockFOM((2, 2), 16, device="cpu").h1_0_product.sqrt)
 
 
 def _pair(kind, sqrts, use_sqrt):
@@ -39,15 +39,15 @@ def _pair(kind, sqrts, use_sqrt):
     if kind == "gaussian":
         je = jemb.GaussianEmbedding.make(n, sqrt_product=jq, range_dim=k, seed=2)
         te = temb.GaussianEmbedding.from_matrix(np.asarray(je.random_matrix()),
-                                                sqrt_product=tq)
+                                                sqrt_product=tq, device="cpu")
     elif kind == "identity":
         je = jemb.IdentityEmbedding(n, sqrt_product=jq)
-        te = temb.IdentityEmbedding(n, sqrt_product=tq)
+        te = temb.IdentityEmbedding(n, sqrt_product=tq, device="cpu")
     else:
         je = jemb.SrhtEmbedding.make(n, sqrt_product=jq, range_dim=k, seed=2)
         signs, sampling, _ = jax_srht_plan(je.key, n, k)
         te = temb.SrhtEmbedding.from_plan(n, k, np.array(signs), np.array(sampling),
-                                          sqrt_product=tq)
+                                          sqrt_product=tq, device="cpu")
     return je, te
 
 
@@ -71,23 +71,23 @@ def test_apply_equals_matrix_and_jax(sqrts, kind, use_sqrt, monkeypatch):
 def test_seeded_gaussian_is_one_operator_on_every_layout():
     """Row blocks and column strips are slices of the same tile grid."""
     k, n = 150, 5000
-    full = seeding.gaussian_matrix(7, k, n)
+    full = seeding.gaussian_matrix(7, k, n, device="cpu")
     assert full.shape == (k, n)
     assert torch.equal(seeding.gaussian_rows(7, n, 100, 150) / k**0.5, full[100:150])
     assert torch.allclose(seeding.gaussian_cols(7, k, 4000, 700), full[:, 4000:4700],
                           rtol=0, atol=1e-15)
-    assert not torch.equal(seeding.gaussian_matrix(8, k, n), full)
+    assert not torch.equal(seeding.gaussian_matrix(8, k, n, device="cpu"), full)
     assert abs(float(full.std()) * k**0.5 - 1.0) < 0.02
 
 
 def test_seeded_embeddings_apply_equals_matrix():
-    g = temb.GaussianEmbedding.make(300, range_dim=20, seed=4)
-    s = temb.SrhtEmbedding.make(300, range_dim=20, seed=4)
+    g = temb.GaussianEmbedding.make(300, range_dim=20, seed=4, device="cpu")
+    s = temb.SrhtEmbedding.make(300, range_dim=20, seed=4, device="cpu")
     U = torch.tensor(np.random.RandomState(2).normal(size=(300, 3)))
     for e in (g, s, g.with_seed(5), s.with_seed(5)):
         assert rel(e.apply(U), e.matrix() @ U) < 1e-12
     assert not torch.equal(g.matrix(), g.with_seed(5).matrix())
-    assert temb.IdentityEmbedding(300).with_seed(9).range_dim == 300
+    assert temb.IdentityEmbedding(300, device="cpu").with_seed(9).range_dim == 300
 
 
 @pytest.mark.parametrize("args", [(0.5, 0.1, 5, 10000), (0.3, 0.01, 20, 4225)])

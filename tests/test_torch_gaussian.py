@@ -1,0 +1,350 @@
+"""The port's in-kernel Gaussian sketch (Philox contract, plain versions,
+``HwPrngGaussianEmbedding``, the sketched greedy over it) held against the
+JAX package's Pallas kernels.
+
+The TPU kernels draw their bits from the TPU's hardware PRNG, which exists
+nowhere else. Here the JAX kernels run in interpret mode with
+``rla4mor_tpu.ops.gaussian_pallas.pltpu`` swapped for a namespace whose
+``prng_seed`` / ``prng_random_bits`` give the port's Philox4x32-10 words
+(written in ``jnp`` uint64 arithmetic, independently of the port's torch
+version), so both packages draw the same Omega and everything after the bits
+(the draw order, Box-Muller, the contraction, the padding) is compared.
+Tolerances: Rademacher strips bit-equal; normal strips 1e-5 absolute (the
+values are at most ~6; XLA's and torch's log1p/cos/sin differ by ulps);
+sketches and float32 sketched-RB quantities 1e-5 relative.
+"""
+
+import types
+
+import jax
+import jax.experimental.pallas as pl
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.experimental.pallas import tpu as pltpu
+
+import rla4mor_tpu.ops.embeddings as jemb
+import rla4mor_tpu.ops.gaussian_pallas as jgp
+from rla4mor_tpu.models import ThermalBlockFOM as JaxFOM
+from rla4mor_tpu.mor import SketchedReductor as JaxReductor
+from rla4mor_tpu.mor import rb_greedy as jax_rb_greedy
+
+import rla4mor_tpu_torch.ops.embeddings as temb
+from rla4mor_tpu_torch.core import mu_stack
+from rla4mor_tpu_torch.models import ThermalBlockFOM
+from rla4mor_tpu_torch.mor import SketchedReductor, rb_greedy
+from rla4mor_tpu_torch.ops import gaussian_cuda as gcu
+from rla4mor_tpu_torch.ops import philox
+
+W = 256
+M32 = 0xFFFFFFFF
+
+
+def rel(a, b):
+    a, b = np.asarray(a), np.asarray(b)
+    assert a.shape == b.shape, (a.shape, b.shape)
+    return np.abs(a - b).max() / max(np.abs(b).max(), 1e-300)
+
+
+# ---------------------------------------------------------------------------
+# Philox4x32-10 known-answer vectors (Random123)
+
+KAT = [
+    ((0, 0, 0, 0), (0, 0), (0x6627E8D5, 0xE169C58D, 0xBC57AC4C, 0x9B00DBD8)),
+    ((M32,) * 4, (M32, M32), (0x408F276D, 0x41C83B0E, 0xA20BC7C6, 0x6D5451FD)),
+    ((0x243F6A88, 0x85A308D3, 0x13198A2E, 0x03707344), (0xA4093822, 0x299F31D0),
+     (0xD16CFE09, 0x94FDCCEB, 0x5001E420, 0x24126EA1)),
+]
+
+
+def _jnp_philox(c0, c1, c2, c3, k0, k1):
+    """Philox4x32-10 on uint64 arrays holding 32-bit words."""
+    u, mask = jnp.uint64, jnp.uint64(M32)
+    for i in range(10):
+        if i:
+            k0 = (k0 + u(0x9E3779B9)) & mask
+            k1 = (k1 + u(0xBB67AE85)) & mask
+        p0 = u(0xD2511F53) * c0
+        p1 = u(0xCD9E8D57) * c2
+        c0, c1, c2, c3 = (p1 >> 32) ^ c1 ^ k0, p1 & mask, (p0 >> 32) ^ c3 ^ k1, p0 & mask
+    return c0, c1, c2, c3
+
+
+@pytest.mark.parametrize("counter,key,want", KAT, ids=["zeros", "ones", "pi"])
+def test_philox_known_answers(counter, key, want):
+    got = philox.philox4x32(counter, key)
+    assert tuple(int(w) for w in got) == want
+    words = _jnp_philox(*(jnp.uint64(c) for c in counter), *(jnp.uint64(k) for k in key))
+    assert tuple(int(w) for w in words) == want
+
+
+# ---------------------------------------------------------------------------
+# the JAX kernels under the Philox contract
+
+
+class _PhiloxPltpu(types.SimpleNamespace):
+    """``pltpu`` with the hardware PRNG replaced by the port's Philox words:
+    ``prng_seed(a, b)`` keys ``(a mod 2^32, b)`` and restarts the draw count;
+    draw c of shape (rows, W) has entry (r, j) = word j % 4 of
+    Philox(counter (j // 4, r, c, 0))."""
+
+    def __init__(self):
+        super().__init__(key=None, draw=0)
+
+    def __getattr__(self, name):  # everything else is the real module
+        return getattr(pltpu, name)
+
+    def prng_seed(self, a, b):
+        self.key = (a, b)
+        self.draw = 0
+
+    def prng_random_bits(self, shape):
+        def word(v):
+            v = jax.lax.bitcast_convert_type(jnp.asarray(v, jnp.int32), jnp.uint32)
+            return v.astype(jnp.uint64)
+
+        k0, k1 = (word(v) for v in self.key)
+        r = jax.lax.broadcasted_iota(jnp.uint64, shape, 0)
+        j = jax.lax.broadcasted_iota(jnp.uint64, shape, 1)
+        words = _jnp_philox(j // 4, r, jnp.uint64(self.draw), jnp.uint64(0), k0, k1)
+        self.draw += 1
+        sel = j % 4
+        out = jnp.select([sel == 0, sel == 1, sel == 2], list(words[:3]), words[3])
+        return out.astype(jnp.uint32)
+
+    def bitcast(self, x, ty):
+        if x.dtype == jnp.uint32 and jnp.dtype(ty) == jnp.uint32:
+            return x
+        return pltpu.bitcast(x, ty)
+
+
+def _clear_jax_caches():
+    for fn in (jgp.gaussian_sketch, jgp.gaussian_strip):
+        fn.clear_cache()
+
+
+@pytest.fixture
+def philox_pallas(monkeypatch):
+    """The JAX Gaussian kernels draw Philox words and run in interpret mode
+    (also when the JAX embedding calls them without ``interpret``)."""
+    _clear_jax_caches()
+    monkeypatch.setattr(jgp, "pltpu", _PhiloxPltpu())
+    orig = pl.pallas_call
+
+    def interpreted(*args, **kwargs):
+        kwargs["interpret"] = True
+        return orig(*args, **kwargs)
+
+    monkeypatch.setattr(jgp.pl, "pallas_call", interpreted)
+    yield
+    _clear_jax_caches()
+
+
+STRIPS = [(256, "normal"), (100, "normal"), (300, "rademacher"), (128, "rademacher")]
+
+
+@pytest.mark.parametrize("k,dist", STRIPS)
+def test_strip_matches_jax_kernel(philox_pallas, k, dist):
+    for seed, b in ((7, 0), (7, 3), (-5, 2)):
+        ref = np.asarray(jgp.gaussian_strip(k, seed, b, block_rows=W, dist=dist,
+                                            interpret=True))
+        out = gcu.gaussian_strip(k, seed, b, W, dist, device="cpu")
+        assert out.dtype == torch.float32 and out.shape == (k, W)
+        if dist == "rademacher":
+            assert np.array_equal(out.numpy(), ref)
+        else:
+            assert np.abs(out.numpy() - ref).max() <= 1e-5
+
+
+SKETCHES = [(256, "normal", 3 * W + 37, 5), (100, "normal", 1000, 3),
+            (300, "rademacher", 2 * W, 4), (256, "rademacher", 700, 1)]
+
+
+@pytest.mark.parametrize("k,dist,n,m", SKETCHES)
+def test_sketch_matches_jax_kernel(philox_pallas, k, dist, n, m):
+    X = np.random.RandomState(n + m).normal(size=(n, m)).astype(np.float32)
+    ref = np.asarray(jgp.gaussian_sketch(jnp.asarray(X), k, 11, block_rows=W,
+                                         dist=dist, interpret=True))
+    out = gcu.gaussian_sketch(torch.tensor(X), k, 11, W, dist)
+    assert out.dtype == torch.float32
+    assert rel(out, ref) < 1e-5
+    # the plain version is the wrapper's CPU path, and the strips' sum
+    assert torch.equal(out, gcu.gaussian_sketch_plain(torch.tensor(X), k, 11, W, dist))
+    strips = [gcu.gaussian_strip_plain(k, 11, b, W, dist, device="cpu").double()
+              for b in range(-(-n // W))]
+    oracle = torch.cat(strips, dim=1)[:, :n] @ torch.tensor(X).double() / k**0.5
+    assert rel(out, oracle) < 1e-5
+
+
+def test_vector_input_and_dtypes(philox_pallas):
+    x = np.random.RandomState(2).normal(size=(600,))
+    ref = np.asarray(jgp.gaussian_sketch(jnp.asarray(x), 64, 3, block_rows=W,
+                                         interpret=True))
+    for xt in (torch.tensor(x), torch.tensor(x).to(torch.bfloat16)):
+        out = gcu.gaussian_sketch(xt, 64, 3, W)
+        assert out.shape == (64,) and out.dtype == torch.float32
+        tol = 1e-5 if xt.dtype == torch.float64 else 1e-2
+        assert rel(out, ref) < tol
+
+
+def test_complex_input_raises_in_both(philox_pallas):
+    x = np.ones((300, 2)) + 1j
+    with pytest.raises(TypeError):
+        jgp.gaussian_sketch(jnp.asarray(x), 64, 0, block_rows=W, interpret=True)
+    with pytest.raises(TypeError):
+        gcu.gaussian_sketch(torch.tensor(x), 64, 0, W)
+    with pytest.raises(TypeError):
+        temb.HwPrngGaussianEmbedding(64, 300, device="cpu", dtype=torch.complex128)
+
+
+def test_unsupported_arguments_raise():
+    with pytest.raises(ValueError):
+        gcu.gaussian_strip(64, 0, 0, block_rows=254, device="cpu")
+    with pytest.raises(ValueError):
+        gcu.gaussian_sketch(torch.ones(10, 2), 64, 0, dist="uniform")
+    with pytest.raises(ValueError):
+        gcu.gaussian_sketch(torch.ones(10, 2, 2), 64, 0)
+
+
+@pytest.mark.parametrize("dist", ["normal", "rademacher"])
+def test_strip_statistics_and_reproducibility(dist):
+    """As the JAX package's on-TPU test (k = 256, W = 2048)."""
+    def strip(seed, b):
+        return gcu.gaussian_strip_plain(256, seed, b, 2048, dist, device="cpu").numpy()
+
+    S0 = strip(7, 0)
+    assert np.array_equal(S0, strip(7, 0))
+    assert not np.allclose(S0, strip(7, 1))
+    assert not np.allclose(S0, strip(8, 0))
+    v = S0.ravel()
+    assert abs(v.mean()) < 5e-3
+    assert abs(v.std() - 1.0) < 5e-3
+    if dist == "rademacher":
+        assert set(np.unique(v)) == {-1.0, 1.0}
+    else:
+        assert v.min() < -3.5 and v.max() > 3.5
+
+
+# ---------------------------------------------------------------------------
+# the embedding and the sketched greedy over it
+
+
+@pytest.fixture(scope="module")
+def foms():
+    return JaxFOM((2, 2), 16), ThermalBlockFOM((2, 2), 16, device="cpu")
+
+
+def _hw_pair(foms, k=256, seed=1, dist="normal", use_sqrt=True):
+    jfom, tfom = foms
+    n = jfom.solution_dim
+    jq, tq = (jfom.h1_0_product.sqrt, tfom.h1_0_product.sqrt) if use_sqrt else (None, None)
+    je = jemb.HwPrngGaussianEmbedding.make(n, sqrt_product=jq, range_dim=k, seed=seed,
+                                           block_rows=W, dist=dist)
+    te = temb.HwPrngGaussianEmbedding.make(n, sqrt_product=tq, range_dim=k, seed=seed,
+                                           block_rows=W, dist=dist, device="cpu")
+    return je, te
+
+
+@pytest.mark.parametrize("dist", ["normal", "rademacher"])
+@pytest.mark.parametrize("use_sqrt", [False, True], ids=["l2", "h1_0"])
+def test_embedding_matches_jax(philox_pallas, foms, dist, use_sqrt):
+    je, te = _hw_pair(foms, k=100 if dist == "normal" else 256, dist=dist,
+                      use_sqrt=use_sqrt)
+    U = np.random.RandomState(0).normal(size=(225, 4))
+    out = te.apply(torch.tensor(U))
+    assert rel(out, je.apply(jnp.asarray(U))) < 1e-5
+    assert rel(te.random_matrix(), je.random_matrix()) < 1e-5
+    assert rel(out, te.matrix() @ torch.tensor(U)) < 1e-5
+    assert rel(te.apply(torch.tensor(U[:, 1])), je.apply(jnp.asarray(U[:, 1]))) < 1e-5
+    for e in (te.with_seed(3), te.with_range_dim(128)):
+        assert (e.block_rows, e.dist) == (W, dist)
+    assert te.with_range_dim(128).range_dim == 128 and te.with_seed(3).seed == 3
+
+
+class _CarriedGaussian(temb.GaussianEmbedding):
+    """A port Gaussian whose redraws (``with_seed``, ``with_range_dim``)
+    carry the JAX package's Omega for the same (range_dim, seed)."""
+
+    made: dict = {}
+
+    @classmethod
+    def carried(cls, k, n, seed):
+        key = (k, n, seed)
+        if key not in cls.made:
+            omega = np.asarray(jemb.GaussianEmbedding(k, n, seed).random_matrix())
+            cls.made[key] = cls.from_matrix(omega, seed=seed, device="cpu")
+        return cls.made[key]
+
+    def with_seed(self, seed):
+        return self.carried(self.range_dim, self.source_dim, seed)
+
+    def with_range_dim(self, range_dim):
+        return self.carried(range_dim, self.source_dim, self.seed)
+
+
+def _mus(count, seed):
+    rows = np.random.RandomState(seed).uniform(0.1, 1.0, size=(count, 4))
+    return ([{"diffusion": jnp.asarray(r)} for r in rows],
+            [{"diffusion": torch.tensor(r)} for r in rows])
+
+
+def _hw_reductors(foms, dist, k_online=128):
+    jfom, tfom = foms
+    je, te = _hw_pair(foms, dist=dist)
+    jphi = jemb.GaussianEmbedding.make(256, range_dim=k_online, seed=7)
+    tphi = _CarriedGaussian.carried(k_online, 256, 7)
+    jred = JaxReductor(jfom, embedding_primal=je, embedding_online=jphi,
+                       product=jfom.h1_0_product, log_level=30)
+    tred = SketchedReductor(tfom, embedding_primal=te, embedding_online=tphi,
+                            product=tfom.h1_0_product, log_level=30)
+    return jred, tred
+
+
+@pytest.mark.parametrize("dist", ["normal", "rademacher"])
+def test_hwprng_reductor_matches_jax(philox_pallas, foms, dist):
+    """The JAX package's on-TPU integration test, in both packages."""
+    jfom, tfom = foms
+    jred, tred = _hw_reductors(foms, dist)
+    jmus, tmus = _mus(5, 3)
+    jred.extend_basis(jfom.solve_many(jmus))
+    tred.extend_basis(tfom.solve_many(tmus))
+    assert tred.srb.dtype == torch.float32  # the in-kernel sketch is float32
+    assert rel(tred.srb, jred.srb) < 1e-5
+    assert rel(tred.residual_lhs.stack, jred.residual_lhs.stack) < 1e-5
+    jrom, trom = jred.reduce(seed=11), tred.reduce(seed=11)
+    for t, j in ((trom.lhs, jrom.lhs), (trom.rhs, jrom.rhs),
+                 (trom.error_estimator.lhs, jrom.error_estimator.lhs),
+                 (trom.error_estimator.rhs, jrom.error_estimator.rhs)):
+        assert rel(t.stack, j.stack) < 1e-5
+    jt, tt = _mus(6, 4)
+    ju, jest = jrom.solve_and_estimate_batch(
+        {"diffusion": jnp.stack([m["diffusion"] for m in jt])})
+    tu, test_ = trom.solve_and_estimate_batch(mu_stack(tt))
+    assert rel(tu, ju) < 1e-5
+    assert rel(test_, jest) < 1e-5
+    # the estimator tracks the true Riesz residual of the lifted solution
+    u = tred.reconstruct(tu[0]).numpy()
+    r = tfom.assemble_sparse(tt[0]) @ u - tfom.assemble_rhs(tt[0])
+    true = float(np.sqrt(r @ tfom.h1_0_product.inv.apply_host(r)))
+    assert 0.3 * true < float(test_[0]) < 3.0 * true
+
+
+def test_hwprng_greedy_selects_the_same_parameters(philox_pallas, foms):
+    jfom, tfom = foms
+    jred, tred = _hw_reductors(foms, "normal")
+    jmus, tmus = _mus(20, 7)
+    jres = jax_rb_greedy(jfom, jred, jmus, max_extensions=4, log_level=30)
+    tres = rb_greedy(tfom, tred, tmus, max_extensions=4, log_level=30)
+
+    def index(mu, mus):
+        return next(i for i, m in enumerate(mus)
+                    if np.array_equal(np.asarray(m["diffusion"]),
+                                      np.asarray(mu["diffusion"])))
+
+    assert [index(m, tmus) for m in tres.selected_mus] == \
+        [index(m, jmus) for m in jres.selected_mus]
+    assert rel(tres.max_estimates, jres.max_estimates) < 1e-5
+    assert rel(tres.rom.lhs.stack, jres.rom.lhs.stack) < 1e-5
+    assert rel(tres.rom.error_estimator.lhs.stack,
+               jres.rom.error_estimator.lhs.stack) < 1e-5

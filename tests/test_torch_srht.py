@@ -103,7 +103,8 @@ def big_pair():
     k, seed = 80, 4
     je = JaxSrht(k, N_BIG, seed)
     signs, sampling, _ = jax_srht_plan(je.key, N_BIG, k)
-    te = SrhtEmbedding.from_plan(N_BIG, k, np.array(signs), np.array(sampling))
+    te = SrhtEmbedding.from_plan(N_BIG, k, np.array(signs), np.array(sampling),
+                                 device="cpu")
     return je, te
 
 
@@ -143,7 +144,8 @@ def test_small_n_fwht_branch_matches_jax(shape):
     k = 50
     je = JaxSrht(k, 1000, 6)
     signs, sampling, _ = jax_srht_plan(je.key, 1000, k)
-    te = SrhtEmbedding.from_plan(1000, k, np.array(signs), np.array(sampling))
+    te = SrhtEmbedding.from_plan(1000, k, np.array(signs), np.array(sampling),
+                                 device="cpu")
     x = np.random.RandomState(3).normal(size=shape)
     assert rel(te.apply_random(torch.tensor(x)),
                je.apply_random(jnp.asarray(x))) < 1e-12

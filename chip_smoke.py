@@ -23,7 +23,8 @@ Phases, each printing one line (any failed check raises and exits non-zero):
    kernel against its plain version to 1e-4 relative at the HwPrng path's
    shapes (n = 261,121, m = 1 and 5; k = 256 and 300 normal, 256
    Rademacher) and the bench shape (n = 2^23, k = 256, m = 8, 32, 128,
-   both dists);
+   both dists, and m = 9 normal: the two sides of the kernel's small-m
+   threshold);
 5. the SRHT slice: thermal block 2x2 at ``--grid`` intervals (n = 261,121
    at 512, so every sketch takes the kernel), SRHT k = 300 over the h1_0
    sqrt factor, Galerkin reductor, weak greedy over 200 training
@@ -53,6 +54,24 @@ their type (67 TFLOP/s float32 on the CUDA cores, 67 TFLOP/s float64 on
 the tensor cores), from this run's shapes. For the SRHT that is the
 cheaper of the direct product (2 k n flop per column) and an FWHT
 (2^d d adds per column, n <= 2^d); for the Gaussian sketch 2 k n m flop.
+The Gaussian sketch and strip rows have a third term, the generation: the
+Philox4x32-10 calls this run's shape needs (k ceil(n/4) in pairs and
+Rademacher mode, 2 k ceil(n/4) in cos-halves mode; n = W for a strip),
+each at the 32 x 32 -> 64-bit multiplies (IMAD.WIDE.U32) that its own
+counter needs, over 32 of them per clock per SM, the card's SM count and
+its maximum SM clock (nvidia-smi clocks.max.sm). A call has 20 such
+multiplies, but under the counter (j4, r, draw, 0) and the key (seed, b)
+the first ones depend on fewer indices than the call: round 0 multiplies
+j4 (one column quad) and draw, round 1 words of (draw, r) and of (j4, b),
+round 2's first word one of (j4, b, draw): each is shared by every row of
+a draw or every column. So a call needs 15 of its own (one in round 2,
+two in each of rounds 3-9); its 17 three-input XORs run on another pipe
+at 64 a clock and bound less. It is a lower bound: it leaves out that
+shared work, the key schedule, Box-Muller and the contraction, and runs
+every SM at its top clock. The
+largest of the three terms is the bound; a row says
+``bound_by=generation`` where that term wins, and the kernels' JSON line,
+whose words are "bytes" and "operations", says "operations" for it.
 
 Imports no JAX. Needs the repository (it imports ``rla4mor_tpu_torch``).
 """
@@ -75,10 +94,12 @@ SLICE_K = 300
 BENCH_LOG2N, BENCH_K, BENCH_M = 24, 256, 56
 GAUSS_K, GAUSS_W = 256, 2048
 HW_EXTENSIONS = 6  # the HwPrng greedy runs at full width
-GAUSS_BENCH_LOG2N, GAUSS_BENCH_MS = 23, (8, 32, 128)
+GAUSS_BENCH_LOG2N, GAUSS_BENCH_MS = 23, (8, 9, 32, 128)
 TOL = {torch.float64: 1e-12, torch.float32: 1e-4}
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 67e12}
+PHILOX_WIDE_MULS = 15  # per Philox4x32-10 call of an Omega (module docstring)
+WIDE_MULS_PER_CLOCK_SM = 32  # IMAD.WIDE.U32 rate of compute capability 9.0
 
 
 def check(ok: bool, message: str) -> None:
@@ -104,11 +125,24 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound(nbytes: float, flops: float, dtype) -> tuple[float, str]:
-    """(least time in ms, the term that sets it)."""
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
-    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+def bound(nbytes: float, flops: float, dtype, philox_calls: float = 0.0,
+          wide_muls_per_s: float = 1.0) -> tuple[float, str]:
+    """(least time in ms, the term that sets it): bytes, operations
+    (floating point) or generation (Philox's wide multiplies)."""
+    terms = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
+             "operations": flops / PEAK_FLOPS[dtype] * 1e3,
+             "generation": philox_calls * PHILOX_WIDE_MULS / wide_muls_per_s * 1e3}
+    by = max(terms, key=terms.get)
+    return terms[by], by
+
+
+def philox_calls(k: int, n: int, dist: str) -> int:
+    """Philox calls a (k, n) Omega needs under the contract (columns < n
+    only; a quad cut by n still takes its whole call)."""
+    quads = -(-n // 4)
+    if dist == "normal" and k % 128:
+        return 2 * k * quads  # cos halves: 2 calls for 4 entries of one row
+    return k * quads  # pairs: 2 calls for 8 entries; Rademacher: 1 for 4
 
 
 def compare(label, x_cols, k, signs, sampling, reps, kernel, library=None):
@@ -222,7 +256,7 @@ def kernel_phase(device) -> list[dict]:
     return rows
 
 
-def gaussian_strip_phase(device) -> dict:
+def gaussian_strip_phase(device, wide_muls_per_s: float) -> dict:
     """The strip kernel against its plain version, and its statistics;
     returns the normal strip's row."""
     from rla4mor_tpu_torch.ops import gaussian_cuda as gcu
@@ -257,16 +291,18 @@ def gaussian_strip_phase(device) -> dict:
             GAUSS_K, 7, 0, GAUSS_W, dist, device=device), 50)
         row["plain_ms"] = cuda_ms(lambda: gcu.gaussian_strip_plain(
             GAUSS_K, 7, 0, GAUSS_W, dist, device=device), 10)
-        # no input; the (k, W) float32 output written once
-        row["bound_ms"], row["bound_by"] = bound(4.0 * GAUSS_K * GAUSS_W, 0.0,
-                                                 torch.float32)
+        # no input; the (k, W) float32 output written once; its generation
+        row["bound_ms"], row["bound_by"] = bound(
+            4.0 * GAUSS_K * GAUSS_W, 0.0, torch.float32,
+            philox_calls(GAUSS_K, GAUSS_W, dist), wide_muls_per_s)
+        row["share"] = row["bound_ms"] / row["ms"]
         row["library_ms"] = None
         phase("gaussian strip", **row)
         rows[dist] = row
     return rows["normal"]
 
 
-def gaussian_sketch_row(label, x, k, dist, reps, gen) -> dict:
+def gaussian_sketch_row(label, x, k, dist, reps, gen, wide_muls_per_s: float) -> dict:
     from rla4mor_tpu_torch.ops import gaussian_cuda as gcu
 
     out = gcu.gaussian_sketch(x, k, 3, GAUSS_W, dist)
@@ -285,28 +321,30 @@ def gaussian_sketch_row(label, x, k, dist, reps, gen) -> dict:
     del omega
     row["GBps"] = 4.0 * n * m / row["ms"] / 1e6
     row["bound_ms"], row["bound_by"] = bound(4.0 * (n * m + k * m), 2.0 * k * n * m,
-                                             torch.float32)
+                                             torch.float32, philox_calls(k, n, dist),
+                                             wide_muls_per_s)
+    row["share"] = row["bound_ms"] / row["ms"]
     phase("gaussian sketch", **row)
     check(row["rel_err"] <= 1e-4, f"{label}: kernel vs plain {row['rel_err']:.3e} > 1e-4")
     return row
 
 
-def gaussian_kernel_phase(device) -> tuple[dict, list[dict]]:
+def gaussian_kernel_phase(device, wide_muls_per_s: float) -> tuple[dict, list[dict]]:
     gen = torch.Generator(device=device).manual_seed(1)
-    strip_row = gaussian_strip_phase(device)
+    strip_row = gaussian_strip_phase(device, wide_muls_per_s)
     rows = []
     for m in (1, 5):
         x = torch.randn((SLICE_N, m), generator=gen, device=device)
         for k, dist in ((GAUSS_K, "normal"), (300, "normal"), (GAUSS_K, "rademacher")):
             rows.append(gaussian_sketch_row(f"path n={SLICE_N} m={m} k={k}", x, k,
-                                            dist, 20, gen))
+                                            dist, 20, gen, wide_muls_per_s))
         del x
     n = 1 << GAUSS_BENCH_LOG2N
     for m in GAUSS_BENCH_MS:
         x = torch.randn((n, m), generator=gen, device=device)
-        for dist in ("normal", "rademacher"):
+        for dist in ("normal", "rademacher") if m != 9 else ("normal",):
             rows.append(gaussian_sketch_row(f"bench n={n} m={m} k={GAUSS_K}", x,
-                                            GAUSS_K, dist, 5, gen))
+                                            GAUSS_K, dist, 5, gen, wide_muls_per_s))
         del x
         torch.cuda.empty_cache()
     return strip_row, rows
@@ -526,7 +564,9 @@ def kernel_entry(name, source, replaces, launches, row, dtype="float32") -> dict
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches, "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
-            "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+            # the generation term is integer operations
+            "bound_by": "bytes" if row["bound_by"] == "bytes" else "operations",
+            "library_ms": row["library_ms"],
             "shape": row.get("label", f"k={row.get('k')} W={row.get('W')}") + " " + dtype}
 
 
@@ -542,13 +582,19 @@ def main(argv=None) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     print(smi, flush=True)
+    max_sm_mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True).stdout.split()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    wide_muls_per_s = WIDE_MULS_PER_CLOCK_SM * sms * max_sm_mhz * 1e6
     from rla4mor_tpu_torch.utils.config import resolve_device
 
     device = resolve_device("cuda:0")
     check(not torch.backends.cuda.matmul.allow_tf32, "TF32 still on")
     phase("device", name=torch.cuda.get_device_name(0),
           count=torch.cuda.device_count(), torch=torch.__version__,
-          cuda=torch.version.cuda, python=sys.version.split()[0])
+          cuda=torch.version.cuda, python=sys.version.split()[0], sms=sms,
+          max_sm_mhz=max_sm_mhz)
 
     # 2. build
     from rla4mor_tpu_torch.ops import gaussian_cuda, srht_cuda
@@ -562,7 +608,7 @@ def main(argv=None) -> int:
 
     # 3-4. kernels vs plain on the card
     rows = kernel_phase(device)
-    strip_row, gauss_rows = gaussian_kernel_phase(device)
+    strip_row, gauss_rows = gaussian_kernel_phase(device, wide_muls_per_s)
 
     # 5-6. the paths, through the entry points a user calls
     from rla4mor_tpu_torch.models import ThermalBlockFOM

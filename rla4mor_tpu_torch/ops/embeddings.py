@@ -286,8 +286,8 @@ class SrhtEmbedding(Embedding):
 
 class HwPrngGaussianEmbedding(Embedding):
     """Gaussian (or Rademacher) embedding whose Omega is drawn inside the
-    sketch kernel (``ops/gaussian_cuda.py``): it exists one shared-memory
-    tile at a time and is never stored.
+    sketch kernel (``ops/gaussian_cuda.py``): it lives in registers (m <= 8)
+    or one shared-memory tile at a time (wider m) and is never stored.
 
     Bitstream contract (``ops/philox.py``): the operator is determined by
     ``(seed, range_dim, block_rows, dist)``. Strip b (columns

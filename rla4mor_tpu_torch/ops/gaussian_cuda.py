@@ -23,6 +23,7 @@ top of the CUDA source.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import torch
@@ -37,7 +38,11 @@ CHUNK_K = philox.CHUNK_K
 DISTS = ("normal", "rademacher")
 # the plain sketch draws strips in groups of at most this many entries
 _PLAIN_GROUP_ENTRIES = 1 << 26
-# the kernel's tile: kTileK sketch rows by kTileW strip columns, both 128
+# the small-m kernel (registers) takes m <= SMALL_M_MAX, the tiled one the rest
+SMALL_M_MAX = 8
+# small kernel: threads a block aims at (the most it takes is the kernel's)
+_SMALL_THREADS = 256
+# the tiled kernel's tile: kTileK sketch rows by kTileW strip columns, both 128
 _TILE = 128
 # draw order of the kernel (csrc/gaussian_sketch.cu ``Mode``)
 _RADEMACHER, _NORMAL_PAIRS, _NORMAL_COS = 0, 1, 2
@@ -113,16 +118,29 @@ def gaussian_sketch_plain(X, k: int, seed: int,
     return out[:, 0] if single else out
 
 
+@functools.cache
 def _lib() -> ctypes.CDLL:
     lib = nvcc.load(SOURCE)
     lib.gaussian_strip_f32.argtypes = [
         ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_uint32,
         ctypes.c_uint32, ctypes.c_int, ctypes.c_void_p]
     lib.gaussian_strip_f32.restype = ctypes.c_int
-    lib.gaussian_sketch_f32.argtypes = (
+    lib.gaussian_sketch_small_max_threads.argtypes = []
+    lib.gaussian_sketch_small_max_threads.restype = ctypes.c_int
+    lib.gaussian_sketch_small_occupancy.argtypes = (
+        [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)])
+    lib.gaussian_sketch_small_occupancy.restype = ctypes.c_int
+    lib.gaussian_sketch_small_f32.argtypes = (
+        [ctypes.c_void_p] * 3 + [ctypes.c_int64] * 6
+        + [ctypes.c_uint32, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int64,
+           ctypes.c_double, ctypes.c_void_p])
+    lib.gaussian_sketch_small_f32.restype = ctypes.c_int
+    lib.gaussian_sketch_tiled_prepare.argtypes = []
+    lib.gaussian_sketch_tiled_prepare.restype = ctypes.c_int
+    lib.gaussian_sketch_tiled_f32.argtypes = (
         [ctypes.c_void_p] * 3 + [ctypes.c_int64] * 6 + [ctypes.c_uint32, ctypes.c_int]
-        + [ctypes.c_int64] * 2 + [ctypes.c_int, ctypes.c_double, ctypes.c_void_p])
-    lib.gaussian_sketch_f32.restype = ctypes.c_int
+        + [ctypes.c_int64] * 2 + [ctypes.c_double, ctypes.c_void_p])
+    lib.gaussian_sketch_tiled_f32.restype = ctypes.c_int
     return lib
 
 
@@ -130,12 +148,73 @@ def _stream(dev: torch.device) -> int:
     return torch.cuda.current_stream(dev).cuda_stream
 
 
-def _split(n_tiles: int, k_tiles: int, dev: torch.device) -> int:
-    """Tiles per split: about four blocks per SM over the (split, k-tile)
-    grid, at least one tile each."""
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    n_split = max(1, min(n_tiles, -(-4 * sms // k_tiles)))
-    return -(-n_tiles // n_split)
+def _raise_on(err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{what} failed: cudaError {err}")
+
+
+def slot_tiling(k: int, dist: str, max_threads: int) -> tuple[int, int, int]:
+    """(slots, slots per block S, column groups G) of the small kernel,
+    whose blocks take at most ``max_threads`` threads.
+
+    A slot is what one thread generates for a column quad: in pairs mode
+    the two rows (128 p + r, 128 p + 64 + r), otherwise one row, so the
+    slots cover exactly k rows. Slots are spread evenly over as few blocks
+    of at most ``max_threads`` as needed, rounded up to whole warps, and a
+    block of fewer than 256 slots takes G = 256 // S column groups."""
+    slots = k // 2 if _mode(k, dist) == _NORMAL_PAIRS else k
+    tiles = -(-slots // max_threads)
+    S = 32 * -(-(-(-slots // tiles)) // 32)
+    return slots, S, max(1, _SMALL_THREADS // S)
+
+
+def column_split(n: int, slot_tiles: int, resident_blocks: int) -> int:
+    """Column ranges ``n_split`` of the small kernel: its grid is
+    ``n_split`` x ``slot_tiles`` blocks, one per block the card holds at
+    once, and no more ranges than the ceil(n / 4) column quads of [0, n).
+    The kernel gives range z the quads [z nq / n_split, (z + 1) nq /
+    n_split), nq = ceil(n / 4)."""
+    return max(1, min(-(-n // 4), -(-resident_blocks // slot_tiles)))
+
+
+@functools.cache
+def _sm_count(dev_index: int) -> int:
+    return torch.cuda.get_device_properties(dev_index).multi_processor_count
+
+
+@functools.cache
+def _resident_blocks(dev_index: int, mode: int, m: int, S: int, G: int) -> int:
+    """Blocks of the small kernel that device ``dev_index`` (current when
+    called) holds at once, from the occupancy API, once per shape."""
+    per_sm = ctypes.c_int(0)
+    _raise_on(_lib().gaussian_sketch_small_occupancy(mode, m, S, G, ctypes.byref(per_sm)),
+              "gaussian_sketch occupancy query")
+    return _sm_count(dev_index) * max(1, per_sm.value)
+
+
+def small_launch(dev_index: int, n: int, m: int, k: int, dist: str) -> tuple[int, int, int]:
+    """(S, G, n_split) of the small kernel for x (n, m) on CUDA device
+    ``dev_index`` (current when called)."""
+    slots, S, G = slot_tiling(k, dist, _lib().gaussian_sketch_small_max_threads())
+    resident = _resident_blocks(dev_index, _mode(k, dist), m, S, G)
+    return S, G, column_split(n, -(-slots // S), resident)
+
+
+@functools.cache
+def _prepare_tiled(dev_index: int) -> None:
+    """The tiled kernel's shared-memory attribute, once per device."""
+    _raise_on(_lib().gaussian_sketch_tiled_prepare(), "gaussian_sketch tiled setup")
+
+
+def _tiled_launch(dev_index: int, n: int, k: int, W: int) -> tuple[int, int, int]:
+    """(tiles meeting [0, n), tiles per split, n_split) of the tiled kernel."""
+    _prepare_tiled(dev_index)
+    full, rem = divmod(n, W)
+    n_tiles = full * -(-W // _TILE) + -(-rem // _TILE)
+    # about four blocks per SM over the (split, k-tile) grid, >= 1 tile each
+    n_split = max(1, min(n_tiles, -(-4 * _sm_count(dev_index) // -(-k // _TILE))))
+    per_split = -(-n_tiles // n_split)
+    return n_tiles, per_split, -(-n_tiles // per_split)
 
 
 def _launch_sketch(Xm: torch.Tensor, k: int, seed: int, W: int,
@@ -145,20 +224,24 @@ def _launch_sketch(Xm: torch.Tensor, k: int, seed: int, W: int,
         raise ValueError(f"gaussian_sketch: negative strides {Xm.stride()}")
     lib = _lib()
     dev = Xm.device
-    full, rem = divmod(n, W)
-    n_tiles = full * -(-W // _TILE) + -(-rem // _TILE)  # tiles meeting [0, n)
-    per_split = _split(n_tiles, -(-k // _TILE), dev)
-    n_split = -(-n_tiles // per_split)
-    partial = torch.empty((n_split, k, m), dtype=torch.float32, device=dev)
+    # out is its own allocation: a view into the partial buffer would keep
+    # the whole buffer alive as long as the caller holds the sketch
     out = torch.empty((k, m), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
-        err = lib.gaussian_sketch_f32(
-            Xm.data_ptr(), partial.data_ptr(), out.data_ptr(), n, m, k,
-            Xm.stride(0), Xm.stride(1), W, int(seed) & philox.MASK32,
-            _mode(k, dist), n_tiles, per_split, 8 if m <= 8 else 32,
-            1.0 / math.sqrt(k), _stream(dev))
-    if err != 0:
-        raise RuntimeError(f"gaussian_sketch kernel launch failed: cudaError {err}")
+        small = m <= SMALL_M_MAX
+        if small:
+            S, G, n_split = small_launch(dev.index, n, m, k, dist)
+        else:
+            n_tiles, per_split, n_split = _tiled_launch(dev.index, n, k, W)
+        partial = torch.empty(k * m * n_split, dtype=torch.float32, device=dev)
+        args = (Xm.data_ptr(), partial.data_ptr(), out.data_ptr(), n, m, k,
+                Xm.stride(0), Xm.stride(1), W, int(seed) & philox.MASK32, _mode(k, dist))
+        scale, stream = 1.0 / math.sqrt(k), _stream(dev)
+        if small:
+            err = lib.gaussian_sketch_small_f32(*args, S, G, n_split, scale, stream)
+        else:
+            err = lib.gaussian_sketch_tiled_f32(*args, n_tiles, per_split, scale, stream)
+    _raise_on(err, "gaussian_sketch kernel launch")
     gaussian_sketch.launches += 1
     return out
 
@@ -209,8 +292,7 @@ def gaussian_strip(k: int, seed: int, b: int, block_rows: int = DEFAULT_BLOCK_RO
         err = lib.gaussian_strip_f32(out.data_ptr(), k, block_rows,
                                      int(seed) & philox.MASK32, int(b),
                                      _mode(k, dist), _stream(dev))
-    if err != 0:
-        raise RuntimeError(f"gaussian_strip kernel launch failed: cudaError {err}")
+    _raise_on(err, "gaussian_strip kernel launch")
     gaussian_strip.launches += 1
     return out
 

@@ -195,6 +195,17 @@ SKETCH_CASES = [
     (65541, 40, 256, 2048, "rademacher", "rows"),
     (261121, 1, 256, 2048, "normal", "cols"),
     (261121, 5, 300, 2048, "normal", "cols"),
+    # either side of SMALL_M_MAX = 8 (registers below, tiles above)
+    (70001, 8, 256, 2048, "normal", "cols"),
+    (70001, 9, 256, 2048, "normal", "cols"),
+    # m = 1: k = 1, 100, 300 (exact row count, cos halves), strided, W = 4
+    (5003, 1, 1, 2048, "normal", "cols"),
+    (5003, 1, 100, 100, "normal", "cols"),
+    (261121, 1, 300, 2048, "normal", "cols"),
+    (261121, 1, 256, 2048, "rademacher", "every_other_row"),
+    (4097, 1, 128, 4, "normal", "column_slice"),
+    # column ranges that cross strips of W = 100 in the small branch
+    (1001, 3, 100, 100, "rademacher", "rows"),
 ]
 
 
@@ -221,11 +232,12 @@ def test_gaussian_sketch_vector_and_casts(cuda):
 
 
 def test_gaussian_kernels_are_deterministic(cuda):
-    x = _x32(261121, 8, "cols", cuda)
-    a = gcu.gaussian_sketch(x, 256, 1)
-    b = gcu.gaussian_sketch(x, 256, 1)
-    assert torch.equal(a, b)
-    assert not torch.equal(a, gcu.gaussian_sketch(x, 256, 2))
+    for m in (1, 8, 9):
+        x = _x32(261121, m, "cols", cuda)
+        a = gcu.gaussian_sketch(x, 256, 1)
+        b = gcu.gaussian_sketch(x, 256, 1)
+        assert torch.equal(a, b)
+        assert not torch.equal(a, gcu.gaussian_sketch(x, 256, 2))
     assert torch.equal(gcu.gaussian_strip(256, 1, 5, device=cuda),
                        gcu.gaussian_strip(256, 1, 5, device=cuda))
 

@@ -348,3 +348,67 @@ def test_hwprng_greedy_selects_the_same_parameters(philox_pallas, foms):
     assert rel(tres.rom.lhs.stack, jres.rom.lhs.stack) < 1e-5
     assert rel(tres.rom.error_estimator.lhs.stack,
                jres.rom.error_estimator.lhs.stack) < 1e-5
+
+
+# ---------------------------------------------------------------------------
+# the small-m kernel's launch plan (ops/gaussian_cuda.py: slot_tiling,
+# column_split): exact row count, and column ranges that cover [0, n) once.
+# The kernel's own walk of its range is checked against the plain version by
+# the cuda-marked SKETCH_CASES of test_torch_cuda.py.
+
+SMALL_MAX_THREADS = 512  # the small kernel's launch bound (kSmallMaxThreads)
+
+
+def _slot_rows(slot, k, dist):
+    """Rows one slot fills: csrc/gaussian_sketch.cu ``slot_map``."""
+    if dist == "rademacher":
+        return [slot]
+    if k % 128 == 0:
+        row = 128 * (slot // 64) + slot % 64
+        return [row, row + 64]
+    return [slot]
+
+
+SLOT_CASES = [(1, "normal"), (100, "normal"), (256, "normal"), (300, "normal"),
+              (2048, "normal"), (1, "rademacher"), (300, "rademacher"), (1100, "rademacher")]
+
+
+@pytest.mark.parametrize("k,dist", SLOT_CASES)
+def test_small_slots_cover_exactly_k_rows(k, dist):
+    slots, S, G = gcu.slot_tiling(k, dist, SMALL_MAX_THREADS)
+    assert S % 32 == 0 and 32 <= S * G <= SMALL_MAX_THREADS
+    tiles = -(-slots // S)
+    assert (tiles - 1) * S < slots <= tiles * S  # no slot tile is idle
+    rows = [r for s in range(slots) for r in _slot_rows(s, k, dist)]
+    assert sorted(rows) == list(range(k))
+
+
+PLAN_CASES = [
+    (1, 256, "normal", 528),            # one column
+    (2, 300, "normal", 1),              # one resident block
+    (7, 300, "normal", 528),            # n % 4 != 0, fewer quads than blocks
+    (8, 1, "rademacher", 1000),
+    (1001, 100, "rademacher", 64),
+    (4099, 1, "normal", 37),
+    (5000, 300, "rademacher", 100),
+    (65541, 256, "normal", 396),
+    (261121, 256, "normal", 528),       # the HwPrng path's shape
+    (261121, 300, "normal", 660),
+    (1 << 23, 256, "normal", 528),      # the bench shape
+]
+
+
+@pytest.mark.parametrize("n,k,dist,resident", PLAN_CASES)
+def test_small_plan_covers_every_column_once(n, k, dist, resident):
+    slots, S, _ = gcu.slot_tiling(k, dist, SMALL_MAX_THREADS)
+    tiles = -(-slots // S)
+    n_split = gcu.column_split(n, tiles, resident)
+    nq = -(-n // 4)
+    # the grid fills the card's resident blocks, with no more ranges than quads
+    assert 1 <= n_split <= nq
+    assert n_split * tiles >= min(resident, nq * tiles)
+    # the kernel's ranges: block z takes quads [z nq / n_split, (z + 1) nq / n_split)
+    edges = [z * nq // n_split for z in range(n_split + 1)]
+    assert edges[0] == 0 and edges[-1] == nq
+    sizes = {b - a for a, b in zip(edges, edges[1:])}
+    assert sizes <= {nq // n_split, nq // n_split + 1} and min(sizes) >= 1

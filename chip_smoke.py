@@ -13,10 +13,11 @@ Phases, each printing one line (any failed check raises and exits non-zero):
 3. SRHT kernel vs plain: the one-pass SRHT kernel against its plain PyTorch
    version on the same inputs on the card, float32 and float64, at the
    slice's shapes (n = 261,121, m = 1 and 8) and the bench shape
-   (``SrhtEmbedding(k=256, n=2^24).apply_random`` on a (56, B, R) float32
-   block and on (n, 56) columns). Tolerance relative to max|ref|: 1e-12 in
-   float64, 1e-4 in float32 (sums of up to 1.7e7 terms); the plain float32
-   version's own error against float64 is printed beside it;
+   (``SrhtEmbedding(k=256, n=2^24).apply_random`` on a (56, B, R) block
+   and on (n, 56) columns, ``BENCH_REPS`` launches each). Tolerance
+   relative to max|ref|: 1e-12 in float64, 1e-4 in float32 (sums of up to
+   1.7e7 terms); the plain float32 version's own error against float64 is
+   printed beside it;
 4. Gaussian kernels vs plain: the strip kernel against its plain version
    (Rademacher bit-equal, normal to 1e-5 absolute; seeds and strips differ,
    redraws are equal; mean, standard deviation and tails), and the sketch
@@ -34,7 +35,8 @@ Phases, each printing one line (any failed check raises and exits non-zero):
    over the sqrt factor, online Gaussian k = 64, Galerkin greedy with
    ``HW_EXTENSIONS`` extensions, ``reduce_adaptive`` over 64 held-out
    parameters (tol 0.2), ``serve_batch`` on one batch padded to 256, and
-   ``apply == random_matrix() @ (Q U)`` on the final basis (1e-4 relative);
+   ``apply == random_matrix() @ (Q U)`` on the final basis (1e-4 relative:
+   the only strip-kernel launches, counted apart from the path's);
    then a second ``reduce_adaptive`` from an online k = 32 at tol 0.05,
    which must double the online sketch at least once.
    Checks of both paths: finite outputs, the last max estimate below the
@@ -44,16 +46,22 @@ Phases, each printing one line (any failed check raises and exits non-zero):
    to 0 just before the path and read just after);
 7. the kernels' JSON line, then the result line.
 
-Times are CUDA-event means after a warm-up. Every kernel row also times
-one library call on the same input (``torch.matmul`` with the explicit
+Times are CUDA-event means over back-to-back calls after a warm-up (the
+wrapper's host time included where it is longer than the kernel's); an
+SRHT kernel row also prints ``graph_ms``, the same calls captured in one
+CUDA graph and replayed, which leaves the host's time out.
+Every kernel row also times one library call on the same input
+(``torch.matmul`` with the explicit
 operator, TF32 off: the SRHT matrix built on the card, a pre-drawn Gaussian
 Omega), a yardstick that the port never calls. Bounds: the larger of the bytes
 the function must move (each input read once, each output written once)
 at 3.35 TB/s and the operations the function needs at the card's peak for
 their type (67 TFLOP/s float32 on the CUDA cores, 67 TFLOP/s float64 on
 the tensor cores), from this run's shapes. For the SRHT that is the
-cheaper of the direct product (2 k n flop per column) and an FWHT
-(2^d d adds per column, n <= 2^d); for the Gaussian sketch 2 k n m flop.
+cheapest of the direct product (2 k n flop per column), an FWHT of length
+2^d (2^d d adds per column, n <= 2^d) and the blocked FWHT the kernel does
+(B R log2 R + k B adds per column, B = ceil(n / R) blocks of R =
+2^min(11, d)); for the Gaussian sketch 2 k n m flop.
 The Gaussian sketch and strip rows have a third term, the generation: the
 Philox4x32-10 calls this run's shape needs (k ceil(n/4) in pairs and
 Rademacher mode, 2 k ceil(n/4) in cos-halves mode; n = W for a strip),
@@ -92,6 +100,7 @@ import torch
 SLICE_N = 261_121  # (512 - 1)^2 thermal-block unknowns
 SLICE_K = 300
 BENCH_LOG2N, BENCH_K, BENCH_M = 24, 256, 56
+BENCH_REPS = 10
 GAUSS_K, GAUSS_W = 256, 2048
 HW_EXTENSIONS = 6  # the HwPrng greedy runs at full width
 GAUSS_BENCH_LOG2N, GAUSS_BENCH_MS = 23, (8, 9, 32, 128)
@@ -122,6 +131,29 @@ def cuda_ms(fn, reps: int) -> float:
         fn()
     end.record()
     torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def graph_ms(fn, reps: int) -> float:
+    """Mean device time of ``fn`` over ``reps`` calls captured in one CUDA
+    graph and replayed: the launches back to back, no host work between."""
+    stream = torch.cuda.Stream()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.stream(stream):
+        fn()  # warm-up on the capture stream
+        torch.cuda.synchronize()
+        with torch.cuda.graph(graph, stream=stream):
+            for _ in range(reps):
+                fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del graph
     return start.elapsed_time(end) / reps
 
 
@@ -164,7 +196,10 @@ def compare(label, x_cols, k, signs, sampling, reps, kernel, library=None):
         row["kernel_f32_vs_f64"] = (out.double() - ref).abs().max().item() / s64
         del ref
     del out, plain
+    # back-to-back calls timed by events (the wrapper's host time where it
+    # is the longer), and the kernel alone: the calls replayed from a graph
     row["ms"] = cuda_ms(kernel, reps)
+    row["graph_ms"] = graph_ms(kernel, reps)
     row["plain_ms"] = cuda_ms(
         lambda: srht_cuda.srht_onepass_plain(x_cols, k, signs, sampling), reps)
     row["library_ms"] = None if library is None else cuda_ms(library, reps)
@@ -174,9 +209,14 @@ def compare(label, x_cols, k, signs, sampling, reps, kernel, library=None):
     row["GBps"] = nbytes / row["ms"] / 1e6
     row["plain_GBps"] = nbytes / row["plain_ms"] / 1e6
     # x, the int8 signs and int32 sampled rows read once, the output written;
-    # the operations of the cheaper algorithm: direct product or FWHT
+    # the operations of the cheapest algorithm: the direct product, an FWHT
+    # of length 2^d, or the blocked one (an FWHT of each of the B = ceil(n/R)
+    # blocks, R = 2^min(11, d), then k adds a block)
     d = max(1, (n - 1).bit_length())
-    ops = m * min(2.0 * k * n, float(d << d))
+    r_log = min(11, d)
+    blocks = -(-n // (1 << r_log))
+    ops = m * min(2.0 * k * n, float(d << d),
+                  float((blocks << r_log) * r_log + k * blocks))
     row["bound_ms"], row["bound_by"] = bound(nbytes + n + 4 * k + k * m * size,
                                              ops, x_cols.dtype)
     phase("kernel", **row)
@@ -212,7 +252,9 @@ def kernel_phase(device) -> list[dict]:
     gen = torch.Generator(device=device).manual_seed(0)
     rows = []
     plan = _srht_plan(1, SLICE_N, SLICE_K)
-    signs, sampling = plan[0].to(device), plan[1].to(device)
+    # the plan in the kernel's types (int8 signs, int32 rows), as an
+    # SrhtEmbedding holds it
+    signs, sampling = plan[0].to(device), plan[1].to(device, torch.int32)
     # the library yardstick: one product with the explicit (k, n) SRHT matrix
     explicit = srht_rows(plan, SLICE_N, SLICE_K, device=device)
     built = explicit_srht(signs, sampling, SLICE_N, SLICE_K, torch.float64, device)
@@ -225,7 +267,7 @@ def kernel_phase(device) -> list[dict]:
             S = explicit.to(dt)
             rows.append(compare(
                 f"slice n={SLICE_N} m={m} k={SLICE_K}", x, SLICE_K, signs, sampling,
-                reps=20, kernel=lambda x=x: srht_cuda.srht_onepass(
+                reps=100, kernel=lambda x=x: srht_cuda.srht_onepass(
                     x, SLICE_K, signs, sampling),
                 library=lambda x=x, S=S: torch.matmul(S, x)))
             del x, S
@@ -241,7 +283,7 @@ def kernel_phase(device) -> list[dict]:
         S = explicit_srht(b_signs, b_samp, n, BENCH_K, dt, device)
         rows.append(compare(
             f"bench blocked (m,B,R)=({BENCH_M},{B},{R}) k={BENCH_K}", rows_x.T,
-            BENCH_K, b_signs, b_samp, reps=3,
+            BENCH_K, b_signs, b_samp, reps=BENCH_REPS,
             kernel=lambda: emb.apply_random(blocked),
             library=lambda: torch.matmul(S, rows_x.T)))
         del blocked
@@ -249,7 +291,7 @@ def kernel_phase(device) -> list[dict]:
         del rows_x
         rows.append(compare(
             f"bench columns (n,m)=({n},{BENCH_M}) k={BENCH_K}", cols, BENCH_K,
-            b_signs, b_samp, reps=3, kernel=lambda: emb.apply_random(cols),
+            b_signs, b_samp, reps=BENCH_REPS, kernel=lambda: emb.apply_random(cols),
             library=lambda: torch.matmul(S, cols)))
         del cols, S
         torch.cuda.empty_cache()
@@ -521,6 +563,9 @@ def hwprng_phase(fom, device, extensions: int, training: int = 200,
     t_serve = time.perf_counter() - t0
     for key, v in out.items():
         check(bool(torch.isfinite(v[:valid]).all()), f"hwprng served {key} not finite")
+    # the path (greedy, reduce_adaptive, serving) never forms Omega: the
+    # strip kernel runs only in the random_matrix oracle check below
+    path_strips = gcu.gaussian_strip.launches
 
     U = reductor.rb
     applied = theta.apply(U)
@@ -528,10 +573,11 @@ def hwprng_phase(fom, device, extensions: int, training: int = 200,
     matrix_rel = ((applied - explicit).abs().max() / explicit.abs().max()).item()
     del explicit
     sketch_launches = gcu.gaussian_sketch.launches
-    strip_launches = gcu.gaussian_strip.launches
+    oracle_strips = gcu.gaussian_strip.launches - path_strips
     check(matrix_rel <= 1e-4, f"hwprng apply vs random_matrix @ QU {matrix_rel:.2e}")
     check(sketch_launches > 0, "the HwPrng path launched no Gaussian sketch kernel")
-    check(strip_launches > 0, "the HwPrng path launched no Gaussian strip kernel")
+    check(oracle_strips > 0,
+          "HwPrngGaussianEmbedding.random_matrix launched no Gaussian strip kernel")
 
     ext = result.extension_times
     return {
@@ -547,7 +593,8 @@ def hwprng_phase(fom, device, extensions: int, training: int = 200,
         "doubling_max_rel_dev": doubled["max_rel_dev"],
         "doubling_rounds": doubled["rounds"], **checks, "serve_s": t_serve,
         "requests_per_s": valid / t_serve, "apply_vs_matrix_rel": matrix_rel,
-        "sketch_launches": sketch_launches, "strip_launches": strip_launches,
+        "sketch_launches": sketch_launches, "strip_launches_path": path_strips,
+        "strip_launches_oracle": oracle_strips,
     }
 
 
@@ -636,7 +683,7 @@ def main(argv=None) -> int:
                      "rla4mor_tpu/ops/gaussian_pallas.py:116", hw["sketch_launches"],
                      gauss_row),
         kernel_entry("gaussian_strip", "rla4mor_tpu_torch/csrc/gaussian_sketch.cu",
-                     "rla4mor_tpu/ops/gaussian_pallas.py:189", hw["strip_launches"],
+                     "rla4mor_tpu/ops/gaussian_pallas.py:189", hw["strip_launches_path"],
                      strip_row),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {

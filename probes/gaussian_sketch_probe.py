@@ -88,7 +88,7 @@ def host_us(fn, reps: int) -> float:
     return (t1 - t0) / reps * 1e6
 
 
-def device_us(fn, reps: int) -> dict:
+def device_us(fn, reps: int, prefix: str = "gaussian") -> dict:
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -102,8 +102,8 @@ def device_us(fn, reps: int) -> dict:
         total = getattr(e, "device_time_total", None)
         if total is None:
             total = e.cuda_time_total
-        if total and "gaussian" in e.key:
-            name = re.sub(r"^.*?(gaussian_\w+).*$", r"\1", e.key)
+        if total and prefix in e.key:
+            name = re.sub(rf"^.*?({prefix}_\w+).*$", r"\1", e.key)
             out[name] = out.get(name, 0.0) + total / reps
     return out
 

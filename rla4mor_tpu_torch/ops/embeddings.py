@@ -200,9 +200,10 @@ class SrhtEmbedding(Embedding):
             raise ValueError("SRHT plan does not match (n, k)")
         if d != ceil_log2(self.l2_dim) or int(sampling.max()) >= 1 << d:
             raise ValueError("SRHT sampling must lie in [0, 2^ceil(log2 n))")
-        # the plan lives on the device once; every sketch reuses it
-        self.plan = (rademacher.to(self.device, torch.int8),
-                     sampling.to(self.device, torch.int64), int(d))
+        # the plan lives on the device once, in the kernel's types (int8
+        # signs, int32 sampled rows < 2^31); every sketch reuses it as it is
+        self.plan = (rademacher.to(self.device, torch.int8).contiguous(),
+                     sampling.to(self.device, torch.int32).contiguous(), int(d))
 
     @classmethod
     def make(cls, source_dim, sqrt_product=None, range_dim=None, epsilon=None,

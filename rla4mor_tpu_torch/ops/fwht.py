@@ -12,7 +12,8 @@ SRHT semantics (same as the JAX package):
 with D a seeded Rademacher diagonal on the n original entries, zero-padding
 n -> 2^d, H the 2^(-d/2)-normalised Sylvester Hadamard transform, and P a
 k-row sampler with replacement from the 2^d outputs. The ``plan`` of an SRHT
-is the tuple ``(rademacher (n,) int8, sampling (k,) int64, d)``.
+is the tuple ``(rademacher (n,) int8, sampling (k,) int64, d)`` (an
+embedding holds the sampled rows as int32, the kernel's type).
 """
 
 from __future__ import annotations
@@ -120,7 +121,7 @@ def srht_rows(
     rademacher, sampling, d = plan
     if indices is None:
         indices = torch.arange(k)
-    sel = sampling.cpu()[indices.cpu()]
+    sel = sampling.cpu().long()[indices.cpu()]
     onehot = torch.nn.functional.one_hot(sel, 1 << d).to(dtype)
     rows = fwht(onehot, normalize=True)[:, :n]
     rows = math.sqrt((1 << d) / k) * rows * rademacher.cpu().to(dtype)[None, :]

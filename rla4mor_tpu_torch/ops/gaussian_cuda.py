@@ -30,7 +30,7 @@ import torch
 
 from rla4mor_tpu_torch.ops import philox
 from rla4mor_tpu_torch.utils import nvcc
-from rla4mor_tpu_torch.utils.config import resolve_device
+from rla4mor_tpu_torch.utils.config import resolve_device, sm_count
 
 SOURCE = "gaussian_sketch.cu"
 DEFAULT_BLOCK_ROWS = 2048
@@ -178,18 +178,13 @@ def column_split(n: int, slot_tiles: int, resident_blocks: int) -> int:
 
 
 @functools.cache
-def _sm_count(dev_index: int) -> int:
-    return torch.cuda.get_device_properties(dev_index).multi_processor_count
-
-
-@functools.cache
 def _resident_blocks(dev_index: int, mode: int, m: int, S: int, G: int) -> int:
     """Blocks of the small kernel that device ``dev_index`` (current when
     called) holds at once, from the occupancy API, once per shape."""
     per_sm = ctypes.c_int(0)
     _raise_on(_lib().gaussian_sketch_small_occupancy(mode, m, S, G, ctypes.byref(per_sm)),
               "gaussian_sketch occupancy query")
-    return _sm_count(dev_index) * max(1, per_sm.value)
+    return sm_count(dev_index) * max(1, per_sm.value)
 
 
 def small_launch(dev_index: int, n: int, m: int, k: int, dist: str) -> tuple[int, int, int]:
@@ -212,7 +207,7 @@ def _tiled_launch(dev_index: int, n: int, k: int, W: int) -> tuple[int, int, int
     full, rem = divmod(n, W)
     n_tiles = full * -(-W // _TILE) + -(-rem // _TILE)
     # about four blocks per SM over the (split, k-tile) grid, >= 1 tile each
-    n_split = max(1, min(n_tiles, -(-4 * _sm_count(dev_index) // -(-k // _TILE))))
+    n_split = max(1, min(n_tiles, -(-4 * sm_count(dev_index) // -(-k // _TILE))))
     per_split = -(-n_tiles // n_split)
     return n_tiles, per_split, -(-n_tiles // per_split)
 

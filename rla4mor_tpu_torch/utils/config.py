@@ -14,6 +14,8 @@ The port makes the same choice from the device a tensor lives on:
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 
@@ -53,3 +55,9 @@ def as_tensor(x, device=None, dtype=None) -> torch.Tensor:
     if t.is_complex() and not dt.is_complex:
         dt = torch.complex64 if dt == torch.float32 else torch.complex128
     return t.to(device=dev, dtype=dt)
+
+
+@functools.cache
+def sm_count(dev_index: int) -> int:
+    """Streaming multiprocessors of CUDA device ``dev_index``, queried once."""
+    return torch.cuda.get_device_properties(dev_index).multi_processor_count

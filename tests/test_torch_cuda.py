@@ -59,6 +59,16 @@ CASES = [
     (65541, 9, 129, "column_slice"),
     (261121, 1, 300, "cols"),
     (261121, 8, 300, "rows"),
+    # either side of a block boundary of R = 2^11, and on it
+    (2047, 3, 100, "cols"),
+    (2048, 2, 100, "rows"),
+    (2049, 5, 100, "every_other_row"),
+    # one sampled row; more sampled rows than a CTA's threads
+    (5000, 2, 1, "cols"),
+    (70001, 3, 513, "rows"),
+    # the bench width in both layouts
+    (1 << 20, 56, 256, "rows"),
+    (1 << 20, 56, 256, "cols"),
 ]
 
 
@@ -76,12 +86,25 @@ def test_kernel_matches_plain(cuda, n, m, k, layout, dtype):
     assert rel_err(out, ref) < TOL[dtype]
 
 
-def test_kernel_is_deterministic(cuda):
-    x = _input(261121, 8, "cols", torch.float32, cuda)
-    signs, sampling, _ = _srht_plan(0, 261121, 300)
+@pytest.mark.parametrize("n,m,layout", [(261121, 8, "cols"), (1 << 20, 56, "rows")])
+def test_kernel_is_deterministic(cuda, n, m, layout):
+    x = _input(n, m, layout, torch.float32, cuda)
+    signs, sampling, _ = _srht_plan(0, n, 300)
     a = srht_cuda.srht_onepass(x, 300, signs, sampling)
     b = srht_cuda.srht_onepass(x, 300, signs, sampling)
     assert torch.equal(a, b)
+
+
+def test_kernel_is_right_whatever_ran_before(cuda):
+    """Every call on a stream shares the kernel's scratch (counters and
+    partial sums): a call of one shape after calls of others is right."""
+    runs = [(261121, 8, 300, "cols", torch.float64), (1 << 20, 56, 256, "rows", torch.float32),
+            (70001, 3, 513, "rows", torch.float32), (1 << 20, 56, 256, "rows", torch.float32)]
+    for n, m, k, layout, dtype in runs:
+        x = _input(n, m, layout, dtype, cuda)
+        signs, sampling, _ = _srht_plan(n, n, k)
+        out = srht_cuda.srht_onepass(x, k, signs, sampling)
+        assert rel_err(out, srht_cuda.srht_onepass_plain(x, k, signs, sampling)) < TOL[dtype]
 
 
 def test_complex_input_launches_twice(cuda):

@@ -8,6 +8,8 @@ plain version; the kernel itself is compared with it on the card in
 ``test_torch_cuda.py``.
 """
 
+import itertools
+
 import jax
 import jax.experimental.pallas as pl
 import jax.numpy as jnp
@@ -60,6 +62,52 @@ def test_plain_onepass_matches_jax_srht(n):
     assert torch.equal(wrapped, out) or rel(wrapped, out) < 1e-14
     # the port's Kronecker FWHT SRHT carries the same plan
     assert rel(srht(torch.tensor(x), k, (signs, sampling, d)), ref) < 1e-12
+
+
+@pytest.mark.parametrize("n", [1, (1 << 11) - 1, 1 << 11, (1 << 11) + 1])
+def test_plain_onepass_matches_jax_srht_at_block_boundaries(n):
+    """n on either side of the kernel's block length R = 2^11, on it, and
+    n = 1; past 2^11 the plan samples rows with high bits (sigma >> 11 > 0),
+    which take the +-1 recombination over blocks."""
+    k, m = 64, 2
+    x = np.random.RandomState(n).normal(size=(m, n))
+    ref = np.asarray(jax_srht(jnp.asarray(x), k, jax.random.key(8)))
+    signs, sampling, _ = jax_plan(8, n, k)
+    if n > 1 << 11:
+        assert int((sampling >> 11).max()) > 0
+    out = srht_cuda.srht_onepass_plain(torch.tensor(x.T), k, signs, sampling)
+    assert rel(out.T, ref) < 1e-12
+
+
+@pytest.mark.parametrize("itemsize", [4, 8])
+def test_launch_plan_covers_the_blocks_once(itemsize):
+    """The wrapper's launch plan: a tile as wide as the columns allow, unless
+    its blocks would give the SMs few each, that fits shared memory with aligned
+    columns, and block ranges [z bpc, min(B, (z + 1) bpc)) that cover the
+    B = ceil(n / R) blocks once, one wave where the tiles allow."""
+    R = 1 << srht_cuda._R_LOG
+    sms = 132
+    for m, rows_layout in itertools.product((1, 2, 3, 8, 9, 56), (False, True)):
+        widest = min(srht_cuda._MT_MAX[rows_layout], 1 << (m - 1).bit_length())
+        fill = srht_cuda._FILL_BLOCKS_PER_SM * sms
+        for n in (1, R - 1, R, R + 1, 261_121, 1 << 24):
+            n_blocks = -(-n // R)
+            mt = srht_cuda.tile_width(n, m, rows_layout, sms)
+            assert mt & (mt - 1) == 0 and mt <= widest
+            # as wide as it goes while the tiles give every SM enough blocks
+            assert mt == widest or -(-m // (2 * mt)) * n_blocks < fill
+            assert mt == 1 or -(-m // mt) * n_blocks >= fill or mt == widest
+            ld, smem = srht_cuda.tile(mt, itemsize)
+            assert ld >= R and ld * itemsize % 16 == 0
+            assert smem <= 232_448  # a CTA's shared memory on the H100
+            for k, resident in ((1, 132), (300, 1056), (1025, 132)):
+                bpc, n_split = srht_cuda.block_split(n, m, k, mt, 1024, resident)
+                covered = [b for z in range(n_split)
+                           for b in range(z * bpc, min(n_blocks, (z + 1) * bpc))]
+                assert covered == list(range(n_blocks))
+                assert (n_split - 1) * bpc < n_blocks
+                tiles = -(-m // mt) * -(-k // 1024)
+                assert n_split * tiles <= max(resident, tiles)
 
 
 def test_complex_input_sketches_real_and_imaginary_parts():

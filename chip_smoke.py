@@ -44,7 +44,29 @@ Phases, each printing one line (any failed check raises and exits non-zero):
    parameters, the sketched estimate within a factor 2 of the exact dual
    residual norm there, and each kernel of the path launched (counts set
    to 0 just before the path and read just after);
-7. the kernels' JSON line, then the result line.
+7. the large slice (``[large]``), through the entry point
+   ``rla4mor_tpu_torch.examples.large_scale_demo.run``: the matrix-free
+   ``StencilThermalBlock((2, 2), LARGE_GRID)`` in float32 (n = 4,198,401),
+   MG-CG (tol 1e-7, at most 300 iterations), SRHT k = 256 of the snapshot
+   and its 4 residual terms (one (1 + T, n) row-wise block a step, the
+   kernel's rows layout), ``LARGE_STEPS`` greedy steps over a batch of 8
+   candidates, ``state_to_rom`` and one batch padded to 256 served; then
+   once more at grid ``LARGE_SMALL_GRID`` (n = 263,169). First the SRHT
+   kernel against its plain version at that path's shapes (m = 1, the rhs;
+   m = 5 in the rows layout, the step's block; 1e-4 relative). Each step
+   prints its seconds (the first pays any build), CG iterations, recursive
+   and true relative residual (float64). Checks: finite state and
+   estimates, ``ncols == LARGE_STEPS``, the last median estimate below the
+   first, the kernel launched on the path (count set to 0 just before, read
+   just after), ROM outputs within 5e-2 of a float64 MG-CG solve on the
+   card at 4 held-out parameters, and there the sketched estimate within
+   [0.5, 2] of the exact l2 residual ||A(mu) U y - b||_2 in float64 wherever
+   that residual is above 1e-3 ||b||_2 (below, the float32 sketched estimate
+   is floored; the count checked is printed). U is rebuilt in float64 from
+   the path's snapshots: the combination C with srb = S(snapshots) C, by
+   least squares in sketch space. One more step under ``torch.profiler``
+   prints the top device operations and the device's idle share;
+8. the kernels' JSON line, then the result line.
 
 Times are CUDA-event means over back-to-back calls after a warm-up (the
 wrapper's host time included where it is longer than the kernel's); an
@@ -104,6 +126,12 @@ BENCH_REPS = 10
 GAUSS_K, GAUSS_W = 256, 2048
 HW_EXTENSIONS = 6  # the HwPrng greedy runs at full width
 GAUSS_BENCH_LOG2N, GAUSS_BENCH_MS = 23, (8, 9, 32, 128)
+LARGE_GRID, LARGE_SMALL_GRID = 2048, 512
+# 8 weak-greedy steps over the batch of 8 candidates: 4 random ones leave
+# the ROM's output 2-8% off at held-out parameters on an H100 at grid 512
+# (exact Galerkin on 4 such snapshots is 1.5-5.9% off on the CPU), above
+# the 5e-2 output check that the small slice is held to
+LARGE_K, LARGE_STEPS = 256, 8
 TOL = {torch.float64: 1e-12, torch.float32: 1e-4}
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 67e12}
@@ -598,6 +626,125 @@ def hwprng_phase(fom, device, extensions: int, training: int = 200,
     }
 
 
+def large_kernel_rows(device, grid: int) -> list[dict]:
+    """The SRHT kernel against its plain version at the large path's
+    shapes: the rhs (m = 1) and the step's (1 + T, n) block in its
+    transposed rows view (m = 5), through the path's embedding (seed 0)."""
+    from rla4mor_tpu_torch.ops.embeddings import SrhtEmbedding
+
+    n = (grid + 1) ** 2
+    emb = SrhtEmbedding(LARGE_K, n, seed=0, device=device, dtype=torch.float32)
+    signs, samp, _ = emb.plan
+    gen = torch.Generator(device=device).manual_seed(grid)
+    S = explicit_srht(signs, samp, n, LARGE_K, torch.float32, device)
+    rows = []
+    for m in (1, 5):
+        x = torch.randn((m, n), generator=gen, device=device).T  # rows layout
+        rows.append(compare(f"large n={n} m={m} k={LARGE_K} rows", x, LARGE_K, signs,
+                            samp, reps=50, kernel=lambda x=x: emb.apply_random(x),
+                            library=lambda x=x: torch.matmul(S, x)))
+        del x
+    del S
+    torch.cuda.empty_cache()
+    return rows
+
+
+def large_held_out(res: dict, device, label: str) -> list[dict]:
+    """At 4 held-out parameters, the ROM of ``large_scale_demo.run``'s
+    result: its output against a float64 MG-CG solve, and its sketched
+    estimate against the exact l2 residual of U y in float64, where U is
+    the snapshots Gram-Schmidt-combined as the state's sketched basis is."""
+    from rla4mor_tpu_torch.core.solvers import lstsq_dense
+    from rla4mor_tpu_torch.models.stencil import StencilThermalBlock
+    from rla4mor_tpu_torch.ops.embeddings import SrhtEmbedding
+
+    state, rom, n = res["state"], res["rom"], res["n"]
+    r = int(state.ncols)
+    fom64 = StencilThermalBlock((2, 2), res["grid"], dtype=torch.float64, device=device)
+    b64 = fom64.rhs()
+    bnorm = float(torch.linalg.vector_norm(b64))
+    snaps = torch.stack(res["snapshots"][:r]).reshape(r, n)      # (r, n) float32
+    emb = SrhtEmbedding(LARGE_K, n, seed=0, device=device, dtype=torch.float32)
+    comb = lstsq_dense(emb.apply_random(snaps.T).double(), state.srb[:, :r].double())
+    held, rows = res["space"].sample_randomly(4, seed=3, device=device), []
+    for mu in held:
+        solve = fom64.solve_cg_result(mu, tol=1e-10, maxiter=300, precond="mg")
+        s_fom = float(fom64.output(solve.x))
+        y = rom.solve(mu)
+        s_rom = float(rom.output(y, mu)[0])
+        u_rom = (snaps.T.double() @ (comb @ y.double())).reshape(fom64.solution_shape)
+        exact = float(torch.linalg.vector_norm(fom64.apply(mu, u_rom) - b64))
+        est = float(rom.estimate_error(mu, y))
+        rows.append({"out_rel_err": abs(s_rom - s_fom) / abs(s_fom), "est": est,
+                     "exact_l2": exact, "exact_over_b": exact / bnorm,
+                     "est_over_exact": est / exact, "checked": exact > 1e-3 * bnorm,
+                     "f64_cg_iters": solve.iters})
+        phase(f"{label} held-out", **rows[-1])
+    return rows
+
+
+def large_phase(device, grid: int, label: str) -> dict:
+    """The large slice once through the entry point (``LARGE_STEPS``
+    weak-greedy steps), its checks and one profiled step."""
+    from rla4mor_tpu_torch.examples import large_scale_demo as demo
+    from rla4mor_tpu_torch.ops import srht_cuda
+
+    srht_cuda.srht_onepass.launches = 0
+    t0 = time.perf_counter()
+    res = demo.run(grid=grid, steps=LARGE_STEPS, k=LARGE_K, precond="mg", sketch="srht",
+                   device=device, select="greedy",
+                   log=lambda line: print(f"[{label}] {line}", flush=True))
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = srht_cuda.srht_onepass.launches
+
+    state = res["state"]
+    for name in ("srb", "res_lhs", "res_rhs", "out"):
+        check(bool(torch.isfinite(getattr(state, name)).all()), f"{label}: state {name}")
+    for est in res["estimates"]:
+        check(bool(torch.isfinite(est).all()), f"{label}: estimates {est}")
+    for key, v in res["served"].items():
+        check(bool(torch.isfinite(v).all()), f"{label}: served {key} not finite")
+    check(int(state.ncols) == LARGE_STEPS, f"{label}: ncols {int(state.ncols)}")
+    med = res["median_est"]
+    check(med[-1] < med[0], f"{label}: median estimate did not drop: {med}")
+    check(launches >= 1, f"{label}: the path launched no SRHT kernel")
+
+    rows = large_held_out(res, device, label)
+    for row in rows:
+        check(math.isfinite(row["out_rel_err"]) and row["out_rel_err"] <= 5e-2,
+              f"{label}: ROM output error {row['out_rel_err']:.3e} > 5e-2")
+        if row["checked"]:
+            check(0.5 <= row["est_over_exact"] <= 2.0,
+                  f"{label}: estimate / exact l2 residual {row['est_over_exact']:.3f} "
+                  "outside [0.5, 2]")
+
+    prof = demo.profile_step(res["step"], state, res["mus"][-1], res["mu_batch"], top=10)
+    phase(f"{label} profile", wall_s=prof["wall_s"], busy_s=prof["busy_s"],
+          idle_share=prof["idle_share"], device_events=prof["device_events"])
+    for row in prof["top"]:
+        phase(f"{label} profile top", ms=row["ms"], calls=row["calls"],
+              name=row["name"].replace(" ", "_"))
+    steps = res["step_s"]
+    return {
+        "n": res["n"], "grid": res["grid"], "k": LARGE_K, "steps": len(steps),
+        "wall_s": wall_s,
+        "setup_s": res["setup_s"], "step_s": steps, "s_per_step": sum(steps) / len(steps),
+        "s_per_step_after_first": sum(steps[1:]) / max(1, len(steps) - 1),
+        "cg_iters": res["cg_iters"], "rec_res": res["rec_res"], "true_res": res["true_res"],
+        "median_est": med, "srht_launches": launches, "rom_s": res["rom_s"],
+        "requests_per_s": res["requests_per_s"],
+        "out_rel_err_max": max(row["out_rel_err"] for row in rows),
+        "est_over_exact": [row["est_over_exact"] for row in rows],
+        "estimates_checked": sum(row["checked"] for row in rows),
+        "profile_idle_share": prof["idle_share"], "profile_wall_s": prof["wall_s"],
+        "profile_busy_s": prof["busy_s"],
+        # the profiled step's device time over an unprofiled step's wall time
+        "idle_share_unprofiled": (None if prof["busy_s"] is None else
+                                  1.0 - prof["busy_s"] / (sum(steps[1:]) / max(1, len(steps) - 1))),
+    }
+
+
 def build_all(sources) -> dict:
     """nvcc of every source, all started together -> {source: seconds}."""
     from rla4mor_tpu_torch.utils import nvcc
@@ -607,14 +754,18 @@ def build_all(sources) -> dict:
     return {src: seconds for src, (_, seconds) in built.items()}
 
 
-def kernel_entry(name, source, replaces, launches, row, dtype="float32") -> dict:
-    return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": launches, "max_abs_err": row["max_abs_err"], "ms": row["ms"],
-            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
-            # the generation term is integer operations
-            "bound_by": "bytes" if row["bound_by"] == "bytes" else "operations",
-            "library_ms": row["library_ms"],
-            "shape": row.get("label", f"k={row.get('k')} W={row.get('W')}") + " " + dtype}
+def kernel_entry(name, source, replaces, launches, row, dtype="float32",
+                 note=None) -> dict:
+    entry = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+             "launches": launches, "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+             # the generation term is integer operations
+             "bound_by": "bytes" if row["bound_by"] == "bytes" else "operations",
+             "library_ms": row["library_ms"],
+             "shape": row.get("label", f"k={row.get('k')} W={row.get('W')}") + " " + dtype}
+    if note:
+        entry["note"] = note
+    return entry
 
 
 def main(argv=None) -> int:
@@ -668,17 +819,37 @@ def main(argv=None) -> int:
     check(summary["srht_launches"] > 0, "the main path launched no SRHT kernel")
     hw = hwprng_phase(fom, device, HW_EXTENSIONS)
     phase("hwprng", **hw)
+    del fom
 
-    # 7. result
+    # 7. the large slice at full width, then at grid LARGE_SMALL_GRID
+    large_rows = large_kernel_rows(device, LARGE_GRID)
+    large = large_phase(device, LARGE_GRID, "large")
+    phase("large", **large)
+    large_kernel_rows(device, LARGE_SMALL_GRID)
+    small = large_phase(device, LARGE_SMALL_GRID, "large 512")
+    phase("large 512", **small)
+    torch.cuda.empty_cache()
+
+    # 8. result
     main_row = next(r for r in rows if r["label"].startswith("slice")
                     and r["dtype"] == "float32" and "m=1 " in r["label"])
     gauss_row = next(r for r in gauss_rows if r["label"].startswith("path")
                      and "m=1 " in r["label"] and r["label"].endswith(f"k={GAUSS_K}")
                      and r["dist"] == "normal")
+    large_row = next(r for r in large_rows if "m=5 " in r["label"])
+    large_launches = large["srht_launches"] + small["srht_launches"]
     print(json.dumps({"kernels": [
         kernel_entry("srht_onepass", "rla4mor_tpu_torch/csrc/srht_onepass.cu",
-                     "rla4mor_tpu/ops/srht_pallas.py:580", summary["srht_launches"],
-                     main_row),
+                     "rla4mor_tpu/ops/srht_pallas.py:580",
+                     summary["srht_launches"] + large_launches, main_row),
+        # the same kernel at the large path's step shape (the packed TPU
+        # kernel's B rows a step; its sign packing was a traffic trick)
+        kernel_entry("srht_onepass", "rla4mor_tpu_torch/csrc/srht_onepass.cu",
+                     "rla4mor_tpu/ops/srht_pallas.py:487", large_launches, large_row,
+                     note="the large paths' launches, a subset of the first row's; "
+                     "the JAX large path computes this SRHT through its XLA twin "
+                     "srht_sketch_sharded_flat (rla4mor_tpu/parallel/"
+                     "sharded_sketch.py:195), not a Pallas kernel"),
         kernel_entry("gaussian_sketch", "rla4mor_tpu_torch/csrc/gaussian_sketch.cu",
                      "rla4mor_tpu/ops/gaussian_pallas.py:116", hw["sketch_launches"],
                      gauss_row),

@@ -37,6 +37,15 @@ def to_numpy(U) -> np.ndarray:
                     copy=False)
 
 
+def matmul(A: torch.Tensor, X: torch.Tensor) -> torch.Tensor:
+    """``A @ X`` with the real operand promoted to the other's complex dtype,
+    as the JAX package's products promote (torch refuses mixed dtypes)."""
+    if A.dtype != X.dtype:
+        dt = torch.promote_types(A.dtype, X.dtype)
+        A, X = A.to(dt), X.to(dt)
+    return A @ X
+
+
 class LinOp:
     """Abstract linear operator: y = A x with x (source_dim, b)."""
 
@@ -82,10 +91,10 @@ class DenseOp(LinOp):
         return as_tensor(U, self.A.device, self.A.dtype)
 
     def apply(self, U, mu=None):
-        return self.A @ self._in(U)
+        return matmul(self.A, self._in(U))
 
     def apply_adjoint(self, V, mu=None):
-        return self.A.conj().T @ self._in(V)
+        return matmul(self.A.conj().T, self._in(V))
 
     def matrix(self):
         return self.A

@@ -20,7 +20,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from rla4mor_tpu_torch.core.linops import LinOp
+from rla4mor_tpu_torch.core.linops import LinOp, matmul
 from rla4mor_tpu_torch.ops import dims as _dims
 from rla4mor_tpu_torch.ops.fwht import Plan, _srht_plan, ceil_log2, srht, srht_rows
 from rla4mor_tpu_torch.ops.gaussian_cuda import (
@@ -73,14 +73,14 @@ class Embedding(LinOp):
 
     def apply_random(self, X) -> torch.Tensor:
         """l2 -> l2 sketch Omega @ X, X (l2_dim,) or (l2_dim, b)."""
-        return self.random_matrix_cached() @ self._in(X)
+        return matmul(self.random_matrix_cached(), self._in(X))
 
     def apply(self, U, mu=None) -> torch.Tensor:
         return self.apply_random(self._apply_q(U))
 
     def apply_adjoint(self, V, mu=None):
         """Theta^H V = Q^H (Omega^H V)."""
-        W = self.random_matrix_cached().conj().T @ self._in(V)
+        W = matmul(self.random_matrix_cached().conj().T, self._in(V))
         if self.sqrt_product is None:
             return W
         return self._in(self.sqrt_product.apply_adjoint(W))

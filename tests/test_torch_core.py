@@ -206,3 +206,81 @@ def test_no_device_without_cuda_raises(monkeypatch, name):
         DEFAULT_DEVICE_CTORS[name]()
     assert resolve_device("cpu") == torch.device("cpu")
     assert ThermalBlockFOM((2, 2), 8, device="cpu").device.type == "cpu"
+
+
+def test_dense_op_promotes_complex_data():
+    """A real DenseOp applied to complex data (and its adjoint) promotes to
+    complex128, as the JAX package's DenseOp does, to 1e-14."""
+    rng = np.random.RandomState(3)
+    A = rng.normal(size=(7, 5))
+    op, jop = tcore.DenseOp(torch.tensor(A), device="cpu"), jcore.DenseOp(jnp.asarray(A))
+    x = rng.normal(size=(5, 2)) + 1j * rng.normal(size=(5, 2))
+    v = rng.normal(size=(7,)) + 1j * rng.normal(size=(7,))
+    got, adj = op.apply(torch.tensor(x)), op.apply_adjoint(torch.tensor(v))
+    assert got.dtype == adj.dtype == torch.complex128
+    assert rel(got, jop.apply(jnp.asarray(x))) < 1e-14
+    assert rel(adj, jop.apply_adjoint(jnp.asarray(v))) < 1e-14
+
+
+def _complex_foms(n=80, seed=0):
+    """The complex Hermitian FOM of ``tests/test_complex.py::_complex_fom``
+    in both packages: A(mu) = mu_0 A0 + mu_1 A1, complex rhs."""
+    import scipy.sparse as sps
+
+    from rla4mor_tpu.models import StationaryFOM as JaxStationaryFOM
+    from rla4mor_tpu_torch.models import StationaryFOM
+
+    rng = np.random.RandomState(seed)
+
+    def hpd(scale):
+        M = rng.normal(size=(n, n)) + 1j * rng.normal(size=(n, n))
+        return sps.csr_matrix(M @ M.conj().T / n + scale * np.eye(n))
+
+    A0, A1 = hpd(3.0), hpd(1.0)
+    b = rng.normal(size=(n, 1)) + 1j * rng.normal(size=(n, 1))
+    jfom = JaxStationaryFOM(
+        jcore.AffineOp((jcore.HostSparseOp(A0), jcore.HostSparseOp(A1)),
+                       (jcore.ProjectionCoefficient("p", 0),
+                        jcore.ProjectionCoefficient("p", 1))),
+        jcore.AffineOp((jcore.DenseOp(jnp.asarray(b)),)),
+        parameter_space=jcore.ParameterSpace.make({"p": 2}, 0.5, 2.0))
+    tfom = StationaryFOM(
+        tcore.AffineOp((tcore.HostSparseOp(A0, device="cpu"),
+                        tcore.HostSparseOp(A1, device="cpu")),
+                       (tcore.ProjectionCoefficient("p", 0),
+                        tcore.ProjectionCoefficient("p", 1))),
+        tcore.AffineOp((tcore.DenseOp(torch.tensor(b), device="cpu"),)),
+        parameter_space=tcore.ParameterSpace.make({"p": 2}, 0.5, 2.0), device="cpu")
+    return jfom, tfom
+
+
+def test_complex_sketched_reductor_matches_jax():
+    """Mirrors ``tests/test_complex.py::test_complex_sketched_reductor``:
+    complex snapshots through a real Gaussian Omega (carried from JAX); the
+    ROM's solve equals the JAX package's to 1e-10, its estimate to 1e-10 of
+    ||b|| (the residual estimate is a difference of O(||b||) sketches)."""
+    from rla4mor_tpu.mor import SketchedReductor as JaxReductor
+    from rla4mor_tpu.ops import GaussianEmbedding as JaxGaussian
+    from rla4mor_tpu_torch.mor import SketchedReductor
+
+    jfom, tfom = _complex_foms()
+    n = tfom.solution_dim
+    jtheta = JaxGaussian.make(n, range_dim=60, seed=5)
+    ttheta = temb.GaussianEmbedding.from_matrix(np.asarray(jtheta.random_matrix()),
+                                                device="cpu")
+    rows = np.random.RandomState(4).uniform(0.5, 2.0, size=(7, 2))
+    jred = JaxReductor(jfom, embedding_primal=jtheta, orthonormalize=True)
+    tred = SketchedReductor(tfom, embedding_primal=ttheta, orthonormalize=True,
+                            log_level=30)
+    jred.extend_basis(jfom.solve_many([{"p": jnp.asarray(r)} for r in rows[:6]]))
+    tred.extend_basis(tfom.solve_many([{"p": torch.tensor(r)} for r in rows[:6]]))
+    jrom, trom = jred.reduce(seed=6), tred.reduce(seed=6)
+    jmu, tmu = {"p": jnp.asarray(rows[6])}, {"p": torch.tensor(rows[6])}
+    y = trom.solve(tmu)
+    assert y.dtype == torch.complex128
+    assert rel(y, jrom.solve(jmu)) < 1e-10
+    est, jest = float(trom.estimate_error(tmu)), float(jrom.estimate_error(jmu))
+    assert abs(est - jest) < 1e-10 * np.linalg.norm(tfom.assemble_rhs(tmu))
+    u_rom = tred.rb.numpy() @ y.numpy()
+    u_fom = tfom.solve(tmu).numpy()
+    assert np.linalg.norm(u_rom - u_fom) / np.linalg.norm(u_fom) < 5e-2

@@ -305,3 +305,72 @@ def test_entry_points_default_to_the_card(cuda):
     mu = fom.parameter_space.sample_randomly(2)[0]
     assert mu["diffusion"].device == torch.device("cuda:0")
     assert emb.apply(torch.ones(fom.solution_dim, device=cuda)).is_cuda
+
+
+# ---------------------------------------------------------------------------
+# The large slice: the padded greedy driver on the card against the CPU.
+
+
+def _driver_run(device, grid, projection, steps=3, cg_tol=1e-13):
+    from rla4mor_tpu_torch.core import ParameterSpace, mu_stack
+    from rla4mor_tpu_torch.models.stencil import StencilThermalBlock
+    from rla4mor_tpu_torch.parallel import make_sharded_greedy_step, state_to_rom
+
+    fom = StencilThermalBlock((2, 2), grid, dtype=torch.float64, device=device)
+    state, step = make_sharded_greedy_step(
+        fom, seed=0, k=32, r_max=4, cg_tol=cg_tol, cg_maxiter=300, cg_precond="mg",
+        sketch="srht", projection=projection)
+    space = ParameterSpace.make({"diffusion": 4}, 0.1, 1.0)
+    f64 = dict(device=device, dtype=torch.float64)  # the card's default is float32
+    batch = mu_stack(space.sample_randomly(6, seed=2, **f64))
+    ests = []
+    for i in range(steps):
+        mu = space.sample_randomly(1, seed=10 + i, **f64)[0]
+        state, est, _ = step(state, mu, batch)
+        ests.append(est)
+    rom = state_to_rom(fom, state, projection=projection)
+    held = mu_stack(space.sample_randomly(4, seed=3, **f64))
+    return state, ests, rom.solve(held), rom.estimate_error(held)
+
+
+@pytest.mark.parametrize("projection", ["galerkin", "minres"])
+def test_driver_on_the_card_matches_the_cpu(cuda, projection):
+    """Grid 16, float64, MG-CG, SRHT k = 32, 3 steps: the state, the
+    estimates and the shipped ROM's solve and estimate equal the CPU run's
+    to 1e-10 (minres solves its rank-deficient masked systems by an SVD:
+    ``torch.linalg.lstsq`` on CUDA assumes full rank). CG runs to 1e-13,
+    so that the two devices' solves, summed in different orders, agree to
+    round-off and not only to the solver's tolerance."""
+    cpu = _driver_run(torch.device("cpu"), 16, projection)
+    card = _driver_run(cuda, 16, projection)
+    assert int(card[0].ncols) == int(cpu[0].ncols) == 3
+    for name in ("srb", "res_lhs", "res_rhs", "out"):
+        assert rel_err(getattr(card[0], name).cpu(), getattr(cpu[0], name)) < 1e-10
+    for a, b in zip(card[1], cpu[1]):
+        assert rel_err(a.cpu(), b) < 1e-10
+    assert rel_err(card[2].cpu(), cpu[2]) < 1e-10
+    assert rel_err(card[3].cpu(), cpu[3]) < 1e-10
+
+
+def test_driver_sketch_takes_the_kernel_in_the_rows_layout(cuda, monkeypatch):
+    """At grid 256 (n = 66,049 >= 2^16) the driver's sketches launch the
+    one-pass kernel: the rhs once (m = 1), then each step's (1 + T, n)
+    block through its transposed (n, 1 + T) view, strides (1, n), the rows
+    layout. Each launch equals the plain version on its input to 1e-12."""
+    seen = []
+    real = temb.srht_onepass
+
+    def recording(x, k, signs, sampling):
+        out = real(x, k, signs, sampling)
+        if x.is_cuda:
+            seen.append((tuple(x.shape), x.stride(), rel_err(
+                out, srht_cuda.srht_onepass_plain(x, k, signs, sampling))))
+        return out
+
+    monkeypatch.setattr(temb, "srht_onepass", recording)
+    before = srht_cuda.srht_onepass.launches
+    _driver_run(cuda, 256, "galerkin", steps=2, cg_tol=1e-10)
+    assert srht_cuda.srht_onepass.launches - before == 3
+    n = 257 * 257
+    assert [s[:2] for s in seen] == [((n, 1), (1, 1))] + [((n, 5), (1, n))] * 2
+    assert all(s[2] < TOL[torch.float64] for s in seen), seen

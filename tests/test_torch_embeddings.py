@@ -97,3 +97,30 @@ def test_dims_match_jax(args):
     assert tdims.srht_dim(eps, delta, d, n) == jdims.srht_dim(eps, delta, d, n)
     assert tdims.resolve_dim("srht", n, None, eps, delta, d) == \
         jdims.resolve_dim("srht", n, None, eps, delta, d)
+
+
+@pytest.mark.parametrize("kind", ["gaussian", "srht"])
+def test_complex_data_through_a_real_embedding(kind):
+    """Mirrors ``tests/test_complex.py::test_complex_embedding_apply``: a
+    real Omega applied to complex data (and its adjoint to complex sketches)
+    promotes to complex128 and equals the JAX package, to 1e-12."""
+    rng = np.random.RandomState(2)
+    n, k = 64, 20
+    if kind == "gaussian":
+        je = jemb.GaussianEmbedding.make(n, range_dim=k, seed=4)
+        te = temb.GaussianEmbedding.from_matrix(np.asarray(je.random_matrix()),
+                                                device="cpu")
+    else:
+        je = jemb.SrhtEmbedding.make(n, range_dim=k, seed=4)
+        signs, sampling, _ = jax_srht_plan(je.key, n, k)
+        te = temb.SrhtEmbedding.from_plan(n, k, np.array(signs), np.array(sampling),
+                                          device="cpu")
+    x = rng.normal(size=(n, 3)) + 1j * rng.normal(size=(n, 3))
+    y = te.apply(torch.tensor(x))
+    assert y.dtype == torch.complex128
+    assert rel(y, je.apply(jnp.asarray(x))) < 1e-12
+    assert rel(y, te.matrix().numpy() @ x) < 1e-12
+    v = rng.normal(size=(k, 2)) + 1j * rng.normal(size=(k, 2))
+    w = te.apply_adjoint(torch.tensor(v))
+    assert w.dtype == torch.complex128
+    assert rel(w, je.apply_adjoint(jnp.asarray(v))) < 1e-12

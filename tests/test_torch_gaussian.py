@@ -235,6 +235,13 @@ def foms():
     return JaxFOM((2, 2), 16), ThermalBlockFOM((2, 2), 16, device="cpu")
 
 
+@pytest.fixture(scope="module")
+def small_foms():
+    """Grid 8 (n = 49) for the reductor and greedy tests: the interpret-mode
+    JAX kernel's cost grows with the snapshots and extensions."""
+    return JaxFOM((2, 2), 8), ThermalBlockFOM((2, 2), 8, device="cpu")
+
+
 def _hw_pair(foms, k=256, seed=1, dist="normal", use_sqrt=True):
     jfom, tfom = foms
     n = jfom.solution_dim
@@ -302,11 +309,15 @@ def _hw_reductors(foms, dist, k_online=128):
 
 
 @pytest.mark.parametrize("dist", ["normal", "rademacher"])
-def test_hwprng_reductor_matches_jax(philox_pallas, foms, dist):
-    """The JAX package's on-TPU integration test, in both packages."""
-    jfom, tfom = foms
-    jred, tred = _hw_reductors(foms, dist)
-    jmus, tmus = _mus(5, 3)
+def test_hwprng_reductor_matches_jax(philox_pallas, small_foms, dist):
+    """The JAX package's on-TPU integration test, in both packages. About 6 s
+    for "normal" (the first of the file at k = 256): six sketch calls on
+    each side, each drawing a (256, 256) Philox strip, the JAX kernel in
+    interpret mode and compiled for each new shape; the grid does not set
+    that cost."""
+    jfom, tfom = small_foms
+    jred, tred = _hw_reductors(small_foms, dist)
+    jmus, tmus = _mus(3, 3)
     jred.extend_basis(jfom.solve_many(jmus))
     tred.extend_basis(tfom.solve_many(tmus))
     assert tred.srb.dtype == torch.float32  # the in-kernel sketch is float32
@@ -330,12 +341,12 @@ def test_hwprng_reductor_matches_jax(philox_pallas, foms, dist):
     assert 0.3 * true < float(test_[0]) < 3.0 * true
 
 
-def test_hwprng_greedy_selects_the_same_parameters(philox_pallas, foms):
-    jfom, tfom = foms
-    jred, tred = _hw_reductors(foms, "normal")
+def test_hwprng_greedy_selects_the_same_parameters(philox_pallas, small_foms):
+    jfom, tfom = small_foms
+    jred, tred = _hw_reductors(small_foms, "normal")
     jmus, tmus = _mus(20, 7)
-    jres = jax_rb_greedy(jfom, jred, jmus, max_extensions=4, log_level=30)
-    tres = rb_greedy(tfom, tred, tmus, max_extensions=4, log_level=30)
+    jres = jax_rb_greedy(jfom, jred, jmus, max_extensions=3, log_level=30)
+    tres = rb_greedy(tfom, tred, tmus, max_extensions=3, log_level=30)
 
     def index(mu, mus):
         return next(i for i, m in enumerate(mus)

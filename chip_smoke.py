@@ -17,7 +17,12 @@ Phases, each printing one line (any failed check raises and exits non-zero):
    and on (n, 56) columns, ``BENCH_REPS`` launches each). Tolerance
    relative to max|ref|: 1e-12 in float64, 1e-4 in float32 (sums of up to
    1.7e7 terms); the plain float32 version's own error against float64 is
-   printed beside it;
+   printed beside it; ``[kernel bf16]``: the bf16 instance (float32 sums)
+   at the slice's shapes, float32 and bf16 output, and at the bench shape
+   (a (56, B, R) bf16 block and (n, 56) bf16 columns, float32 output), held
+   to the plain version's float32 sums: 1e-4 for float32 output, 8e-3 for
+   bf16 output (one bf16 rounding); its library call is the bf16 product
+   with the explicit operator;
 4. Gaussian kernels vs plain: the strip kernel against its plain version
    (Rademacher bit-equal, normal to 1e-5 absolute; seeds and strips differ,
    redraws are equal; mean, standard deviation and tails), and the sketch
@@ -38,8 +43,23 @@ Phases, each printing one line (any failed check raises and exits non-zero):
    ``apply == random_matrix() @ (Q U)`` on the final basis (1e-4 relative:
    the only strip-kernel launches, counted apart from the path's);
    then a second ``reduce_adaptive`` from an online k = 32 at tol 0.05,
-   which must double the online sketch at least once.
-   Checks of both paths: finite outputs, the last max estimate below the
+   which must double the online sketch at least once;
+   ``[bf16]``: the bf16 offline mode on the same FOM,
+   ``SketchedReductor(offline_dtype=torch.bfloat16)`` with the slice's SRHT,
+   ``rb_greedy_padded`` for ``BF16_EXTENSIONS`` extensions over the slice's
+   200 training parameters, one batch served; rb must be bf16, srb and the
+   residual stacks float32, the bf16 instance launched (counts by input
+   dtype); its estimates are held to the residual of the path's float32
+   snapshots combined as its sketched basis, where that residual is above
+   ``BF16_FLOOR`` of the dual norm of b (the count checked is printed);
+   ``[padded]``: ``PaddedSketchedReductor`` (float32, r_max =
+   ``PADDED_EXTENSIONS``) and ``rb_greedy_no_retrace``, the state's shapes
+   fixed throughout; prints whether it selected the slice's first
+   parameters (same seed schedule); ``[strong]``: ``STRONG_TRAINING``
+   parameters solved once, ``extend_basis_blocked`` (blocks of 4) against
+   single-column extensions (srb within 1e-5), ``rb_greedy_strong`` for
+   ``STRONG_EXTENSIONS`` extensions, whose max true error must decay.
+   Checks of the paths: finite outputs, the last max estimate below the
    first, ROM outputs within 5e-2 of the host FOM at 4 held-out
    parameters, the sketched estimate within a factor 2 of the exact dual
    residual norm there, and each kernel of the path launched (counts set
@@ -66,7 +86,9 @@ Phases, each printing one line (any failed check raises and exits non-zero):
    the path's snapshots: the combination C with srb = S(snapshots) C, by
    least squares in sketch space. One more step under ``torch.profiler``
    prints the top device operations and the device's idle share;
-8. the kernels' JSON line, then the result line.
+8. the kernels' JSON line (the bf16 instance a row of its own, with the
+   ``[bf16]`` path's bf16-input launches), the run's wall time, then the
+   result line.
 
 Times are CUDA-event means over back-to-back calls after a warm-up (the
 wrapper's host time included where it is longer than the kernel's); an
@@ -132,7 +154,16 @@ LARGE_GRID, LARGE_SMALL_GRID = 2048, 512
 # (exact Galerkin on 4 such snapshots is 1.5-5.9% off on the CPU), above
 # the 5e-2 output check that the small slice is held to
 LARGE_K, LARGE_STEPS = 256, 8
+# the bf16 offline path: 6 greedy extensions; the padded path 6 (4 leave the
+# ROM 8.1e-2 off at a held-out parameter, CPU float64 at grid 128, above the
+# 5e-2 output check); the strong greedy 5 extensions over 6 solved parameters
+BF16_EXTENSIONS, PADDED_EXTENSIONS = 6, 6
+STRONG_TRAINING, STRONG_EXTENSIONS = 6, 5
+# below 4 x 2^-7 of the dual norm of b a bf16-offline estimate is at its
+# floor (tests/test_bf16_offline.py)
+BF16_FLOOR = 4 * 2.0 ** -7
 TOL = {torch.float64: 1e-12, torch.float32: 1e-4}
+TOL_NARROW = 8e-3  # 2-byte output against the float32 sums: one bf16 rounding
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 67e12}
 PHILOX_WIDE_MULS = 15  # per Philox4x32-10 call of an Omega (module docstring)
@@ -205,17 +236,25 @@ def philox_calls(k: int, n: int, dist: str) -> int:
     return k * quads  # pairs: 2 calls for 8 entries; Rademacher: 1 for 4
 
 
-def compare(label, x_cols, k, signs, sampling, reps, kernel, library=None):
-    """``kernel()`` (a call that launches the kernel on ``x_cols``) against
-    the plain version on the same input; returns the row of numbers."""
+def compare(label, x_cols, k, signs, sampling, reps, kernel, library=None, out_dtype=None,
+            library_note=None):
+    """``kernel()`` (a call that launches the kernel on ``x_cols``, emitting
+    ``out_dtype``, default x's) against the plain version on the same input;
+    returns the row of numbers. Output in the sums' dtype is held to
+    ``TOL``, 2-byte output to ``TOL_NARROW`` against the plain version's
+    float32 sums."""
     from rla4mor_tpu_torch.ops import srht_cuda
 
+    out_dtype = x_cols.dtype if out_dtype is None else out_dtype
+    acc = srht_cuda.accumulator_dtype(x_cols.dtype)
     out = kernel()
-    plain = srht_cuda.srht_onepass_plain(x_cols, k, signs, sampling)
+    plain = srht_cuda.srht_onepass_plain(x_cols, k, signs, sampling, acc)
     torch.cuda.synchronize()
+    check(out.dtype == out_dtype, f"{label}: kernel emitted {out.dtype}, not {out_dtype}")
     scale = plain.abs().max().item()
-    err = (out - plain).abs().max().item()
+    err = (out.to(acc) - plain).abs().max().item()
     row = {"label": label, "dtype": str(x_cols.dtype).replace("torch.", ""),
+           "out": str(out_dtype).replace("torch.", ""),
            "max_abs_err": err, "rel_err": err / scale}
     if x_cols.dtype == torch.float32:
         ref = srht_cuda.srht_onepass_plain(x_cols.double(), k, signs, sampling)
@@ -229,8 +268,10 @@ def compare(label, x_cols, k, signs, sampling, reps, kernel, library=None):
     row["ms"] = cuda_ms(kernel, reps)
     row["graph_ms"] = graph_ms(kernel, reps)
     row["plain_ms"] = cuda_ms(
-        lambda: srht_cuda.srht_onepass_plain(x_cols, k, signs, sampling), reps)
+        lambda: srht_cuda.srht_onepass_plain(x_cols, k, signs, sampling, out_dtype), reps)
     row["library_ms"] = None if library is None else cuda_ms(library, reps)
+    if library_note:
+        row["library"] = library_note
     n, m = x_cols.shape
     size = x_cols.element_size()
     nbytes = n * m * size
@@ -239,18 +280,20 @@ def compare(label, x_cols, k, signs, sampling, reps, kernel, library=None):
     # x, the int8 signs and int32 sampled rows read once, the output written;
     # the operations of the cheapest algorithm: the direct product, an FWHT
     # of length 2^d, or the blocked one (an FWHT of each of the B = ceil(n/R)
-    # blocks, R = 2^min(11, d), then k adds a block)
+    # blocks, R = 2^min(11, d), then k adds a block), in the sums' dtype
     d = max(1, (n - 1).bit_length())
     r_log = min(11, d)
     blocks = -(-n // (1 << r_log))
     ops = m * min(2.0 * k * n, float(d << d),
                   float((blocks << r_log) * r_log + k * blocks))
-    row["bound_ms"], row["bound_by"] = bound(nbytes + n + 4 * k + k * m * size,
-                                             ops, x_cols.dtype)
-    phase("kernel", **row)
-    check(row["rel_err"] <= TOL[x_cols.dtype],
-          f"{label} {row['dtype']}: kernel vs plain {row['rel_err']:.3e} > "
-          f"{TOL[x_cols.dtype]:.0e}")
+    out_size = torch.empty((), dtype=out_dtype).element_size()
+    row["bound_ms"], row["bound_by"] = bound(nbytes + n + 4 * k + k * m * out_size, ops, acc)
+    row["share"] = row["bound_ms"] / row["ms"]
+    phase("kernel bf16" if size == 2 else "kernel", **row)
+    tol = TOL[acc] if out_dtype == acc else TOL_NARROW
+    check(row["rel_err"] <= tol,
+          f"{label} {row['dtype']} -> {row['out']}: kernel vs plain {row['rel_err']:.3e} > "
+          f"{tol:.0e}")
     return row
 
 
@@ -323,6 +366,60 @@ def kernel_phase(device) -> list[dict]:
             library=lambda: torch.matmul(S, cols)))
         del cols, S
         torch.cuda.empty_cache()
+    return rows
+
+
+def kernel_bf16_phase(device) -> list[dict]:
+    """The bf16 instance against its plain version: the slice's shapes
+    (m = 1 and 8, float32 and bf16 output) and the bench shape (a (56, B, R)
+    bf16 block and (n, 56) bf16 columns, float32 output, the offline mode's
+    request). Library: ``torch.matmul`` of the explicit operator in bf16
+    (cuBLAS sums in float32 and rounds to bf16), TF32 off."""
+    from rla4mor_tpu_torch.ops import srht_cuda
+    from rla4mor_tpu_torch.ops.embeddings import SrhtEmbedding
+    from rla4mor_tpu_torch.ops.fwht import _srht_plan
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    note = "torch.matmul bf16 (cuBLAS: float32 sums, bf16 out)"
+    gen = torch.Generator(device=device).manual_seed(2)
+    rows = []
+    plan = _srht_plan(1, SLICE_N, SLICE_K)
+    signs, sampling = plan[0].to(device), plan[1].to(device, torch.int32)
+    S = explicit_srht(signs, sampling, SLICE_N, SLICE_K, bf16, device)
+    for m in (1, 8):
+        x = torch.randn((SLICE_N, m), generator=gen, device=device).to(bf16)
+        for out_dtype in (f32, bf16):
+            rows.append(compare(
+                f"slice n={SLICE_N} m={m} k={SLICE_K}", x, SLICE_K, signs, sampling,
+                reps=100, out_dtype=out_dtype, library_note=note,
+                kernel=lambda x=x, o=out_dtype: srht_cuda.srht_onepass(
+                    x, SLICE_K, signs, sampling, o),
+                library=lambda x=x: torch.matmul(S, x)))
+        del x
+    del S
+
+    n = 1 << BENCH_LOG2N
+    emb = SrhtEmbedding(BENCH_K, n, seed=0, device=device, dtype=f32)
+    b_signs, b_samp, _ = emb.plan
+    B, R = emb.blocked_shape
+    rows_x = torch.randn((BENCH_M, n), generator=gen, device=device).to(bf16)
+    blocked = rows_x.view(BENCH_M, B, R)
+    S = explicit_srht(b_signs, b_samp, n, BENCH_K, bf16, device)
+    rows.append(compare(
+        f"bench blocked (m,B,R)=({BENCH_M},{B},{R}) k={BENCH_K}", rows_x.T, BENCH_K,
+        b_signs, b_samp, reps=BENCH_REPS, out_dtype=f32, library_note=note,
+        kernel=lambda: emb.apply_random(blocked, out_dtype=f32),
+        library=lambda: torch.matmul(S, rows_x.T)))
+    del blocked
+    cols = rows_x.T.contiguous()
+    del rows_x
+    rows.append(compare(
+        f"bench columns (n,m)=({n},{BENCH_M}) k={BENCH_K}", cols, BENCH_K, b_signs, b_samp,
+        reps=BENCH_REPS, out_dtype=f32, library_note=note,
+        kernel=lambda: emb.apply_random(cols, out_dtype=f32),
+        library=lambda: torch.matmul(S, cols)))
+    del cols, S
+    torch.cuda.empty_cache()
     return rows
 
 
@@ -427,9 +524,12 @@ def dual_residual_norm(fom, Ru, u: np.ndarray, mu) -> float:
     return float(np.sqrt(max(r @ v, 0.0)))
 
 
-def check_rom(fom, reductor, result, device, label) -> dict:
-    """The checks both paths share: finite ROM, falling estimates, outputs
-    and estimates against the host FOM at 4 held-out parameters."""
+def check_rom(fom, reductor, result, device, label, lift=None, floor=None) -> dict:
+    """The checks the paths share: finite ROM, falling estimates, outputs
+    and estimates against the host FOM at 4 held-out parameters. ``lift``
+    maps reduced coefficients to the field whose exact dual residual the
+    estimate is held to (default ``reductor.reconstruct``); with ``floor``,
+    only where that residual is above floor x the dual norm of b."""
     rom, est = result.rom, result.max_estimates
     check(all(math.isfinite(e) for e in est), f"{label}: greedy estimates {est}")
     for name, op in (("lhs", rom.lhs), ("rhs", rom.rhs),
@@ -440,52 +540,62 @@ def check_rom(fom, reductor, result, device, label) -> dict:
     check(est[-1] < est[0], f"{label}: max estimate did not drop: {est[0]} -> {est[-1]}")
 
     Ru = reductor.product
+    lift = reductor.reconstruct if lift is None else lift
     held = fom.parameter_space.sample_randomly(4, seed=1, device=device)
     out_vec = fom.output_functional.stack[0, 0].double().cpu().numpy()
+    zero = np.zeros(fom.solution_dim)
     rows = []
     for mu in held:
         u_fom = fom.solve_host(mu)
         u_r = rom.solve(mu)
         s_rom = float(rom.output(u_r, mu)[0])
         s_fom = float(out_vec @ u_fom)
-        u = reductor.reconstruct(u_r).double().cpu().numpy()
+        u = lift(u_r).double().cpu().numpy()
         true = dual_residual_norm(fom, Ru, u, mu)
+        b_dual = dual_residual_norm(fom, Ru, zero, mu)
         est_mu = float(rom.estimate_error(mu, u_r))
         rows.append({"out_rel_err": abs(s_rom - s_fom) / abs(s_fom),
-                     "est_over_true": est_mu / true})
+                     "est_over_true": est_mu / true,
+                     "checked": floor is None or true > floor * b_dual,
+                     "true_over_b": true / b_dual})
     for r in rows:
         check(math.isfinite(r["out_rel_err"]) and r["out_rel_err"] <= 5e-2,
               f"{label}: ROM output error {r['out_rel_err']:.3e} > 5e-2")
-        check(0.5 <= r["est_over_true"] <= 2.0,
-              f"{label}: estimate / exact dual residual {r['est_over_true']:.3f} "
-              "outside [0.5, 2]")
+        if r["checked"]:
+            check(0.5 <= r["est_over_true"] <= 2.0,
+                  f"{label}: estimate / exact dual residual {r['est_over_true']:.3f} "
+                  "outside [0.5, 2]")
     return {"max_est_first": est[0], "max_est_last": est[-1],
             "out_rel_err_max": max(r["out_rel_err"] for r in rows),
-            "est_over_true": [round(r["est_over_true"], 4) for r in rows]}
+            "est_over_true": [round(r["est_over_true"], 4) for r in rows],
+            "true_over_b": [float(f"{r['true_over_b']:.4e}") for r in rows],
+            "estimates_checked": sum(r["checked"] for r in rows)}
 
 
-def timed_greedy(fom, reductor, train, extensions):
-    """rb_greedy with the host FOM solves timed -> (result, s, solve s)."""
+def timed_greedy(fom, reductor, train, extensions, greedy=None):
+    """A greedy (default ``rb_greedy``) with the host FOM solves timed and
+    kept -> (result, s, solve s, the solved snapshots in order)."""
     from rla4mor_tpu_torch.mor import rb_greedy
 
-    host_solve = []
+    greedy = rb_greedy if greedy is None else greedy
+    host_solve, snapshots = [], []
     solve = fom.solve
 
     def timed_solve(mu):
         t = time.perf_counter()
         u = solve(mu)
         host_solve.append(time.perf_counter() - t)
+        snapshots.append(u)
         return u
 
     fom.solve = timed_solve
     t0 = time.perf_counter()
     try:
-        result = rb_greedy(fom, reductor, train, max_extensions=extensions,
-                           log_level=30)
+        result = greedy(fom, reductor, train, max_extensions=extensions, log_level=30)
         torch.cuda.synchronize()
     finally:
         fom.solve = solve
-    return result, time.perf_counter() - t0, host_solve
+    return result, time.perf_counter() - t0, host_solve, snapshots
 
 
 def slice_phase(fom, device, extensions: int, training: int = 200,
@@ -505,7 +615,7 @@ def slice_phase(fom, device, extensions: int, training: int = 200,
     train = fom.parameter_space.sample_randomly(training, seed=0, device=device)
 
     srht_cuda.srht_onepass.launches = 0
-    result, t_greedy, host_solve = timed_greedy(fom, reductor, train, extensions)
+    result, t_greedy, host_solve, _ = timed_greedy(fom, reductor, train, extensions)
     checks = check_rom(fom, reductor, result, device, "srht")
     rom = result.rom
 
@@ -529,14 +639,11 @@ def slice_phase(fom, device, extensions: int, training: int = 200,
         for key, v in out.items():
             check(bool(torch.isfinite(v).all()), f"served {key} not finite")
 
-    ext = result.extension_times
     return {
-        "n": n, "greedy_s": t_greedy,
-        "extensions": len(ext), "s_per_extension": sum(ext) / len(ext),
-        "host_solve_s_per_extension": sum(host_solve) / len(host_solve),
+        "n": n, **path_summary(result, t_greedy, host_solve),
         **checks, "requests": served, "serve_s": t_serve,
         "requests_per_s": served / t_serve, "srht_launches": launches,
-    }
+    }, result.selected_mus
 
 
 def hwprng_phase(fom, device, extensions: int, training: int = 200,
@@ -547,7 +654,6 @@ def hwprng_phase(fom, device, extensions: int, training: int = 200,
     from rla4mor_tpu_torch.mor import SketchedReductor
     from rla4mor_tpu_torch.ops import GaussianEmbedding, HwPrngGaussianEmbedding
     from rla4mor_tpu_torch.ops import gaussian_cuda as gcu
-    from rla4mor_tpu_torch.serve import pad_batch, serve_batch
 
     n = fom.solution_dim
     Ru = fom.h1_0_product
@@ -561,7 +667,7 @@ def hwprng_phase(fom, device, extensions: int, training: int = 200,
 
     gcu.gaussian_sketch.launches = 0
     gcu.gaussian_strip.launches = 0
-    result, t_greedy, host_solve = timed_greedy(fom, reductor, train, extensions)
+    result, t_greedy, host_solve, _ = timed_greedy(fom, reductor, train, extensions)
     greedy_sketches = gcu.gaussian_sketch.launches
     t0 = time.perf_counter()
     rom, info = reductor.reduce_adaptive(held, seed=0, tol=0.2)
@@ -581,16 +687,7 @@ def hwprng_phase(fom, device, extensions: int, training: int = 200,
     check(doubled["rounds"] >= 2 and doubled["online_dim"] > 32,
           f"reduce_adaptive from k_online=32 at tol 0.05 did not double: {doubled}")
 
-    mus, valid = pad_batch(mu_stack(fom.parameter_space.sample_randomly(
-        200, seed=2, device=device)), batch)
-    serve_batch(rom, mus)  # warm-up
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    out = serve_batch(rom, mus)
-    torch.cuda.synchronize()
-    t_serve = time.perf_counter() - t0
-    for key, v in out.items():
-        check(bool(torch.isfinite(v[:valid]).all()), f"hwprng served {key} not finite")
+    serving = serve_once(rom, fom, device, "hwprng", batch)
     # the path (greedy, reduce_adaptive, serving) never forms Omega: the
     # strip kernel runs only in the random_matrix oracle check below
     path_strips = gcu.gaussian_strip.launches
@@ -607,11 +704,8 @@ def hwprng_phase(fom, device, extensions: int, training: int = 200,
     check(oracle_strips > 0,
           "HwPrngGaussianEmbedding.random_matrix launched no Gaussian strip kernel")
 
-    ext = result.extension_times
     return {
-        "n": n, "k": GAUSS_K, "greedy_s": t_greedy, "extensions": len(ext),
-        "s_per_extension": sum(ext) / len(ext),
-        "host_solve_s_per_extension": sum(host_solve) / len(host_solve),
+        "n": n, "k": GAUSS_K, **path_summary(result, t_greedy, host_solve),
         "greedy_sketch_launches": greedy_sketches,
         "reduce_adaptive_s": t_adaptive, "online_dim": info["online_dim"],
         "certified": info["certified"], "max_rel_dev": info["max_rel_dev"],
@@ -619,11 +713,166 @@ def hwprng_phase(fom, device, extensions: int, training: int = 200,
         "doubling_online_dim": doubled["online_dim"],
         "doubling_certified": doubled["certified"],
         "doubling_max_rel_dev": doubled["max_rel_dev"],
-        "doubling_rounds": doubled["rounds"], **checks, "serve_s": t_serve,
-        "requests_per_s": valid / t_serve, "apply_vs_matrix_rel": matrix_rel,
+        "doubling_rounds": doubled["rounds"], **checks, **serving,
+        "apply_vs_matrix_rel": matrix_rel,
         "sketch_launches": sketch_launches, "strip_launches_path": path_strips,
         "strip_launches_oracle": oracle_strips,
     }
+
+
+def serve_once(rom, fom, device, label, batch: int = 256) -> dict:
+    """``serve_batch`` on one batch of 200 requests padded to ``batch``,
+    after a warm-up; checks the outputs are finite."""
+    from rla4mor_tpu_torch.core import mu_stack
+    from rla4mor_tpu_torch.serve import pad_batch, serve_batch
+
+    mus, valid = pad_batch(mu_stack(fom.parameter_space.sample_randomly(
+        200, seed=2, device=device)), batch)
+    serve_batch(rom, mus)  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = serve_batch(rom, mus)
+    torch.cuda.synchronize()
+    t_serve = time.perf_counter() - t0
+    for key, v in out.items():
+        check(bool(torch.isfinite(v[:valid]).all()), f"{label} served {key} not finite")
+    return {"serve_s": t_serve, "requests_per_s": valid / t_serve}
+
+
+def path_summary(result, t_greedy, host_solve) -> dict:
+    ext = result.extension_times
+    return {"greedy_s": t_greedy, "extensions": len(ext),
+            "s_per_extension": sum(ext) / len(ext),
+            "host_solve_s_per_extension": sum(host_solve) / len(host_solve),
+            "host_solve_share": sum(host_solve) / sum(ext)}
+
+
+def bf16_phase(fom, device, extensions: int = BF16_EXTENSIONS, training: int = 200) -> dict:
+    """The bf16 offline path: ``SketchedReductor(offline_dtype=bfloat16)``
+    with SRHT k = 300 over the sqrt factor, Galerkin, ``rb_greedy_padded``
+    over the slice's 200 training parameters, then one batch served.
+
+    Its held-out estimates are held to the exact dual residual of U y, U
+    the path's float32 snapshots combined as its sketched basis (C with
+    srb = S(snapshots) C, by least squares in sketch space, as the large
+    slice does): rb is stored in bf16, and its rounding, which A amplifies,
+    is a residual the estimator never sketched. Checked where that residual
+    is above ``BF16_FLOOR`` of the dual norm of b."""
+    from rla4mor_tpu_torch.core.solvers import lstsq_dense
+    from rla4mor_tpu_torch.mor import SketchedReductor, rb_greedy_padded
+    from rla4mor_tpu_torch.ops import SrhtEmbedding, srht_cuda
+
+    n = fom.solution_dim
+    Ru = fom.h1_0_product
+    theta = SrhtEmbedding.make(n, sqrt_product=Ru.sqrt, range_dim=SLICE_K, seed=0,
+                               device=device)
+    reductor = SketchedReductor(fom, embedding_primal=theta, product=Ru,
+                                projection="galerkin", offline_dtype=torch.bfloat16,
+                                log_level=30)
+    train = fom.parameter_space.sample_randomly(training, seed=0, device=device)
+
+    counts = srht_cuda.srht_onepass.launches_by_dtype
+    srht_cuda.srht_onepass.launches = 0
+    counts.clear()
+    result, t_greedy, host_solve, snaps = timed_greedy(fom, reductor, train, extensions,
+                                                       greedy=rb_greedy_padded)
+    serving = serve_once(result.rom, fom, device, "bf16")
+    launches = {str(dt).replace("torch.", ""): c for dt, c in counts.items()}
+    check(reductor.rb.dtype == torch.bfloat16, f"bf16: rb is {reductor.rb.dtype}")
+    for name, t in (("srb", reductor.srb), ("residual_lhs", reductor.residual_lhs.stack),
+                    ("residual_rhs", reductor.residual_rhs.stack)):
+        check(t.dtype == torch.float32, f"bf16: {name} is {t.dtype}, not float32")
+    check(launches.get("bfloat16", 0) > 0, f"bf16: no bf16-input SRHT launch: {launches}")
+
+    S = torch.stack(snaps[:reductor.basis_size], dim=1)               # (n, r) float32
+    C = lstsq_dense(theta.apply(S).double(), reductor.srb.double())
+    checks = check_rom(fom, reductor, result, device, "bf16",
+                       lift=lambda y: S.double() @ (C @ y.double()), floor=BF16_FLOOR)
+    return {"n": n, "k": SLICE_K, **path_summary(result, t_greedy, host_solve), **checks,
+            **serving, "launches_by_dtype": launches, "rb_dtype": "bfloat16",
+            "selected": len(result.selected_mus)}
+
+
+def padded_phase(fom, device, slice_mus, extensions: int = PADDED_EXTENSIONS,
+                 training: int = 200) -> dict:
+    """The padded path: ``PaddedSketchedReductor`` (float32, r_max =
+    ``extensions``) and ``rb_greedy_no_retrace`` with the slice's embedding,
+    training set and seed schedule; every state tensor keeps its shape."""
+    from rla4mor_tpu_torch.mor import PaddedSketchedReductor, rb_greedy_no_retrace
+    from rla4mor_tpu_torch.ops import SrhtEmbedding, srht_cuda
+
+    n = fom.solution_dim
+    Ru = fom.h1_0_product
+    theta = SrhtEmbedding.make(n, sqrt_product=Ru.sqrt, range_dim=SLICE_K, seed=0,
+                               device=device)
+    reductor = PaddedSketchedReductor(fom, embedding_primal=theta, product=Ru,
+                                      r_max=extensions, log_level=30)
+    shapes = [tuple(t.shape) for t in reductor.state]
+    train = fom.parameter_space.sample_randomly(training, seed=0, device=device)
+    srht_cuda.srht_onepass.launches = 0
+    result, t_greedy, host_solve, _ = timed_greedy(fom, reductor, train, extensions,
+                                                   greedy=rb_greedy_no_retrace)
+    launches = srht_cuda.srht_onepass.launches
+    check(launches > 0, "padded: the path launched no SRHT kernel")
+    check([tuple(t.shape) for t in reductor.state] == shapes, "padded: a state shape changed")
+    check(reductor.basis_size == extensions, f"padded: ncols {reductor.basis_size}")
+    checks = check_rom(fom, reductor, result, device, "padded")
+    same = [m["diffusion"].tolist() for m in result.selected_mus] == \
+        [m["diffusion"].tolist() for m in slice_mus[:extensions]]
+    return {"n": n, "r_max": extensions, **path_summary(result, t_greedy, host_solve),
+            **checks, **serve_once(result.rom, fom, device, "padded"),
+            "srht_launches": launches, "selected_equal_slice_first": same}
+
+
+def strong_phase(fom, device, training: int = STRONG_TRAINING,
+                 extensions: int = STRONG_EXTENSIONS) -> dict:
+    """The strong greedy: ``training`` parameters solved once on the host;
+    ``extend_basis_blocked`` (blocks of 4) against single-column extensions
+    (srb within 1e-5 relative: float32 sketches of other widths, summed in
+    other orders); then ``rb_greedy_strong`` on those snapshots, whose max
+    true error must decay."""
+    from rla4mor_tpu_torch.mor import SketchedReductor, rb_greedy_strong
+    from rla4mor_tpu_torch.ops import SrhtEmbedding, srht_cuda
+
+    n = fom.solution_dim
+    Ru = fom.h1_0_product
+    theta = SrhtEmbedding.make(n, sqrt_product=Ru.sqrt, range_dim=SLICE_K, seed=0,
+                               device=device)
+
+    def reductor():
+        return SketchedReductor(fom, embedding_primal=theta, product=Ru, log_level=30)
+
+    mus = fom.parameter_space.sample_randomly(training, seed=4, device=device)
+    t0 = time.perf_counter()
+    U = fom.solve_many(mus)
+    t_solve = time.perf_counter() - t0
+    srht_cuda.srht_onepass.launches = 0
+    t0 = time.perf_counter()
+    blocked = reductor()
+    blocked.extend_basis_blocked(U, max_block_size=4)
+    t_blocked = time.perf_counter() - t0
+    single = reductor()
+    for j in range(U.shape[1]):
+        single.extend_basis(U[:, j], mu=mus[j])
+    srb_rel = ((blocked.srb - single.srb).abs().max() / single.srb.abs().max()).item()
+    check(srb_rel <= 1e-5, f"strong: blocked vs single-column srb {srb_rel:.3e} > 1e-5")
+
+    red = reductor()
+    t0 = time.perf_counter()
+    result = rb_greedy_strong(fom, red, mus, max_extensions=extensions, snapshots=U,
+                              log_level=30)
+    torch.cuda.synchronize()
+    t_greedy = time.perf_counter() - t0
+    launches = srht_cuda.srht_onepass.launches
+    errs = result.max_estimates
+    check(all(math.isfinite(e) for e in errs), f"strong: errors {errs}")
+    check(errs[-1] < errs[0], f"strong: max true error did not decay: {errs}")
+    check(red.basis_size == extensions, f"strong: basis {red.basis_size}")
+    check(launches > 0, "strong: the path launched no SRHT kernel")
+    return {"n": n, "training": training, "host_solve_s": t_solve,
+            "blocked_extend_s": t_blocked, "srb_blocked_vs_single_rel": srb_rel,
+            "greedy_s": t_greedy, "extensions": extensions, "max_true_errors": errs,
+            "srht_launches": launches}
 
 
 def large_kernel_rows(device, grid: int) -> list[dict]:
@@ -757,7 +1006,7 @@ def build_all(sources) -> dict:
 def kernel_entry(name, source, replaces, launches, row, dtype="float32",
                  note=None) -> dict:
     entry = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
-             "launches": launches, "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+             "dtype": dtype, "launches": launches, "max_abs_err": row["max_abs_err"], "ms": row["ms"],
              "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
              # the generation term is integer operations
              "bound_by": "bytes" if row["bound_by"] == "bytes" else "operations",
@@ -773,6 +1022,7 @@ def main(argv=None) -> int:
     ap.add_argument("--grid", type=int, default=512)
     ap.add_argument("--extensions", type=int, default=8)
     args = ap.parse_args(argv)
+    t_start = time.perf_counter()
 
     # 1. device
     check(torch.cuda.is_available(), "CUDA is not available")
@@ -806,6 +1056,7 @@ def main(argv=None) -> int:
 
     # 3-4. kernels vs plain on the card
     rows = kernel_phase(device)
+    bf16_rows = kernel_bf16_phase(device)
     strip_row, gauss_rows = gaussian_kernel_phase(device, wide_muls_per_s)
 
     # 5-6. the paths, through the entry points a user calls
@@ -814,11 +1065,17 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     fom = ThermalBlockFOM((2, 2), args.grid, device=device)
     phase("fom", n=fom.solution_dim, build_s=time.perf_counter() - t0)
-    summary = slice_phase(fom, device, args.extensions)
+    summary, slice_mus = slice_phase(fom, device, args.extensions)
     phase("slice", **summary)
     check(summary["srht_launches"] > 0, "the main path launched no SRHT kernel")
     hw = hwprng_phase(fom, device, HW_EXTENSIONS)
     phase("hwprng", **hw)
+    bf16 = bf16_phase(fom, device)
+    phase("bf16", **bf16)
+    padded = padded_phase(fom, device, slice_mus)
+    phase("padded", **padded)
+    strong = strong_phase(fom, device)
+    phase("strong", **strong)
     del fom
 
     # 7. the large slice at full width, then at grid LARGE_SMALL_GRID
@@ -837,11 +1094,20 @@ def main(argv=None) -> int:
                      and "m=1 " in r["label"] and r["label"].endswith(f"k={GAUSS_K}")
                      and r["dist"] == "normal")
     large_row = next(r for r in large_rows if "m=5 " in r["label"])
+    bf16_row = next(r for r in bf16_rows if r["label"].startswith("slice")
+                    and "m=1 " in r["label"] and r["out"] == "float32")
     large_launches = large["srht_launches"] + small["srht_launches"]
+    f32_launches = (summary["srht_launches"] + padded["srht_launches"]
+                    + strong["srht_launches"] + large_launches)
     print(json.dumps({"kernels": [
         kernel_entry("srht_onepass", "rla4mor_tpu_torch/csrc/srht_onepass.cu",
+                     "rla4mor_tpu/ops/srht_pallas.py:580", f32_launches, main_row),
+        # the bf16 instance: the [bf16] path's bf16-input launches, at its
+        # shape (m = 1, float32 output)
+        kernel_entry("srht_onepass", "rla4mor_tpu_torch/csrc/srht_onepass.cu",
                      "rla4mor_tpu/ops/srht_pallas.py:580",
-                     summary["srht_launches"] + large_launches, main_row),
+                     bf16["launches_by_dtype"].get("bfloat16", 0), bf16_row,
+                     dtype="bfloat16"),
         # the same kernel at the large path's step shape (the packed TPU
         # kernel's B rows a step; its sign packing was a traffic trick)
         kernel_entry("srht_onepass", "rla4mor_tpu_torch/csrc/srht_onepass.cu",
@@ -857,6 +1123,7 @@ def main(argv=None) -> int:
                      "rla4mor_tpu/ops/gaussian_pallas.py:189", hw["strip_launches_path"],
                      strip_row),
     ]}), flush=True)
+    phase("wall", s=time.perf_counter() - t_start)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where the one-pass SRHT spends its time, on one NVIDIA GPU.
 
-    python probes/srht_probe.py [--reps 50] [--sweep]
+    python probes/srht_probe.py [--reps 50] [--sweep] [--dtype bfloat16]
 
 At the SRHT slice's shapes (n = 261,121, k = 300, m = 1 and 8, float32
 and float64) and the bench shape (56 columns of 2^24, k = 256, blocked
@@ -19,7 +19,10 @@ rows and columns, float32 and float64) it prints one line per shape with:
 
 and with ``--sweep`` the CUDA-graph time at each tile width MT the kernel
 has (the plan's ``tile_width`` replaced by a constant), at those shapes
-and at n = 2^20 with m = 8 and 56 in both layouts, float32.
+and at n = 2^20 with m = 8 and 56 in both layouts, float32. ``--dtype
+bfloat16`` (or float16) runs the same shapes with 2-byte input (float32
+output) in place of float32 and float64, and the bench columns once more
+one element off their allocation (the kernel's element path).
 
 Then, at the slice's m = 1 float32 shape, ``[host]`` lines split the
 wrapper's host time into its steps, each timed alone over many calls.
@@ -61,17 +64,16 @@ def host_steps(x, k, signs, sampling) -> dict:
 
     index = x.get_device()
     n, m = x.shape
-    itemsize = x.element_size()
-    key = (index, itemsize, n, m, k, *x.stride())
+    acc = sc.accumulator_dtype(x.dtype)
+    key = (index, x.dtype, n, m, k, *x.stride())
     rec, n_counters, n_sums = sc._launch_plan(*key)
     stream = sc._stream(index)
     done = sc._scratch(index, stream, torch.int32, n_counters)
-    sums = sc._scratch(index, stream, x.dtype, n_sums)
-    out = x.new_empty((k, m))
-    lib = sc._lib()
-    fn = lib.srht_onepass_f32 if itemsize == 4 else lib.srht_onepass_f64
-    args = (rec, x.data_ptr(), signs.data_ptr(), sampling.data_ptr(), done, sums,
-            out.data_ptr(), stream)
+    sums = sc._scratch(index, stream, acc, n_sums)
+    out = x.new_empty((k, m), dtype=acc)
+    fn = sc._lib().srht_onepass
+    args = (rec, sc._DTYPE_CODE[x.dtype], x.data_ptr(), signs.data_ptr(), sampling.data_ptr(),
+            done, sums, out.data_ptr(), 0, stream)
     steps = {
         "wrapper": lambda: sc.srht_onepass(x, k, signs, sampling),
         "launch_plan_cached": lambda: sc._launch_plan(*key),
@@ -80,7 +82,7 @@ def host_steps(x, k, signs, sampling) -> dict:
         "stream": lambda: sc._stream(index),
         "scratch": lambda: (sc._scratch(index, stream, torch.int32, n_counters),
                             sc._scratch(index, stream, x.dtype, n_sums)),
-        "new_empty": lambda: x.new_empty((k, m)),
+        "new_empty": lambda: x.new_empty((k, m), dtype=acc),
         "data_ptrs": lambda: (x.data_ptr(), x.stride(), signs.data_ptr()),
         "launch_ctypes": lambda: fn(*args),
     }
@@ -94,7 +96,11 @@ def main(argv=None) -> int:
     ap.add_argument("--reps", type=int, default=50)
     ap.add_argument("--sweep", action="store_true",
                     help="also time each shape at every tile width (MT)")
+    ap.add_argument("--dtype", choices=("bfloat16", "float16"), default=None,
+                    help="2-byte input (float32 output) in place of float32 and float64")
     args = ap.parse_args(argv)
+    dtypes = ((torch.float32, torch.float64) if args.dtype is None
+              else (getattr(torch, args.dtype),))
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA card")
     from rla4mor_tpu_torch.ops import srht_cuda as sc
@@ -115,7 +121,7 @@ def main(argv=None) -> int:
     def row(label, x, k, call, reps):
         n, m = x.shape
         call()
-        rec = sc._launch_plan(0, x.element_size(), n, m, k, *x.stride())[0]
+        rec = sc._launch_plan(0, x.dtype, n, m, k, *x.stride())[0]
         if args.sweep:
             sweep(label, x, call, reps)
         r = {"shape": label, "dtype": str(x.dtype).replace("torch.", ""),
@@ -127,7 +133,7 @@ def main(argv=None) -> int:
     def sweep(label, x, call, reps):  # device time at each tile width
         swept = {}
         for mt in (1, 2, 4):
-            sc.tile_width = lambda *_, mt=mt: mt
+            sc.tile_width = lambda *_, mt=mt, **__: mt
             sc._launch_plan.cache_clear()
             swept[f"mt={mt}"] = graph_ms(call, reps)
         sc.tile_width = tile_width
@@ -137,32 +143,43 @@ def main(argv=None) -> int:
 
     if args.sweep:
         for m in (8, 56):
-            rows_x = torch.randn((m, 1 << 20), generator=gen, device=dev)
+            rows_x = torch.randn((m, 1 << 20), generator=gen, device=dev).to(dtypes[0])
             p_signs, p_samp, _ = _srht_plan(2, 1 << 20, 256)
             p_signs, p_samp = p_signs.to(dev), p_samp.to(dev, torch.int32)
             for x in (rows_x.T, rows_x.T.contiguous()):
                 sweep(f"n=2^20 m={m} k=256", x,
-                      lambda x=x: sc.srht_onepass(x, 256, p_signs, p_samp), args.reps)
+                      lambda x=x: sc.srht_onepass(x, 256, p_signs, p_samp, torch.float32),
+                      args.reps)
             del rows_x
     for m in (1, 8):
-        for dt in (torch.float32, torch.float64):
-            x = torch.randn((SLICE_N, m), generator=gen, device=dev, dtype=dt)
+        for dt in dtypes:
+            x = torch.randn((SLICE_N, m), generator=gen, device=dev).to(dt)
             row(f"slice n={SLICE_N} m={m} k={SLICE_K}", x, SLICE_K,
-                lambda x=x: sc.srht_onepass(x, SLICE_K, signs, sampling), args.reps)
-            if m == 1 and dt == torch.float32:
+                lambda x=x: sc.srht_onepass(x, SLICE_K, signs, sampling,
+                                            sc.accumulator_dtype(x.dtype)), args.reps)
+            if m == 1 and dt == dtypes[0]:
                 steps = host_steps(x, SLICE_K, signs, sampling)
                 print("[host] " + json.dumps(steps), flush=True)
             del x
-    for dt in (torch.float32, torch.float64):
-        emb = SrhtEmbedding(BENCH_K, BENCH_N, seed=0, device=dev, dtype=dt)
+    for dt in dtypes:
+        acc = sc.accumulator_dtype(dt)
+        emb = SrhtEmbedding(BENCH_K, BENCH_N, seed=0, device=dev, dtype=acc)
         B, R = emb.blocked_shape
-        rows_x = torch.randn((BENCH_M, BENCH_N), generator=gen, device=dev, dtype=dt)
+        rows_x = torch.randn((BENCH_M, BENCH_N), generator=gen, device=dev, dtype=acc).to(dt)
         blocked = rows_x.view(BENCH_M, B, R)
-        row("bench blocked", rows_x.T, BENCH_K, lambda: emb.apply_random(blocked), 10)
+        row("bench blocked", rows_x.T, BENCH_K,
+            lambda: emb.apply_random(blocked, out_dtype=acc), 10)
         del blocked
         cols = rows_x.T.contiguous()
         del rows_x
-        row("bench columns", cols, BENCH_K, lambda: emb.apply_random(cols), 10)
+        row("bench columns", cols, BENCH_K, lambda: emb.apply_random(cols, out_dtype=acc), 10)
+        if dt.itemsize == 2:  # a view one element off: the kernel's element path
+            flat = torch.empty(BENCH_N * BENCH_M + 1, device=dev, dtype=dt)
+            off = flat[1:].view(BENCH_N, BENCH_M)
+            off.copy_(cols)
+            row("bench columns, one element off", off, BENCH_K,
+                lambda: emb.apply_random(off, out_dtype=acc), 10)
+            del flat, off
         del cols
         torch.cuda.empty_cache()
     return 0

@@ -14,6 +14,7 @@ from rla4mor_tpu_torch.core.linops import (
     IdentityOp,
     DenseOp,
     ChainOp,
+    CastInputOp,
     HostOp,
     HostSparseOp,
     HostLUInverse,
@@ -35,7 +36,7 @@ __all__ = [
     "Mu", "ParameterSpace", "Coefficient", "ConstantCoefficient",
     "ProjectionCoefficient", "ProductCoefficient", "ONE",
     "eval_coefficients", "mu_stack",
-    "LinOp", "IdentityOp", "DenseOp", "ChainOp", "HostOp", "HostSparseOp",
+    "LinOp", "IdentityOp", "DenseOp", "ChainOp", "CastInputOp", "HostOp", "HostSparseOp",
     "HostLUInverse", "SparseCholeskyOp",
     "AffineOp", "AffineDense", "as_affine", "compose", "project",
     "materialize", "concat_affine", "Product", "gram_schmidt",

@@ -100,6 +100,51 @@ class DenseOp(LinOp):
         return self.A
 
 
+class CastInputOp(LinOp):
+    """Apply ``op`` to its input cast to ``in_dtype`` and emit ``out_dtype``
+    (default ``promote_types(in_dtype, float32)``): the bf16 offline mode,
+    ``CastInputOp(S, torch.bfloat16)`` sketches bf16 snapshots, half the
+    bytes the sketch reads, with float32 sums.
+
+    For an embedding (``apply_random`` and ``_apply_q``) only the input of
+    the random sketch is cast, after the sqrt factor Q (a host op that stays
+    in its dtype), and an embedding whose ``emits_out_dtype`` is set (the
+    SRHT) is asked for ``out_dtype`` directly, so its float32 sums are not
+    rounded to bf16 and back. Complex input is left uncast when
+    ``in_dtype`` is real, and its result keeps the complex dtype."""
+
+    def __init__(self, op: LinOp, in_dtype: torch.dtype, out_dtype=None):
+        self.op = op
+        self.in_dtype = in_dtype
+        self.out_dtype = (out_dtype if out_dtype is not None
+                          else torch.promote_types(in_dtype, torch.float32))
+        self.source_dim, self.range_dim = op.source_dim, op.range_dim
+
+    def _cast_in(self, U) -> torch.Tensor:
+        U = torch.as_tensor(U)
+        if U.is_complex() and not self.in_dtype.is_complex:
+            return U
+        return U.to(self.in_dtype)
+
+    def _cast_out(self, out) -> torch.Tensor:
+        out = torch.as_tensor(out)
+        if out.is_complex():
+            return out.to(torch.promote_types(self.out_dtype, out.dtype))
+        return out.to(self.out_dtype)
+
+    def apply(self, U, mu=None):
+        op = self.op
+        if hasattr(op, "apply_random") and hasattr(op, "_apply_q"):
+            x = self._cast_in(op._apply_q(U))
+            if getattr(op, "emits_out_dtype", False):
+                return self._cast_out(op.apply_random(x, out_dtype=self.out_dtype))
+            return self._cast_out(op.apply_random(x))
+        return self._cast_out(op.apply(self._cast_in(U), mu))
+
+    def apply_adjoint(self, V, mu=None):
+        return self._cast_out(self.op.apply_adjoint(self._cast_in(V), mu))
+
+
 class ChainOp(LinOp):
     """Composition ``ops[0] @ ops[1] @ ... @ ops[-1]`` (applied right-first).
 

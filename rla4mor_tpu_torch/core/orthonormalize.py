@@ -3,12 +3,15 @@
 Counterpart of ``gram_schmidt`` in ``rla4mor_tpu/core/orthonormalize.py``.
 In the sketched workflow it runs on k x r sketch-space matrices (small), as
 classical Gram-Schmidt with one re-orthogonalisation pass (CGS-2).
+:func:`masked_append` is the fixed-shape incremental form the padded
+reductor (``mor/padded_reductor.py``) and the greedy driver
+(``parallel/driver.py``) share.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Sequence, Tuple
 
 import torch
 
@@ -59,3 +62,49 @@ def gram_schmidt(
             Q[:, j] = v / nv
             R[j, j] = nv
     return (Q, R) if return_R else Q
+
+
+def masked_append(srb: torch.Tensor, ncols: torch.Tensor, su: torch.Tensor,
+                  columns: Sequence[Tuple[torch.Tensor, torch.Tensor, int]] = (),
+                  ok: Optional[torch.Tensor] = None):
+    """Masked incremental CGS-2 append to a padded sketched basis.
+
+    ``srb`` (k, r_max) holds ``ncols`` (a 0-d int tensor on the device)
+    orthonormal columns, zeros after them. The sketch ``su`` (k,) is
+    orthogonalised against them twice, and each ``(stack, col, axis)`` of
+    ``columns`` (a stack whose ``axis`` is the basis index, and a new column
+    of it) takes the same combination: ``col - stack . coeffs``. Then all
+    are scaled by the remaining norm and written at index ``ncols``, which
+    advances, where the append is ok: ``ncols < r_max``, ``su`` keeps more
+    than 100 eps of its norm (else it is already, numerically, in the basis)
+    and that norm is finite, and ``ok`` (an extra 0-d bool) holds. Otherwise
+    every tensor is left as it was. Shapes never change and the host never
+    reads the counter: the update of the JAX package's padded reductor and
+    of its sharded driver. Returns ``(srb, stacks, ncols)``."""
+    r_max = srb.shape[1]
+    col_mask = (torch.arange(r_max, device=srb.device) < ncols).to(su.dtype)
+    nrm0 = torch.linalg.vector_norm(su)  # raw sketch scale, before the passes
+    cols = [col for _, col, _ in columns]
+    for _ in range(2):  # one re-orthogonalisation pass
+        coeffs = (srb.conj().T @ su) * col_mask
+        su = su - srb @ coeffs
+        cols = [col - torch.tensordot(stack, coeffs, dims=([axis], [0]))
+                for (stack, _, axis), col in zip(columns, cols)]
+    nrm_raw = torch.linalg.vector_norm(su)
+    nrm = torch.clamp(nrm_raw, min=1e-30)
+    real = su.real.dtype if su.is_complex() else su.dtype
+    fine = ((ncols < r_max) & (nrm_raw > 100 * torch.finfo(real).eps * nrm0)
+            & torch.isfinite(nrm_raw))
+    if ok is not None:
+        fine = fine & ok
+    # the write index saturates at r_max - 1, where nothing is written
+    c_write = torch.clamp(ncols, max=r_max - 1).long()
+
+    def put(stack, col, axis):
+        index = (slice(None),) * axis + (c_write,)
+        new = stack.clone()
+        new[index] = torch.where(fine, col / nrm, stack[index])
+        return new
+
+    stacks = [put(stack, col, axis) for (stack, _, axis), col in zip(columns, cols)]
+    return put(srb, su, 1), stacks, ncols + fine.to(ncols.dtype)

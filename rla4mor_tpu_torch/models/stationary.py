@@ -80,6 +80,18 @@ class StationaryFOM:
     def output(self, u, mu: Mu):
         return self.output_functional.apply(u, mu)
 
+    def residual_norm(self, u, mu: Mu, product: Optional[Product] = None) -> torch.Tensor:
+        """||A(mu) u - b(mu)|| of u (n,) or of each column of u (n, b): the
+        l2 norm, or the ``product`` norm. The residual is formed on the host
+        in float64 (the operator's terms are host sparse matrices); the
+        norms come back on ``device``."""
+        U = to_numpy(u)
+        b = self.assemble_rhs(mu)
+        r = self.assemble_sparse(mu) @ U - (b[:, None] if U.ndim > 1 else b)
+        if product is None:
+            return as_tensor(np.linalg.norm(r, axis=0), self.device)
+        return product.norm(as_tensor(r, self.device))
+
 
 class ResidualErrorEstimator:
     """|| lhs(mu) u - rhs(mu) ||_2 — the sketched residual estimator."""

@@ -19,7 +19,11 @@ Counterpart of ``rla4mor_tpu/mor/sketched_reductor.py``:
 The FOM-side applies (A_j, R^-1 and the sqrt factor Q inside the
 embedding) run on the host; each snapshot reaches the device once, where
 the embedding sketches it (the one-pass SRHT kernel for n >= 2^16, the
-in-kernel Gaussian for ``HwPrngGaussianEmbedding``).
+in-kernel Gaussian for ``HwPrngGaussianEmbedding``). With
+``offline_dtype=torch.bfloat16`` every primal sketch reads bf16 through
+:class:`~rla4mor_tpu_torch.core.linops.CastInputOp` (the kernel's bf16
+instance) and ``rb`` is stored in bf16, while the sketched state stays
+float32.
 """
 
 from __future__ import annotations
@@ -35,7 +39,7 @@ from rla4mor_tpu_torch.core.affine import (
     materialize,
     project,
 )
-from rla4mor_tpu_torch.core.linops import ChainOp
+from rla4mor_tpu_torch.core.linops import CastInputOp, ChainOp, LinOp
 from rla4mor_tpu_torch.core.orthonormalize import gram_schmidt
 from rla4mor_tpu_torch.core.parameters import Mu
 from rla4mor_tpu_torch.core.products import Product
@@ -80,10 +84,24 @@ class SketchedReductor:
         orthonormalize: bool = True,
         projection: str = "galerkin",
         log_level: int = 20,
+        offline_dtype: Optional[torch.dtype] = None,
+        truncation_rtol: float = 0.0,
     ):
+        """``offline_dtype`` (e.g. ``torch.bfloat16``): store snapshots and
+        feed every primal-embedding sketch at that dtype, half the bytes the
+        sketches read, while the sketched quantities (srb, residual stacks)
+        are float32. bf16 perturbs snapshots by about 2^-9 relative, so the
+        error estimates carry an O(1e-3) relative floor. Complex snapshots
+        are left uncast.
+
+        ``truncation_rtol`` > 0 drops basis columns whose orthogonalised
+        sketch keeps less than rtol of their norm (pyMOR's vector removal);
+        0 keeps every column."""
         if projection not in ("galerkin", "minres"):
             raise ValueError(f"unknown projection {projection!r}")
         self.fom = fom
+        self.offline_dtype = offline_dtype
+        self.truncation_rtol = float(truncation_rtol)
         n = fom.solution_dim
         self.product = product if product is not None else Product.identity(n)
         self.embedding_primal = (
@@ -108,8 +126,11 @@ class SketchedReductor:
         self.residual_lhs: Optional[AffineDense] = None  # (T, k, r)
         self.residual_rhs: Optional[AffineDense] = None  # (Tb, k, 1)
         self.output_functional: Optional[AffineDense] = None  # (To, q, r)
-        # Theta o R^-1, reused for every residual sketch
-        self._sketch_map = ChainOp((emb, self.product.inv))
+        # Theta o R^-1, reused for every residual sketch; in the offline
+        # mode the embedding reads offline_dtype and emits float32
+        self._sketch_embedding: LinOp = (
+            emb if offline_dtype is None else CastInputOp(emb, offline_dtype))
+        self._sketch_map = ChainOp((self._sketch_embedding, self.product.inv))
 
     @property
     def basis_size(self) -> int:
@@ -124,7 +145,10 @@ class SketchedReductor:
             self.mu_basis.extend([mu] * U.shape[1])
 
         if self.save_rb:
-            self.rb = torch.cat([self.rb.to(U.dtype), U], dim=1)
+            Ustore = U
+            if self.offline_dtype is not None and not U.is_complex():
+                Ustore = U.to(self.offline_dtype)
+            self.rb = torch.cat([self.rb.to(Ustore.dtype), Ustore], dim=1)
 
         if self.fom.output_functional is not None:
             out_proj = project(self.fom.output_functional, None, U)
@@ -133,7 +157,7 @@ class SketchedReductor:
             self.output_functional = out_proj
 
         self.logger.info("sketch the basis")
-        su = self.embedding_primal.apply(U)
+        su = self._sketch_embedding.apply(U)
         self.srb = torch.cat([self.srb.to(su.dtype), su], dim=1)
 
         self.logger.info("sketch the residual")
@@ -147,18 +171,39 @@ class SketchedReductor:
         if self.orthonormalize:
             self.orthonormalize_basis(offset=self.basis_size - U.shape[1])
 
-    def orthonormalize_basis(self, offset: int = 0, T=None) -> torch.Tensor:
+    def orthonormalize_basis(self, offset: int = 0, T=None,
+                             truncation_rtol: Optional[float] = None) -> torch.Tensor:
         """Orthonormalise ``srb`` (l2, sketch space) and push the change of
         basis T = pinv(R) through rb, residual and output (or apply a given
-        T). Returns T."""
+        T). Returns T.
+
+        ``truncation_rtol`` (default: the reductor's) > 0 also drops the
+        columns past ``offset`` whose orthogonalised direction fell below
+        rtol times the column's norm; T is then (r_old, r_kept)."""
         if T is None:
             Q, R = gram_schmidt(self.srb, offset=offset, return_R=True)
             T = _pinv(R)
+            rtol = (self.truncation_rtol if truncation_rtol is None
+                    else float(truncation_rtol))
+            if rtol > 0.0 and self.basis_size > offset:
+                col = torch.linalg.vector_norm(R, dim=0)
+                keep = R.diagonal().abs() > rtol * torch.clamp(
+                    col, min=torch.finfo(col.dtype).tiny)
+                keep[:offset] = True
+                if not bool(keep.all()):
+                    self.logger.info("truncating %d near-dependent basis column(s) "
+                                     "(rtol=%.1e)", int((~keep).sum()), rtol)
+                    Q, T = Q[:, keep], T[:, keep]
+                    if len(self.mu_basis) == keep.numel():
+                        self.mu_basis = [m for m, k in zip(self.mu_basis, keep.tolist())
+                                         if k]
         else:
             Q = self.srb @ T
         self.srb = Q
         if self.save_rb and self.rb.shape[1]:
-            self.rb = self.rb @ T.to(self.rb.dtype)
+            # a bf16 rb is combined in the promoted dtype and stored back
+            dt = torch.promote_types(self.rb.dtype, T.dtype)
+            self.rb = (self.rb.to(dt) @ T.to(dt)).to(self.rb.dtype)
         if self.residual_lhs is not None:
             self.residual_lhs = self.residual_lhs.rmul(T)
         if self.output_functional is not None:
@@ -257,6 +302,21 @@ class SketchedReductor:
             self.embedding_online = self.embedding_online.with_range_dim(
                 min(2 * k_now, k_max))
         raise AssertionError("unreachable")
+
+    def extend_basis_blocked(self, U, max_block_size: int = 64, mu=None) -> None:
+        """Extend by the columns of U in blocks of at most ``max_block_size``:
+        the host applies and sketches never hold more columns at once."""
+        U = torch.as_tensor(U)
+        if U.dim() == 1:
+            U = U[:, None]
+        for i in range(0, U.shape[1], max_block_size):
+            self.extend_basis(U[:, i:i + max_block_size], mu=mu)
+
+    def extend_basis_streamed(self, blocks, mu=None) -> None:
+        """Extend by each column block an iterator yields: the snapshot
+        matrix never has to exist whole."""
+        for block in blocks:
+            self.extend_basis(block, mu=mu)
 
     def reconstruct(self, u_reduced) -> torch.Tensor:
         """Lift reduced coefficients to the full space (needs save_rb)."""

@@ -63,7 +63,15 @@ class Embedding(LinOp):
         return (self.sqrt_product.range_dim if self.sqrt_product is not None
                 else self.source_dim)
 
+    # whether ``apply_random`` takes ``out_dtype`` (``CastInputOp`` asks)
+    emits_out_dtype = False
+
     def _in(self, X) -> torch.Tensor:
+        """X on the embedding's device: real data in the working dtype, but a
+        bfloat16 / float16 tensor (the bf16 offline mode's input) in its
+        own, which products then promote as the JAX package's do."""
+        if isinstance(X, torch.Tensor) and X.dtype in (torch.bfloat16, torch.float16):
+            return X.to(self.device)
         return as_tensor(X, self.device, self.dtype)
 
     def _apply_q(self, U) -> torch.Tensor:
@@ -186,9 +194,12 @@ class SrhtEmbedding(Embedding):
     (``_ONEPASS_MIN_DIM``), and for pre-blocked ``(m, B, R)`` input, the
     sketch is the one-pass SRHT of ``ops/srht_cuda.py`` — the hand-written
     kernel on a CUDA tensor; below, the Kronecker FWHT of ``ops/fwht.py``.
+    bfloat16 / float16 input keeps its dtype (the bf16 offline mode);
+    ``out_dtype`` picks the result's.
     """
 
     _ONEPASS_MIN_DIM = 1 << 16
+    emits_out_dtype = True
 
     def __init__(self, range_dim, source_dim, seed=0, sqrt_product=None,
                  device=None, dtype=None, plan: Optional[Plan] = None):
@@ -253,14 +264,23 @@ class SrhtEmbedding(Embedding):
         out[:, :n] = X.T
         return out.reshape(m, B, R)
 
-    def _onepass(self, x_cols: torch.Tensor) -> torch.Tensor:
+    def _onepass(self, x_cols: torch.Tensor, out_dtype=None) -> torch.Tensor:
         rademacher, sampling, _ = self.plan
-        return srht_onepass(x_cols, self.range_dim, rademacher, sampling)
+        return srht_onepass(x_cols, self.range_dim, rademacher, sampling, out_dtype)
 
-    def apply_random(self, X):
+    def apply_random(self, X, out_dtype=None):
         """Sketch of X: (n,) -> (k,), (n, m) -> (k, m), blocked (m, B, R)
-        with zero tail -> (k, m)."""
+        with zero tail -> (k, m).
+
+        ``out_dtype`` (default: X's dtype) is the result's dtype; the
+        one-pass kernel writes it from its float32 sums, so bf16 input asked
+        for float32 output is rounded once, on the way in. A real
+        ``out_dtype`` on complex data promotes (never drops the imaginary
+        part). The small-n FWHT computes in X's dtype, upcast first where
+        ``out_dtype`` is wider."""
         X = self._in(X)
+        if out_dtype is not None and X.is_complex():
+            out_dtype = torch.promote_types(out_dtype, X.dtype)
         n = self.l2_dim
         if X.dim() == 3:
             m = X.shape[0]
@@ -269,15 +289,19 @@ class SrhtEmbedding(Embedding):
                                  f"(m, {self.blocked_shape})")
             B, R = self.blocked_shape
             # (m, B, R) -> (n, m) strided view: read in place by the kernel
-            return self._onepass(X.reshape(m, B * R)[:, :n].T)
+            return self._onepass(X.reshape(m, B * R)[:, :n].T, out_dtype)
         single = X.dim() == 1
         Xm = X[:, None] if single else X
         if Xm.shape[0] != n:
             raise ValueError(f"input has {Xm.shape[0]} rows, embedding n={n}")
         if n >= self._ONEPASS_MIN_DIM:
-            out = self._onepass(Xm)
+            out = self._onepass(Xm, out_dtype)
         else:
+            if out_dtype is not None and out_dtype.itemsize > Xm.dtype.itemsize:
+                Xm = Xm.to(out_dtype)
             out = srht(Xm.T, self.range_dim, self.plan).T
+            if out_dtype is not None:
+                out = out.to(out_dtype)
         return out[:, 0] if single else out
 
     def random_matrix(self):

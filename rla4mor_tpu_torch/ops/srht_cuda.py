@@ -32,12 +32,18 @@ plan the kernel reads, int8 signs and int32 sampled rows, is passed as it
 is where it already has those types (``SrhtEmbedding`` holds it so);
 anything else is converted on the call.
 
-Sign packing (``srht_pallas_packed``) was a TPU traffic trick and is not
-part of the semantics; bf16 input is later work too and raises here.
+Input may be float32, float64, bfloat16 or float16. As in the JAX package,
+the sums run in ``promote_types(x.dtype, float32)`` (float32 for the 2-byte
+types, whose values the kernel widens on the way into its transform), and
+the result is ``out_dtype``: the input's dtype unless asked otherwise. The
+kernel writes the sums' dtype or the input's directly; any other
+``out_dtype`` is a cast of the sums. Sign packing (``srht_pallas_packed``)
+was a TPU traffic trick and is not part of the semantics.
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 import math
@@ -53,8 +59,14 @@ SOURCE = "srht_onepass.cu"
 _R_LOG = 11
 
 
+def accumulator_dtype(dtype: torch.dtype) -> torch.dtype:
+    """The dtype the sums run in: ``promote_types(dtype, float32)``, as the
+    JAX package's ``acc_dtype`` (float32 for bf16, f16 and f32 input)."""
+    return torch.promote_types(dtype, torch.float32)
+
+
 def srht_onepass_plain(x: torch.Tensor, k: int, signs: torch.Tensor,
-                       sampling: torch.Tensor) -> torch.Tensor:
+                       sampling: torch.Tensor, out_dtype=None) -> torch.Tensor:
     """Plain PyTorch one-pass SRHT of real ``x`` (n, m) -> (k, m).
 
     The flat (B, R) contraction of the JAX package's ``_flat_plan``: with
@@ -62,8 +74,12 @@ def srht_onepass_plain(x: torch.Tensor, k: int, signs: torch.Tensor,
     H[sigma, i] = H_B[sigma >> log2 R, b] * H_R[sigma mod R, r], so the sum is
     one (K, R) @ (B, R, m) product and a +-1 recombination over the
     ceil(n / R) nonzero blocks (the zero tail of the last block is padded).
+    A 2-byte ``x`` is multiplied by its signs in its own dtype (exact) and
+    widened to float32, where the sums run; the result is ``out_dtype``
+    (default: x's dtype).
     """
     n, m = x.shape
+    acc = accumulator_dtype(x.dtype)
     d = ceil_log2(n)
     R = 1 << min(_R_LOG, d)
     dr = R.bit_length() - 1
@@ -71,28 +87,40 @@ def srht_onepass_plain(x: torch.Tensor, k: int, signs: torch.Tensor,
     samp = sampling.to(device=x.device, dtype=torch.int64)
     gr = hadamard_sign(
         (samp[:, None] & (R - 1)) & torch.arange(R, device=x.device)[None, :]
-    ).to(x.dtype)                                                  # (K, R)
+    ).to(acc)                                                      # (K, R)
     hb = hadamard_sign(
         (samp[:, None] >> dr) & torch.arange(B, device=x.device)[None, :]
-    ).to(x.dtype)                                                  # (K, B)
-    xd = x.new_zeros((B * R, m))
-    torch.mul(x, signs.to(device=x.device, dtype=x.dtype)[:, None], out=xd[:n])
+    ).to(acc)                                                      # (K, B)
+    xd = x.new_zeros((B * R, m), dtype=acc)
+    s = signs.to(device=x.device, dtype=x.dtype)[:, None]
+    if x.dtype == acc:
+        torch.mul(x, s, out=xd[:n])
+    else:
+        xd[:n] = x * s
     w = torch.matmul(gr, xd.reshape(B, R, m))                     # (B, K, m)
-    out = torch.einsum("bkm,kb->km", w, hb)
-    return out / math.sqrt(k)
+    out = torch.einsum("bkm,kb->km", w, hb) / math.sqrt(k)
+    out_dtype = x.dtype if out_dtype is None else out_dtype
+    return out if out.dtype == out_dtype else out.to(out_dtype)
 
 
 # the kernel's copy of the plan: its types, 16-byte aligned
 _PLAN_ALIGN = 16
 # Columns of a tile, most, by layout (the .cu has MT = 1, 2, 4), and the
 # blocks an SM the tiles must give before a tile is as wide as that. The
-# fastest widths on an H100 (probes/srht_probe.py --sweep, float32 and
-# float64): at 56 columns of 2^24 (8,192 blocks) and of 2^20, MT 2 for the
-# rows layout's 16-byte copies and 4 for the columns layout's element
-# copies; at 8 columns of 2^20 and of 261,121 (a few blocks an SM), MT 1,
-# whose tiles spread the reduction over more CTAs.
+# fastest widths on an NVIDIA H100 80GB HBM3 at 700 W (probes/srht_probe.py
+# --sweep): at 56 columns of
+# 2^24 (8,192 blocks) and of 2^20, MT 2 for float32 and float64 in the rows
+# layout's 16-byte copies and 4 for the columns layout's element copies; MT 4
+# in both layouts for a 2-byte type (bf16 blocked 1.48 ms against 1.58 at
+# MT 2); at 8 columns of 2^20 and of 261,121 (a few blocks an SM), MT 1,
+# whose tiles spread the reduction over more CTAs. A 2-byte type in the
+# columns layout takes at least MT 2: its copies move a tile's row of MT
+# values, and cp.async has no 2-byte copy.
 _MT_MAX = {True: 2, False: 4}
 _FILL_BLOCKS_PER_SM = 32
+# the kernel's dtype codes (``Dtype`` in the .cu)
+_DTYPE_CODE = {torch.float32: 0, torch.float64: 1, torch.bfloat16: 2, torch.float16: 3}
+_KERNEL_DTYPES = tuple(_DTYPE_CODE)
 
 
 class _Launch(ctypes.Structure):
@@ -109,9 +137,9 @@ class _Launch(ctypes.Structure):
 def _lib() -> ctypes.CDLL:
     lib = nvcc.load(SOURCE)
     launch = ctypes.POINTER(_Launch)
-    for fn in (lib.srht_onepass_f32, lib.srht_onepass_f64):
-        fn.argtypes = [launch] + [ctypes.c_void_p] * 7
-        fn.restype = ctypes.c_int
+    lib.srht_onepass.argtypes = ([launch, ctypes.c_int] + [ctypes.c_void_p] * 6
+                                 + [ctypes.c_int, ctypes.c_void_p])
+    lib.srht_onepass.restype = ctypes.c_int
     lib.srht_onepass_scratch.argtypes = [launch] + [ctypes.POINTER(ctypes.c_int64)] * 2
     lib.srht_onepass_scratch.restype = None
     lib.srht_onepass_setup.argtypes = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int)]
@@ -126,27 +154,37 @@ def _raise_on(err: int, what: str) -> None:
         raise RuntimeError(f"{what} failed: cudaError {err}")
 
 
-def tile_width(n: int, m: int, rows_layout: bool, sms: int) -> int:
+def tile_width(n: int, m: int, rows_layout: bool, sms: int, itemsize: int = 4) -> int:
     """MT, the columns of the kernel's tile: the least power of two >= m up
-    to ``_MT_MAX``, halved while the tiles' blocks (ceil(m / MT) ceil(n / R))
-    come to fewer than ``_FILL_BLOCKS_PER_SM`` for each of the card's
-    ``sms``: with few blocks a CTA, the tile's reduction weighs as much as
-    its transform, and narrower tiles share it among more CTAs."""
-    mt = min(_MT_MAX[rows_layout], 1 << (m - 1).bit_length())
+    to ``_MT_MAX`` (4 for a 2-byte type), halved while the tiles' blocks
+    (ceil(m / MT) ceil(n / R)) come to fewer than ``_FILL_BLOCKS_PER_SM``
+    for each of the card's ``sms``, but not below 2 for a 2-byte type
+    outside the rows layout: with few blocks a CTA, the tile's reduction
+    weighs as much as its transform, and narrower tiles share it among more
+    CTAs."""
+    narrow = itemsize == 2
+    mt = min(4 if narrow else _MT_MAX[rows_layout], 1 << (m - 1).bit_length())
+    least = min(2 if narrow and not rows_layout else 1, mt)
     n_blocks = -(-n // (1 << _R_LOG))
-    while mt > 1 and -(-m // mt) * n_blocks < _FILL_BLOCKS_PER_SM * sms:
+    while mt > least and -(-m // mt) * n_blocks < _FILL_BLOCKS_PER_SM * sms:
         mt //= 2
     return mt
 
 
 def tile(mt: int, itemsize: int) -> tuple[int, int]:
     """(ld, shared-memory bytes) of an MT-column tile of ``itemsize``
-    values: each of the two stages holds MT columns of R values ld = R + 16
+    values: each of the two stages holds MT columns of R values R + 16
     bytes apart (16-byte copies stay aligned, element copies hit distinct
-    banks) and the R int8 signs."""
+    banks) and the R int8 signs; ld is the column stride of the tile the
+    sums are read from. A 4- or 8-byte tile is transformed in place; a
+    2-byte one is widened into a third, float32 tile of MT columns ld
+    apart (``smem_bytes`` in the .cu)."""
     R = 1 << _R_LOG
-    ld = R + 16 // itemsize
-    return ld, 2 * (mt * ld * itemsize + R)
+    if itemsize >= 4:
+        ld = R + 16 // itemsize
+        return ld, 2 * (mt * ld * itemsize + R)
+    ld = R + 16 // 4
+    return ld, 2 * (mt * (R + 16 // itemsize) * itemsize + R) + mt * ld * 4
 
 
 def block_split(n: int, m: int, k: int, mt: int, rows_per_cta: int,
@@ -162,28 +200,29 @@ def block_split(n: int, m: int, k: int, mt: int, rows_per_cta: int,
 
 
 @functools.cache
-def _resident(dev_index: int, itemsize: int, mt: int, smem: int) -> int:
-    """CTAs of the (itemsize, MT) kernel that device ``dev_index`` holds at
+def _resident(dev_index: int, dtype: torch.dtype, mt: int, smem: int) -> int:
+    """CTAs of the (dtype, MT) kernel that device ``dev_index`` holds at
     once at ``smem`` bytes each; lets it take all the shared memory a CTA
     may opt in to first."""
     per_sm = ctypes.c_int(0)
-    _raise_on(_lib().srht_onepass_setup(dev_index, int(itemsize == 8), _R_LOG, mt, smem,
+    _raise_on(_lib().srht_onepass_setup(dev_index, _DTYPE_CODE[dtype], _R_LOG, mt, smem,
                                         ctypes.byref(per_sm)), "srht_onepass setup")
     return sm_count(dev_index) * max(1, per_sm.value)
 
 
 @functools.lru_cache(maxsize=256)
-def _launch_plan(dev_index: int, itemsize: int, n: int, m: int, k: int, stride_i: int,
-                 stride_j: int) -> tuple[_Launch, int, int]:
+def _launch_plan(dev_index: int, dtype: torch.dtype, n: int, m: int, k: int,
+                 stride_i: int, stride_j: int) -> tuple[_Launch, int, int]:
     """(the kernel's launch record, its counters, its values of sums) for
-    one device and shape."""
+    one device, input dtype and shape."""
     if (1 << ceil_log2(n)) > 1 << 31:
         raise ValueError(f"srht_onepass: n={n} exceeds 2^31")
     lib = _lib()
-    mt = tile_width(n, m, stride_i == 1, sm_count(dev_index))
+    itemsize = dtype.itemsize
+    mt = tile_width(n, m, stride_i == 1, sm_count(dev_index), itemsize)
     ld, smem = tile(mt, itemsize)
     bpc, n_split = block_split(n, m, k, mt, lib.srht_onepass_rows_per_cta(),
-                               _resident(dev_index, itemsize, mt, smem))
+                               _resident(dev_index, dtype, mt, smem))
     # the partial sums are added in groups of about sqrt(n_split) CTAs
     group = math.isqrt(n_split - 1) + 1
     rec = _Launch(n, m, k, stride_i, stride_j, bpc, n_split, group, dev_index, _R_LOG, mt,
@@ -225,8 +264,8 @@ def _plan_operand(t: torch.Tensor, dtype: torch.dtype, index: int) -> torch.Tens
     return t.to(device=torch.device("cuda", index), dtype=dtype, copy=True).contiguous()
 
 
-def _launch(x: torch.Tensor, k: int, signs: torch.Tensor,
-            sampling: torch.Tensor) -> torch.Tensor:
+def _launch(x: torch.Tensor, k: int, signs: torch.Tensor, sampling: torch.Tensor,
+            out_dtype: torch.dtype) -> torch.Tensor:
     n, m = x.shape
     stride_i, stride_j = x.stride()
     if stride_i < 0 or stride_j < 0:
@@ -236,51 +275,55 @@ def _launch(x: torch.Tensor, k: int, signs: torch.Tensor,
             f"srht_onepass: plan shapes {tuple(signs.shape)}, "
             f"{tuple(sampling.shape)} do not match n={n}, k={k}")
     index = x.get_device()
-    f64 = x.dtype is torch.float64
-    rec, n_counters, n_sums = _launch_plan(index, 8 if f64 else 4, n, m, k, stride_i,
-                                           stride_j)
+    acc = accumulator_dtype(x.dtype)
+    # the kernel writes the sums' dtype or, for a 2-byte x, x's own
+    narrow = out_dtype == x.dtype != acc
+    rec, n_counters, n_sums = _launch_plan(index, x.dtype, n, m, k, stride_i, stride_j)
     d_signs = _plan_operand(signs, torch.int8, index)
     sigma = _plan_operand(sampling, torch.int32, index)
     stream = _stream(index)
     done = _scratch(index, stream, torch.int32, n_counters)
-    sums = _scratch(index, stream, x.dtype, n_sums)
-    out = x.new_empty((k, m))
-    lib = _lib()
-    fn = lib.srht_onepass_f64 if f64 else lib.srht_onepass_f32
-    _raise_on(fn(rec, x.data_ptr(), d_signs.data_ptr(), sigma.data_ptr(), done, sums,
-                 out.data_ptr(), stream), "srht_onepass kernel launch")
+    sums = _scratch(index, stream, acc, n_sums)
+    out = x.new_empty((k, m), dtype=x.dtype if narrow else acc)
+    _raise_on(_lib().srht_onepass(rec, _DTYPE_CODE[x.dtype], x.data_ptr(), d_signs.data_ptr(),
+                                  sigma.data_ptr(), done, sums, out.data_ptr(), int(narrow),
+                                  stream), "srht_onepass kernel launch")
     srht_onepass.launches += 1
-    return out
+    srht_onepass.launches_by_dtype[x.dtype] += 1
+    return out if out.dtype == out_dtype else out.to(out_dtype)
 
 
 def srht_onepass(x: torch.Tensor, k: int, signs: torch.Tensor,
-                 sampling: torch.Tensor) -> torch.Tensor:
+                 sampling: torch.Tensor, out_dtype=None) -> torch.Tensor:
     """One-pass sampled SRHT of ``x`` (n, m), any strides -> (k, m).
 
     On a CUDA tensor this launches the hand-written kernel (built at first
     use) and raises if it cannot; on a CPU tensor it runs
-    :func:`srht_onepass_plain`. Complex input is sketched as its real and
-    imaginary parts (``view_as_real``). float32 and float64 only.
-    ``srht_onepass.launches`` counts kernel launches."""
+    :func:`srht_onepass_plain`. float32, float64, bfloat16 and float16; the
+    sums run in ``promote_types(x.dtype, float32)`` and the result is
+    ``out_dtype`` (default: x's dtype). Complex input is sketched as its real
+    and imaginary parts (``view_as_real``), ``out_dtype`` then names their
+    dtype or the complex one. ``srht_onepass.launches`` counts kernel
+    launches, ``srht_onepass.launches_by_dtype`` the same by input dtype."""
+    if out_dtype is None:
+        out_dtype = x.dtype
     if x.is_cuda and x.dtype in _KERNEL_DTYPES and x.dim() == 2:
-        return _launch(x, k, signs, sampling)
+        return _launch(x, k, signs, sampling, out_dtype)
     if x.dim() != 2:
         raise ValueError(f"srht_onepass expects (n, m), got {tuple(x.shape)}")
     if x.is_complex():
         xr = torch.view_as_real(x)
-        return torch.complex(srht_onepass(xr[..., 0], k, signs, sampling),
-                             srht_onepass(xr[..., 1], k, signs, sampling))
-    if x.dtype in (torch.bfloat16, torch.float16):
-        raise NotImplementedError(
-            f"srht_onepass: {x.dtype} input is not supported yet")
+        part = out_dtype.to_real() if out_dtype.is_complex else out_dtype
+        return torch.complex(srht_onepass(xr[..., 0], k, signs, sampling, part),
+                             srht_onepass(xr[..., 1], k, signs, sampling, part))
     if x.dtype not in _KERNEL_DTYPES:
         raise TypeError(f"srht_onepass: unsupported dtype {x.dtype}")
     if x.device.type == "cpu":
-        return srht_onepass_plain(x, k, signs, sampling)
+        return srht_onepass_plain(x, k, signs, sampling, out_dtype)
     if x.device.type != "cuda":
         raise ValueError(f"srht_onepass: unsupported device {x.device}")
-    return _launch(x, k, signs, sampling)
+    return _launch(x, k, signs, sampling, out_dtype)
 
 
 srht_onepass.launches = 0
-_KERNEL_DTYPES = (torch.float32, torch.float64)
+srht_onepass.launches_by_dtype = collections.Counter()

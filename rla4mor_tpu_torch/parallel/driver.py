@@ -25,6 +25,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from rla4mor_tpu_torch.core.orthonormalize import masked_append
 from rla4mor_tpu_torch.core.solvers import bicgstab, cg, lstsq_dense
 from rla4mor_tpu_torch.parallel.sharded_sketch import gaussian_sketch_sharded
 
@@ -211,47 +212,24 @@ def make_sharded_greedy_step(
 
         # 3) masked incremental Gram-Schmidt in sketch space, the same
         # combination applied to the residual columns, the output columns
-        # and (score="exact") the basis grids
-        c = state.ncols
-        col_mask = (columns < c).to(su.dtype)
-        su0_nrm = torch.linalg.vector_norm(su)  # raw sketch scale, pre-GS
-        ug = u
-        ou = (torch.atleast_1d(fom.output(u)).to(su.dtype)
-              if state.out is not None else None)
-        for _ in range(2):  # one re-orthogonalisation pass
-            coeffs = (state.srb.conj().T @ su) * col_mask
-            su = su - state.srb @ coeffs
-            s_terms = s_terms - torch.einsum("tkr,r->kt", state.res_lhs, coeffs)
-            if ou is not None:
-                ou = ou - state.out @ coeffs
-            if score == "exact":
-                ug = ug - torch.tensordot(coeffs, state.U, dims=1)
-        nrm_raw = torch.linalg.vector_norm(su)
-        nrm = torch.clamp(nrm_raw, min=1e-30)
-        # saturate at r_max (c_write stays in bounds: the JAX package's
-        # out-of-bounds scatter would be dropped silently) and refuse a
-        # degenerate snapshot: non-finite (a diverged solve would poison the
-        # state for good) or sketch-dependent (a zero solve or a duplicate
-        # leaves only round-off, which would make the masked system singular)
-        finite = torch.isfinite(su).all() & torch.isfinite(s_terms).all()
-        indep = nrm_raw > 100 * torch.finfo(su.dtype).eps * su0_nrm
-        ok = (c < r_max) & finite & indep
-        c_write = torch.clamp(c, max=r_max - 1).long()
-        srb = state.srb.clone()
-        srb[:, c_write] = torch.where(ok, su / nrm, state.srb[:, c_write])
-        res_lhs = state.res_lhs.clone()
-        res_lhs[:, :, c_write] = torch.where(ok, s_terms.T / nrm,
-                                             state.res_lhs[:, :, c_write])
-        new_U = state.U
+        # and (score="exact") the basis grids. The append saturates at r_max
+        # (the JAX package's out-of-bounds scatter would be dropped silently)
+        # and refuses a degenerate snapshot: non-finite (a diverged solve
+        # would poison the state for good) or sketch-dependent (a zero solve
+        # or a duplicate leaves only round-off, which would make the masked
+        # system singular)
+        appended = [(state.res_lhs, s_terms.T, 2)]
+        if state.out is not None:
+            appended.append((state.out, torch.atleast_1d(fom.output(u)).to(su.dtype), 1))
         if score == "exact":
-            new_U = state.U.clone()
-            new_U[c_write] = torch.where(ok, ug / nrm, state.U[c_write])
-        new_out = state.out
-        if ou is not None:
-            new_out = state.out.clone()
-            new_out[:, c_write] = torch.where(ok, ou / nrm, state.out[:, c_write])
-        state = state._replace(srb=srb, res_lhs=res_lhs, ncols=c + ok.to(c.dtype),
-                               U=new_U, out=new_out)
+            appended.append((state.U, u, 0))
+        finite = torch.isfinite(su).all() & torch.isfinite(s_terms).all()
+        srb, stacks, ncols = masked_append(state.srb, state.ncols, su, appended, ok=finite)
+        stacks = iter(stacks)
+        res_lhs = next(stacks)
+        new_out = next(stacks) if state.out is not None else None
+        new_U = next(stacks) if score == "exact" else state.U
+        state = state._replace(srb=srb, res_lhs=res_lhs, ncols=ncols, U=new_U, out=new_out)
 
         # 4) error sweep over the parameter batch
         if score == "exact":

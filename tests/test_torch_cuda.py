@@ -21,6 +21,9 @@ from rla4mor_tpu_torch.ops.fwht import _srht_plan
 pytestmark = pytest.mark.cuda
 
 TOL = {torch.float32: 1e-4, torch.float64: 1e-12}
+# 2-byte input against the plain version, both emitting float32: the same
+# float32 sums in other orders
+TOL_2BYTE = 1e-4
 
 
 @pytest.fixture
@@ -86,6 +89,48 @@ def test_kernel_matches_plain(cuda, n, m, k, layout, dtype):
     assert rel_err(out, ref) < TOL[dtype]
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=["bf16", "f16"])
+@pytest.mark.parametrize("n,m,k,layout", CASES)
+def test_2byte_kernel_matches_plain(cuda, n, m, k, layout, dtype):
+    """The 2-byte instance (float32 sums) against the plain version on the
+    same CUDA tensor, float32 output (1e-4) and the input's dtype (one
+    rounding: 8e-3 bf16, 1e-3 f16)."""
+    x = _input(n, m, layout, dtype, cuda)
+    signs, sampling, _ = _srht_plan(n, n, k)
+    before = srht_cuda.srht_onepass.launches_by_dtype[dtype]
+    out = srht_cuda.srht_onepass(x, k, signs, sampling, out_dtype=torch.float32)
+    narrow = srht_cuda.srht_onepass(x, k, signs, sampling)
+    torch.cuda.synchronize()
+    assert srht_cuda.srht_onepass.launches_by_dtype[dtype] == before + 2
+    assert out.dtype == torch.float32 and narrow.dtype == dtype
+    ref = srht_cuda.srht_onepass_plain(x, k, signs, sampling, out_dtype=torch.float32)
+    assert rel_err(out, ref) < TOL_2BYTE
+    assert rel_err(narrow.float(), ref) < (8e-3 if dtype == torch.bfloat16 else 1e-3)
+
+
+def test_bf16_columns_and_misaligned_views_launch_the_kernel(cuda):
+    """bf16 in the columns layout (one copy a tile row), with an odd column
+    count, and misaligned views (an offset of one element, rows and columns;
+    the element path) all launch the kernel, not the plain version, and
+    agree with it (1e-4, float32 output)."""
+    n, k = 70001, 300
+    signs, sampling, _ = _srht_plan(5, n, k)
+    base = torch.randn((n + 1) * 9, device=cuda).to(torch.bfloat16)
+    views = {
+        "cols m=8": base[: n * 8].view(n, 8),
+        "cols m=7": base[: n * 7].view(n, 7),
+        "cols offset 1": base[1: 1 + n * 8].view(n, 8),
+        "rows offset 1": base[1: 1 + n * 3].view(3, n).T,
+        "rows m=1 offset 1": base[1: 1 + n].view(n, 1),
+    }
+    for label, x in views.items():
+        before = srht_cuda.srht_onepass.launches_by_dtype[torch.bfloat16]
+        out = srht_cuda.srht_onepass(x, k, signs, sampling, out_dtype=torch.float32)
+        assert srht_cuda.srht_onepass.launches_by_dtype[torch.bfloat16] == before + 1, label
+        ref = srht_cuda.srht_onepass_plain(x, k, signs, sampling, out_dtype=torch.float32)
+        assert rel_err(out, ref) < TOL_2BYTE, label
+
+
 @pytest.mark.parametrize("n,m,layout", [(261121, 8, "cols"), (1 << 20, 56, "rows")])
 def test_kernel_is_deterministic(cuda, n, m, layout):
     x = _input(n, m, layout, torch.float32, cuda)
@@ -121,10 +166,18 @@ def test_complex_input_launches_twice(cuda):
 
 
 def test_unsupported_input_raises_on_the_card(cuda):
+    """A plan that does not fit raises; bf16, which the kernel takes, is
+    sketched by the kernel, against the plain version on the same CUDA
+    tensor (float32 output 1e-4, bf16 output 8e-3: one bf16 rounding)."""
     signs, sampling, _ = _srht_plan(0, 100, 8)
-    with pytest.raises(NotImplementedError):
-        srht_cuda.srht_onepass(torch.ones(100, 2, dtype=torch.bfloat16, device=cuda),
-                               8, signs, sampling)
+    x = torch.randn(100, 2, device=cuda).to(torch.bfloat16)
+    before = srht_cuda.srht_onepass.launches_by_dtype[torch.bfloat16]
+    for out_dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 8e-3)):
+        out = srht_cuda.srht_onepass(x, 8, signs, sampling, out_dtype=out_dtype)
+        assert out.dtype == out_dtype and out.is_cuda
+        ref = srht_cuda.srht_onepass_plain(x, 8, signs, sampling, out_dtype=torch.float32)
+        assert rel_err(out.float(), ref) < tol
+    assert srht_cuda.srht_onepass.launches_by_dtype[torch.bfloat16] == before + 2
     with pytest.raises(ValueError):
         srht_cuda.srht_onepass(torch.ones(100, 2, device=cuda), 8, signs[:50],
                                sampling)
@@ -360,8 +413,8 @@ def test_driver_sketch_takes_the_kernel_in_the_rows_layout(cuda, monkeypatch):
     seen = []
     real = temb.srht_onepass
 
-    def recording(x, k, signs, sampling):
-        out = real(x, k, signs, sampling)
+    def recording(x, k, signs, sampling, out_dtype=None):
+        out = real(x, k, signs, sampling, out_dtype)
         if x.is_cuda:
             seen.append((tuple(x.shape), x.stride(), rel_err(
                 out, srht_cuda.srht_onepass_plain(x, k, signs, sampling))))

@@ -200,10 +200,17 @@ def test_small_n_fwht_branch_matches_jax(shape):
 
 
 def test_wrapper_rejects_what_the_kernel_does_not_take():
+    """int32 and 3-D input raise; bf16, which the kernel takes, is sketched:
+    on the CPU, the plain version of the input widened to float32 (1e-6
+    relative to max, float32 sums; bf16 output within one rounding)."""
     signs, sampling, _ = _srht_plan(0, 100, 8)
-    with pytest.raises(NotImplementedError):
-        srht_cuda.srht_onepass(torch.ones(100, 2, dtype=torch.bfloat16), 8,
-                               signs, sampling)
+    x = torch.tensor(np.random.RandomState(0).normal(size=(100, 2))).to(torch.bfloat16)
+    out = srht_cuda.srht_onepass(x, 8, signs, sampling, out_dtype=torch.float32)
+    assert out.dtype == torch.float32
+    assert rel(out, srht_cuda.srht_onepass_plain(x.float(), 8, signs, sampling)) < 1e-6
+    narrow = srht_cuda.srht_onepass(x, 8, signs, sampling)
+    assert narrow.dtype == torch.bfloat16
+    assert rel(narrow.float(), out) < 2.0 ** -7
     with pytest.raises(TypeError):
         srht_cuda.srht_onepass(torch.ones(100, 2, dtype=torch.int32), 8,
                                signs, sampling)

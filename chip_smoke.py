@@ -9,7 +9,8 @@ Phases, each printing one line (any failed check raises and exits non-zero):
    (nvidia-smi) and turns TF32 off;
 2. build: compiles every kernel source of ``rla4mor_tpu_torch/csrc`` with
    nvcc, one process per source, all started together, and prints each
-   build time;
+   build time; then the HMMA / HGMMA count of each tiled Gaussian instance
+   in the built library's SASS (``cuobjdump -sass``; each must be > 0);
 3. SRHT kernel vs plain: the one-pass SRHT kernel against its plain PyTorch
    version on the same inputs on the card, float32 and float64, at the
    slice's shapes (n = 261,121, m = 1 and 8) and the bench shape
@@ -26,11 +27,14 @@ Phases, each printing one line (any failed check raises and exits non-zero):
 4. Gaussian kernels vs plain: the strip kernel against its plain version
    (Rademacher bit-equal, normal to 1e-5 absolute; seeds and strips differ,
    redraws are equal; mean, standard deviation and tails), and the sketch
-   kernel against its plain version to 1e-4 relative at the HwPrng path's
+   kernel against its plain version (1e-4 relative on the small branch,
+   1e-5 on the tiled one) at the HwPrng path's
    shapes (n = 261,121, m = 1 and 5; k = 256 and 300 normal, 256
-   Rademacher) and the bench shape (n = 2^23, k = 256, m = 8, 32, 128,
-   both dists, and m = 9 normal: the two sides of the kernel's small-m
-   threshold);
+   Rademacher), at ``[hwprng block]``'s (m = ``BLOCK_SNAPSHOTS``) and at
+   the bench shape (n = 2^23, k = 256, m = 8, 9, 16, 32, 64, 128, both
+   dists; at m = 32 also k = 300 (cos halves) and a column-major x); each
+   row names the branch it took (``SMALL_M_MAX[dist]``) and is held to
+   that branch's bound;
 5. the SRHT slice: thermal block 2x2 at ``--grid`` intervals (n = 261,121
    at 512, so every sketch takes the kernel), SRHT k = 300 over the h1_0
    sqrt factor, Galerkin reductor, weak greedy over 200 training
@@ -58,7 +62,15 @@ Phases, each printing one line (any failed check raises and exits non-zero):
    parameters (same seed schedule); ``[strong]``: ``STRONG_TRAINING``
    parameters solved once, ``extend_basis_blocked`` (blocks of 4) against
    single-column extensions (srb within 1e-5), ``rb_greedy_strong`` for
-   ``STRONG_EXTENSIONS`` extensions, whose max true error must decay.
+   ``STRONG_EXTENSIONS`` extensions, whose max true error must decay;
+   ``[hwprng block]``: ``HwPrngGaussianEmbedding`` k = 256 over the sqrt
+   factor fed [strong]'s snapshots and ``BLOCK_SNAPSHOTS`` - 6 more by
+   ``extend_basis_blocked`` (one block, the tiled kernel: its launches
+   by branch, counted just around extension and ``reduce()``, must show
+   tiled ones) into a reductor with ``truncation_rtol`` =
+   ``BLOCK_TRUNCATION_RTOL``, the ROM's held-out checks, and the sketched snapshots of
+   blocked and single-column extensions (small branch) compared before
+   orthonormalisation (srb and residual stacks within 1e-5).
    Checks of the paths: finite outputs, the last max estimate below the
    first, ROM outputs within 5e-2 of the host FOM at 4 held-out
    parameters, the sketched estimate within a factor 2 of the exact dual
@@ -87,8 +99,9 @@ Phases, each printing one line (any failed check raises and exits non-zero):
    least squares in sketch space. One more step under ``torch.profiler``
    prints the top device operations and the device's idle share;
 8. the kernels' JSON line (the bf16 instance a row of its own, with the
-   ``[bf16]`` path's bf16-input launches), the run's wall time, then the
-   result line.
+   ``[bf16]`` path's bf16-input launches; the tiled Gaussian branch a row
+   of its own, with ``[hwprng block]``'s tiled launches at the bench m =
+   128 shape), the run's wall time, then the result line.
 
 Times are CUDA-event means over back-to-back calls after a warm-up (the
 wrapper's host time included where it is longer than the kernel's); an
@@ -105,10 +118,16 @@ the tensor cores), from this run's shapes. For the SRHT that is the
 cheapest of the direct product (2 k n flop per column), an FWHT of length
 2^d (2^d d adds per column, n <= 2^d) and the blocked FWHT the kernel does
 (B R log2 R + k B adds per column, B = ceil(n / R) blocks of R =
-2^min(11, d)); for the Gaussian sketch 2 k n m flop.
+2^min(11, d)); for the Gaussian sketch 2 k n m flop, at 67 TFLOP/s on the
+small branch and, on the tiled branch, 3 (Rademacher 2) TF32 passes of
+them at the tensor cores' dense rate: 2048 TF32 flop a clock per SM
+(``TF32_FLOP_PER_CLOCK_SM``, one mma.m16n8k8, which ``probes/int_rates.cu``
+measures at 1.04 a clock per SM) at the card's SM count and maximum SM
+clock, as the generation term below.
 The Gaussian sketch and strip rows have a third term, the generation: the
 Philox4x32-10 calls this run's shape needs (k ceil(n/4) in pairs and
-Rademacher mode, 2 k ceil(n/4) in cos-halves mode; n = W for a strip),
+Rademacher mode, 2 k ceil(n/4) in cos-halves mode; n = W for a strip;
+once per column chunk of ``TILED_CHUNK`` on the tiled branch),
 each at the 32 x 32 -> 64-bit multiplies (IMAD.WIDE.U32) that its own
 counter needs, over 32 of them per clock per SM, the card's SM count and
 its maximum SM clock (nvidia-smi clocks.max.sm). A call has 20 such
@@ -147,7 +166,7 @@ BENCH_LOG2N, BENCH_K, BENCH_M = 24, 256, 56
 BENCH_REPS = 10
 GAUSS_K, GAUSS_W = 256, 2048
 HW_EXTENSIONS = 6  # the HwPrng greedy runs at full width
-GAUSS_BENCH_LOG2N, GAUSS_BENCH_MS = 23, (8, 9, 32, 128)
+GAUSS_BENCH_LOG2N, GAUSS_BENCH_MS = 23, (8, 9, 16, 32, 64, 128)
 LARGE_GRID, LARGE_SMALL_GRID = 2048, 512
 # 8 weak-greedy steps over the batch of 8 candidates: 4 random ones leave
 # the ROM's output 2-8% off at held-out parameters on an H100 at grid 512
@@ -159,6 +178,18 @@ LARGE_K, LARGE_STEPS = 256, 8
 # 5e-2 output check); the strong greedy 5 extensions over 6 solved parameters
 BF16_EXTENSIONS, PADDED_EXTENSIONS = 6, 6
 STRONG_TRAINING, STRONG_EXTENSIONS = 6, 5
+# [hwprng block]: [strong]'s 6 snapshots and 6 more, one block of 12 (> 8:
+# the tiled branch). Their sketch is conditioned at 1.1-1.4e5 (CPU, grids
+# 32-512): past float32, the 12th direction is rounding noise, and a
+# float32 reductor that keeps it (the JAX package's as much as the port's,
+# tests/test_torch_block_float32.py) gives a ROM whose exact residual is
+# up to 230 times b's (grid 512) and whose estimate is 0.004-0.07 of it.
+# The JAX package's setting for a float32 offline stage, truncation_rtol
+# about sqrt(eps) = 3.45e-4 (rla4mor_tpu/mor/sketched_reductor.py:93-99),
+# drops it at grid 128, but at grid 512 that direction is 3.4e-4 of its
+# column and stays (an H100 run: outputs 7.8e-2 off); 1e-3 drops it there
+# too (the next smallest is 1.2e-3): 11 kept, every check holds
+BLOCK_SNAPSHOTS, BLOCK_TRUNCATION_RTOL = 12, 1e-3
 # below 4 x 2^-7 of the dual norm of b a bf16-offline estimate is at its
 # floor (tests/test_bf16_offline.py)
 BF16_FLOOR = 4 * 2.0 ** -7
@@ -166,6 +197,7 @@ TOL = {torch.float64: 1e-12, torch.float32: 1e-4}
 TOL_NARROW = 8e-3  # 2-byte output against the float32 sums: one bf16 rounding
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 67e12}
+TF32_FLOP_PER_CLOCK_SM = 2048  # dense TF32 on the tensor cores (the tiled Gaussian branch)
 PHILOX_WIDE_MULS = 15  # per Philox4x32-10 call of an Omega (module docstring)
 WIDE_MULS_PER_CLOCK_SM = 32  # IMAD.WIDE.U32 rate of compute capability 9.0
 
@@ -217,11 +249,13 @@ def graph_ms(fn, reps: int) -> float:
 
 
 def bound(nbytes: float, flops: float, dtype, philox_calls: float = 0.0,
-          wide_muls_per_s: float = 1.0) -> tuple[float, str]:
+          wide_muls_per_s: float = 1.0, flops_per_s: float | None = None) -> tuple[float, str]:
     """(least time in ms, the term that sets it): bytes, operations
-    (floating point) or generation (Philox's wide multiplies)."""
+    (floating point, at ``flops_per_s``, default the dtype's peak) or
+    generation (Philox's wide multiplies)."""
+    rate = PEAK_FLOPS[dtype] if flops_per_s is None else flops_per_s
     terms = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
-             "operations": flops / PEAK_FLOPS[dtype] * 1e3,
+             "operations": flops / rate * 1e3,
              "generation": philox_calls * PHILOX_WIDE_MULS / wide_muls_per_s * 1e3}
     by = max(terms, key=terms.get)
     return terms[by], by
@@ -469,15 +503,27 @@ def gaussian_strip_phase(device, wide_muls_per_s: float) -> dict:
     return rows["normal"]
 
 
-def gaussian_sketch_row(label, x, k, dist, reps, gen, wide_muls_per_s: float) -> dict:
+def gaussian_sketch_row(label, x, k, dist, reps, gen, rates: tuple[float, float]) -> dict:
+    """The sketch kernel on ``x`` against its plain version (1e-4 relative
+    on the small branch, 1e-5 on the tiled one) and the library product,
+    with the bound of the branch it takes: the small branch's product at
+    the CUDA cores' float32 rate, the tiled branch's 3 (Rademacher 2) TF32
+    passes at the tensor cores' rate and its Omega drawn once per column
+    chunk. ``rates`` is (IMAD.WIDE, dense TF32 flop) per second."""
     from rla4mor_tpu_torch.ops import gaussian_cuda as gcu
 
+    n, m = x.shape
+    wide_muls_per_s, tf32_flops_per_s = rates
+    branch = "small" if m <= gcu.SMALL_M_MAX[dist] else "tiled"
+    counts = gcu.gaussian_sketch.launches_by_branch
+    before = counts[branch]
     out = gcu.gaussian_sketch(x, k, 3, GAUSS_W, dist)
+    check(counts[branch] == before + 1, f"{label}: not the {branch} branch")
     plain = gcu.gaussian_sketch_plain(x, k, 3, GAUSS_W, dist)
     torch.cuda.synchronize()
     err = (out - plain).abs().max().item()
-    n, m = x.shape
-    row = {"label": label, "dist": dist, "max_abs_err": err,
+    row = {"label": label, "dist": dist, "branch": branch,
+           "layout": "rows" if x.stride(1) == 1 else "columns", "max_abs_err": err,
            "rel_err": err / plain.abs().max().item()}
     del out, plain
     row["ms"] = cuda_ms(lambda: gcu.gaussian_sketch(x, k, 3, GAUSS_W, dist), reps)
@@ -487,34 +533,85 @@ def gaussian_sketch_row(label, x, k, dist, reps, gen, wide_muls_per_s: float) ->
     row["library_ms"] = cuda_ms(lambda: torch.matmul(omega, x), reps)
     del omega
     row["GBps"] = 4.0 * n * m / row["ms"] / 1e6
-    row["bound_ms"], row["bound_by"] = bound(4.0 * (n * m + k * m), 2.0 * k * n * m,
-                                             torch.float32, philox_calls(k, n, dist),
-                                             wide_muls_per_s)
+    if branch == "tiled":
+        passes, chunks = (3 if dist == "normal" else 2), -(-m // gcu.TILED_CHUNK)
+        row["bound_ms"], row["bound_by"] = bound(
+            4.0 * (n * m + k * m), passes * 2.0 * k * n * m, torch.float32,
+            chunks * philox_calls(k, n, dist), wide_muls_per_s, tf32_flops_per_s)
+    else:
+        row["bound_ms"], row["bound_by"] = bound(4.0 * (n * m + k * m), 2.0 * k * n * m,
+                                                 torch.float32, philox_calls(k, n, dist),
+                                                 wide_muls_per_s)
     row["share"] = row["bound_ms"] / row["ms"]
     phase("gaussian sketch", **row)
-    check(row["rel_err"] <= 1e-4, f"{label}: kernel vs plain {row['rel_err']:.3e} > 1e-4")
+    # the tiled branch at 1e-5, the CPU mirror's limit: one TF32 pass, or a
+    # normal product without its Omega_lo x_hi pass, is 1.4-3e-4 off
+    tol = 1e-5 if branch == "tiled" else 1e-4
+    check(row["rel_err"] <= tol, f"{label}: kernel vs plain {row['rel_err']:.3e} > {tol}")
     return row
 
 
-def gaussian_kernel_phase(device, wide_muls_per_s: float) -> tuple[dict, list[dict]]:
+def gaussian_kernel_phase(device, rates: tuple[float, float]) -> tuple[dict, list[dict]]:
     gen = torch.Generator(device=device).manual_seed(1)
-    strip_row = gaussian_strip_phase(device, wide_muls_per_s)
+    strip_row = gaussian_strip_phase(device, rates[0])
     rows = []
     for m in (1, 5):
         x = torch.randn((SLICE_N, m), generator=gen, device=device)
         for k, dist in ((GAUSS_K, "normal"), (300, "normal"), (GAUSS_K, "rademacher")):
             rows.append(gaussian_sketch_row(f"path n={SLICE_N} m={m} k={k}", x, k,
-                                            dist, 20, gen, wide_muls_per_s))
+                                            dist, 20, gen, rates))
         del x
+    # [hwprng block]'s shape: one block of BLOCK_SNAPSHOTS columns
+    x = torch.randn((SLICE_N, BLOCK_SNAPSHOTS), generator=gen, device=device)
+    rows.append(gaussian_sketch_row(f"block n={SLICE_N} m={BLOCK_SNAPSHOTS} k={GAUSS_K}", x,
+                                    GAUSS_K, "normal", 20, gen, rates))
+    del x
     n = 1 << GAUSS_BENCH_LOG2N
     for m in GAUSS_BENCH_MS:
         x = torch.randn((n, m), generator=gen, device=device)
-        for dist in ("normal", "rademacher") if m != 9 else ("normal",):
+        for dist in ("normal", "rademacher"):
             rows.append(gaussian_sketch_row(f"bench n={n} m={m} k={GAUSS_K}", x,
-                                            GAUSS_K, dist, 5, gen, wide_muls_per_s))
+                                            GAUSS_K, dist, 5, gen, rates))
+        if m == 32:  # cos halves (k % 128 != 0), and a column-major x
+            rows.append(gaussian_sketch_row(f"bench n={n} m={m} k=300", x, 300, "normal",
+                                            5, gen, rates))
+            del x
+            x = torch.randn((m, n), generator=gen, device=device).T
+            rows.append(gaussian_sketch_row(f"bench n={n} m={m} k={GAUSS_K} column-major",
+                                            x, GAUSS_K, "normal", 5, gen, rates))
         del x
         torch.cuda.empty_cache()
     return strip_row, rows
+
+
+def tiled_sass() -> list[dict]:
+    """HMMA / HGMMA instructions in each tiled instance of the built
+    Gaussian library (``cuobjdump -sass``): the tensor cores are used."""
+    import re
+    import shutil
+
+    from rla4mor_tpu_torch.ops import gaussian_cuda
+    from rla4mor_tpu_torch.utils import nvcc
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    text = subprocess.run([tool, "-sass", str(nvcc.library_path(gaussian_cuda.SOURCE))],
+                          capture_output=True, text=True, check=True).stdout
+    rows, name = [], None
+    for line in text.splitlines():
+        found = re.match(r"\s*Function : (\S+)", line)
+        if found:
+            name = found.group(1)
+            if "tiled_kernel" in name:
+                rows.append({"instance": re.sub(r"^.*tiled_kernelILi(\d)ELi(\d+)E.*$",
+                                                r"mode\1_ntw\2", name), "mma": 0})
+            continue
+        if rows and "tiled_kernel" in name and re.search(r"\bHG?MMA\b", line):
+            rows[-1]["mma"] += 1
+    for row in rows:
+        phase("sass tiled", **row)
+    check(len(rows) == 15, f"tiled instances in the SASS: {len(rows)}, not 15")
+    check(all(r["mma"] > 0 for r in rows), f"a tiled instance without HMMA / HGMMA: {rows}")
+    return rows
 
 
 def dual_residual_norm(fom, Ru, u: np.ndarray, mu) -> float:
@@ -530,14 +627,15 @@ def check_rom(fom, reductor, result, device, label, lift=None, floor=None) -> di
     maps reduced coefficients to the field whose exact dual residual the
     estimate is held to (default ``reductor.reconstruct``); with ``floor``,
     only where that residual is above floor x the dual norm of b."""
-    rom, est = result.rom, result.max_estimates
-    check(all(math.isfinite(e) for e in est), f"{label}: greedy estimates {est}")
+    rom, est = result.rom, result.max_estimates  # est None: no greedy ran
+    check(est is None or all(math.isfinite(e) for e in est), f"{label}: greedy estimates {est}")
     for name, op in (("lhs", rom.lhs), ("rhs", rom.rhs),
                      ("est_lhs", rom.error_estimator.lhs),
                      ("est_rhs", rom.error_estimator.rhs),
                      ("out", rom.output_functional)):
         check(bool(torch.isfinite(op.stack).all()), f"{label}: ROM {name} not finite")
-    check(est[-1] < est[0], f"{label}: max estimate did not drop: {est[0]} -> {est[-1]}")
+    if est is not None:
+        check(est[-1] < est[0], f"{label}: max estimate did not drop: {est[0]} -> {est[-1]}")
 
     Ru = reductor.product
     lift = reductor.reconstruct if lift is None else lift
@@ -565,7 +663,8 @@ def check_rom(fom, reductor, result, device, label, lift=None, floor=None) -> di
             check(0.5 <= r["est_over_true"] <= 2.0,
                   f"{label}: estimate / exact dual residual {r['est_over_true']:.3f} "
                   "outside [0.5, 2]")
-    return {"max_est_first": est[0], "max_est_last": est[-1],
+    return {"max_est_first": None if est is None else est[0],
+            "max_est_last": None if est is None else est[-1],
             "out_rel_err_max": max(r["out_rel_err"] for r in rows),
             "est_over_true": [round(r["est_over_true"], 4) for r in rows],
             "true_over_b": [float(f"{r['true_over_b']:.4e}") for r in rows],
@@ -872,7 +971,74 @@ def strong_phase(fom, device, training: int = STRONG_TRAINING,
     return {"n": n, "training": training, "host_solve_s": t_solve,
             "blocked_extend_s": t_blocked, "srb_blocked_vs_single_rel": srb_rel,
             "greedy_s": t_greedy, "extensions": extensions, "max_true_errors": errs,
-            "srht_launches": launches}
+            "srht_launches": launches}, U
+
+
+def hwprng_block_phase(fom, device, U_strong) -> dict:
+    """The HwPrng embedding fed blocks of snapshots: [strong]'s snapshots
+    and BLOCK_SNAPSHOTS - 6 more solved here, sketched by
+    ``extend_basis_blocked`` (blocks of 64: one block of m = BLOCK_SNAPSHOTS,
+    the tiled branch) with ``truncation_rtol`` = BLOCK_TRUNCATION_RTOL, then
+    ``reduce()`` and the held-out checks. Then the sketched snapshots of
+    blocked and single-column extensions (the small branch, m = 1),
+    compared before any orthonormalisation (srb and the residual stacks
+    within 1e-5 relative): Gram-Schmidt in float32 of a basis conditioned
+    at 1e5 would amplify two correct float32 sketches' 1e-7 differences
+    to 5e-3 (CPU, grid 128)."""
+    import types
+
+    from rla4mor_tpu_torch.mor import SketchedReductor
+    from rla4mor_tpu_torch.ops import HwPrngGaussianEmbedding
+    from rla4mor_tpu_torch.ops import gaussian_cuda as gcu
+
+    n = fom.solution_dim
+    Ru = fom.h1_0_product
+    theta = HwPrngGaussianEmbedding.make(n, sqrt_product=Ru.sqrt, range_dim=GAUSS_K,
+                                         seed=1, dist="normal", device=device)
+
+    def reductor(orthonormalize=True):
+        return SketchedReductor(fom, embedding_primal=theta, product=Ru, log_level=30,
+                                orthonormalize=orthonormalize,
+                                truncation_rtol=BLOCK_TRUNCATION_RTOL)
+
+    mus = fom.parameter_space.sample_randomly(BLOCK_SNAPSHOTS - U_strong.shape[1], seed=5,
+                                              device=device)
+    t0 = time.perf_counter()
+    U = torch.cat([U_strong, fom.solve_many(mus)], dim=1)
+    t_solve = time.perf_counter() - t0
+
+    counts = gcu.gaussian_sketch.launches_by_branch
+    gcu.gaussian_sketch.launches = 0
+    for branch in counts:
+        counts[branch] = 0
+    t0 = time.perf_counter()
+    red = reductor()
+    red.extend_basis_blocked(U, max_block_size=64)
+    rom = red.reduce()
+    torch.cuda.synchronize()
+    t_path = time.perf_counter() - t0
+    path_counts = dict(counts)
+    check(path_counts["tiled"] > 0, f"hwprng block: no tiled launch: {path_counts}")
+    checks = check_rom(fom, red, types.SimpleNamespace(rom=rom, max_estimates=None), device,
+                       "hwprng block")
+
+    blocked = reductor(orthonormalize=False)
+    blocked.extend_basis_blocked(U, max_block_size=64)
+    single = reductor(orthonormalize=False)
+    for j in range(U.shape[1]):
+        single.extend_basis(U[:, j])
+    rels = {}
+    for name, a, b in (("srb", blocked.srb, single.srb),
+                       ("residual_lhs", blocked.residual_lhs.stack,
+                        single.residual_lhs.stack)):
+        rels[name] = ((a - b).abs().max() / b.abs().max()).item()
+        check(rels[name] <= 1e-5, f"hwprng block: blocked vs single-column {name} "
+              f"{rels[name]:.3e} > 1e-5")
+    return {"n": n, "k": GAUSS_K, "snapshots": U.shape[1], "host_solve_s": t_solve,
+            "extend_reduce_s": t_path, "launches_by_branch": path_counts,
+            "truncation_rtol": BLOCK_TRUNCATION_RTOL, "basis_size": red.basis_size, **checks,
+            "srb_blocked_vs_single_rel": rels["srb"],
+            "residual_lhs_blocked_vs_single_rel": rels["residual_lhs"]}
 
 
 def large_kernel_rows(device, grid: int) -> list[dict]:
@@ -1034,7 +1200,8 @@ def main(argv=None) -> int:
         ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
         capture_output=True, text=True, check=True).stdout.split()[0])
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    wide_muls_per_s = WIDE_MULS_PER_CLOCK_SM * sms * max_sm_mhz * 1e6
+    rates = (WIDE_MULS_PER_CLOCK_SM * sms * max_sm_mhz * 1e6,
+             TF32_FLOP_PER_CLOCK_SM * sms * max_sm_mhz * 1e6)
     from rla4mor_tpu_torch.utils.config import resolve_device
 
     device = resolve_device("cuda:0")
@@ -1042,7 +1209,7 @@ def main(argv=None) -> int:
     phase("device", name=torch.cuda.get_device_name(0),
           count=torch.cuda.device_count(), torch=torch.__version__,
           cuda=torch.version.cuda, python=sys.version.split()[0], sms=sms,
-          max_sm_mhz=max_sm_mhz)
+          max_sm_mhz=max_sm_mhz, tf32_tflops=rates[1] / 1e12)
 
     # 2. build
     from rla4mor_tpu_torch.ops import gaussian_cuda, srht_cuda
@@ -1053,11 +1220,12 @@ def main(argv=None) -> int:
     gaussian_cuda._lib()
     phase("build", **{f"nvcc_s[{src}]": s for src, s in seconds.items()},
           wall_s=time.perf_counter() - t0)
+    tiled_sass()
 
     # 3-4. kernels vs plain on the card
     rows = kernel_phase(device)
     bf16_rows = kernel_bf16_phase(device)
-    strip_row, gauss_rows = gaussian_kernel_phase(device, wide_muls_per_s)
+    strip_row, gauss_rows = gaussian_kernel_phase(device, rates)
 
     # 5-6. the paths, through the entry points a user calls
     from rla4mor_tpu_torch.models import ThermalBlockFOM
@@ -1074,9 +1242,11 @@ def main(argv=None) -> int:
     phase("bf16", **bf16)
     padded = padded_phase(fom, device, slice_mus)
     phase("padded", **padded)
-    strong = strong_phase(fom, device)
+    strong, U_strong = strong_phase(fom, device)
     phase("strong", **strong)
-    del fom
+    block = hwprng_block_phase(fom, device, U_strong)
+    phase("hwprng block", **block)
+    del fom, U_strong
 
     # 7. the large slice at full width, then at grid LARGE_SMALL_GRID
     large_rows = large_kernel_rows(device, LARGE_GRID)
@@ -1096,6 +1266,8 @@ def main(argv=None) -> int:
     large_row = next(r for r in large_rows if "m=5 " in r["label"])
     bf16_row = next(r for r in bf16_rows if r["label"].startswith("slice")
                     and "m=1 " in r["label"] and r["out"] == "float32")
+    tiled_row = next(r for r in gauss_rows if r["label"] == f"bench n={1 << GAUSS_BENCH_LOG2N} "
+                     f"m=128 k={GAUSS_K}" and r["dist"] == "normal")
     large_launches = large["srht_launches"] + small["srht_launches"]
     f32_launches = (summary["srht_launches"] + padded["srht_launches"]
                     + strong["srht_launches"] + large_launches)
@@ -1119,6 +1291,13 @@ def main(argv=None) -> int:
         kernel_entry("gaussian_sketch", "rla4mor_tpu_torch/csrc/gaussian_sketch.cu",
                      "rla4mor_tpu/ops/gaussian_pallas.py:116", hw["sketch_launches"],
                      gauss_row),
+        # the tiled branch (m > SMALL_M_MAX[dist], tensor cores): [hwprng
+        # block]'s launches, at the bench shape m = 128
+        kernel_entry("gaussian_sketch_tiled", "rla4mor_tpu_torch/csrc/gaussian_sketch.cu",
+                     "rla4mor_tpu/ops/gaussian_pallas.py:116",
+                     block["launches_by_branch"]["tiled"], tiled_row,
+                     note="the tiled branch of the same kernel source: 3xTF32 mma.sync, "
+                     "Omega drawn into each thread's A fragments"),
         kernel_entry("gaussian_strip", "rla4mor_tpu_torch/csrc/gaussian_sketch.cu",
                      "rla4mor_tpu/ops/gaussian_pallas.py:189", hw["strip_launches_path"],
                      strip_row),

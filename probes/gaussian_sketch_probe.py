@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where the in-kernel Gaussian sketch spends its time, on one NVIDIA GPU.
 
-    python probes/gaussian_sketch_probe.py [--out gaussian_probe_out]
+    python probes/gaussian_sketch_probe.py [--out gaussian_probe_out] [--tiled]
 
 At the HwPrng path's shapes (n = 261,121; m = 1 and 5; k = 256 and 300
 normal, 256 Rademacher) and the bench shape at m = 8 (n = 2^23, k = 256,
@@ -22,7 +22,18 @@ It also writes the SASS of the sketch and strip kernels
 m = 1, the count of each opcode, as a check on what the generation costs in
 instructions; and it builds ``probes/int_rates.cu`` and prints the rate, per
 SM and SM clock, of the integer multiplies Philox is made of and of a whole
-Philox call in two forms (``int_rate`` lines). Needs the repository and a
+Philox call in two forms (``int_rate`` lines).
+
+``--tiled`` runs instead a sweep at the bench shape (n = 2^23, k = 256,
+both dists) over m = 2 .. 256 and both branches: one ``[tiled]``
+line per (dist, m, branch) with the CUDA-graph time, the device time of each
+kernel (``torch.profiler``) and the library call (``torch.matmul`` with a
+pre-drawn Omega, TF32 off). The small branch runs where it has instances
+(m <= 8), and at m = 9 and 16 as two launches over column slices (8 + the
+rest), what a small branch would cost there; then the tiled instances'
+HMMA counts from their SASS. This sweep sets ``SMALL_M_MAX`` of
+``ops/gaussian_cuda.py``; the tiled kernel's column chunk (``kTiledN`` of
+the CUDA source) is a compile-time constant. Needs the repository and a
 CUDA card; imports no JAX.
 """
 
@@ -41,6 +52,7 @@ from pathlib import Path
 import torch
 
 N, W = 261_121, 2048
+TILED_MS = (2, 3, 4, 6, 8, 9, 16, 32, 64, 128, 256)
 SHAPES = [(N, 1, 256, "normal"), (N, 1, 300, "normal"), (N, 1, 256, "rademacher"),
           (N, 5, 256, "normal"), (N, 5, 300, "normal"), (N, 5, 256, "rademacher"),
           (1 << 23, 8, 256, "normal"), (1 << 23, 8, 256, "rademacher")]
@@ -129,7 +141,9 @@ def sass(lib_path: Path, out_dir: Path, filename: str = "gaussian_sketch.sass") 
 
 RATE_KINDS = {0: ("IMAD.WIDE.U32", 8), 1: ("IMAD.HI.U32", 8), 2: ("IMAD", 8),
               3: ("philox call, 64-bit products", 2),
-              4: ("philox call, umulhi + multiply", 2)}
+              4: ("philox call, umulhi + multiply", 2),
+              # a warp's 8 products a step: per thread 8 / 32; rate in HMMAs
+              5: ("HMMA.1688.F32.TF32 (warp instructions)", 0.25)}
 
 
 def int_rates(out_dir: Path, iters: int = 4096) -> list[dict]:
@@ -170,12 +184,52 @@ def int_rates(out_dir: Path, iters: int = 4096) -> list[dict]:
     return rows
 
 
+def tiled_sweep(out_dir: Path, reps: int) -> list[dict]:
+    """Graph and device time of each branch at the bench shape (n = 2^23, k = 256), both dists, m in ``TILED_MS``."""
+    from rla4mor_tpu_torch.ops import gaussian_cuda as gcu
+    from rla4mor_tpu_torch.utils import nvcc
+
+    dev = torch.device("cuda:0")
+    gen = torch.Generator(device=dev).manual_seed(5)
+    n, k, rows = 1 << 23, 256, []
+    omega = torch.randn((k, n), generator=gen, device=dev)
+    for dist in ("normal", "rademacher"):
+        for m in TILED_MS:
+            x = torch.randn((n, m), generator=gen, device=dev)
+            calls = {}
+            if m <= 8:
+                calls["small"] = lambda x=x: gcu._launch_sketch(x, k, 3, W, dist, "small")
+            elif m <= 16:  # two small launches: columns [0, 8) and [8, m)
+                parts = (x[:, :8], x[:, 8:])
+                calls["small x2"] = lambda parts=parts: [
+                    gcu._launch_sketch(p, k, 3, W, dist, "small") for p in parts]
+            calls["tiled"] = lambda x=x: gcu._launch_sketch(x, k, 3, W, dist, "tiled")
+            library = event_ms(lambda x=x: torch.matmul(omega, x), reps)
+            for branch, fn in calls.items():
+                row = {"dist": dist, "m": m, "branch": branch,
+                       "graph_ms": graph_ms(fn, reps), "device_us": device_us(fn, 2),
+                       "library_ms": library}
+                print("[tiled] " + json.dumps(row), flush=True)
+                rows.append(row)
+            del x
+    del omega
+    (out_dir / "tiled_rows.json").write_text(json.dumps(rows, indent=1))
+    counts = sass(nvcc.library_path(gcu.SOURCE), out_dir)
+    for fn, c in counts.items():
+        if "tiled_kernel" in fn:
+            mma = {op: cnt for op, cnt in c.items() if op.startswith(("HMMA", "HGMMA"))}
+            print(f"[sass] {fn} total={sum(c.values())} mma={mma}", flush=True)
+    return rows
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default="gaussian_probe_out")
     ap.add_argument("--reps", type=int, default=50)
     ap.add_argument("--rates-only", action="store_true",
                     help="only the int_rate lines")
+    ap.add_argument("--tiled", action="store_true",
+                    help="only the sweep over m and both branches")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA card")
@@ -189,6 +243,10 @@ def main(argv=None) -> int:
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip()
     print(smi, flush=True)
+    if args.tiled:
+        gcu._lib()
+        tiled_sweep(out_dir, min(args.reps, 10))
+        return 0
     int_rates(out_dir)
     if args.rates_only:
         return 0
@@ -203,7 +261,7 @@ def main(argv=None) -> int:
             return gcu.gaussian_sketch(x, k, 3, W, dist)
 
         call()
-        plan = gcu.small_launch(0, n, m, k, dist) if m <= gcu.SMALL_M_MAX else None
+        plan = gcu.small_launch(0, n, m, k, dist) if m <= gcu.SMALL_M_MAX[dist] else None
         row = {"n": n, "m": m, "k": k, "dist": dist, "S_G_n_split": plan,
                "event_ms": event_ms(call, reps), "graph_ms": graph_ms(call, reps),
                "host_us": host_us(call, reps), "device_us": device_us(call, reps)}

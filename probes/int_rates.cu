@@ -8,6 +8,9 @@
 //   kind 2: IMAD            a = M a + K
 //   kind 3: Philox4x32-10, 64-bit products (the kernels' form), 2 calls a step
 //   kind 4: Philox4x32-10, umulhi + 32-bit multiply, 2 calls a step
+//   kind 5: mma.sync.m16n8k8 TF32 (HMMA.1688.F32.TF32), 8 independent
+//           accumulators a warp, 8 products a step (the tiled Gaussian
+//           sketch's instruction)
 //
 // Built and driven by probes/gaussian_sketch_probe.py (plain C interface).
 
@@ -41,6 +44,32 @@ __device__ __forceinline__ void philox(uint32_t& c0, uint32_t& c1, uint32_t& c2,
     c2 = hi0 ^ c3 ^ (k1 + i * 0xBB67AE85u);
     c3 = lo0;
   }
+}
+
+__global__ void hmma_kernel(uint32_t* out, long long* cycles, int iters, uint32_t seed) {
+  float d[8][4];
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) d[j][e] = 0.0f;
+  const uint32_t a0 = seed + threadIdx.x, a1 = a0 * 3u, b0 = a0 ^ 0x3F800000u, b1 = a1 | 1u;
+  const long long t0 = clock64();
+  for (int it = 0; it < iters; ++it) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      asm volatile(
+          "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+          "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+          : "+f"(d[j][0]), "+f"(d[j][1]), "+f"(d[j][2]), "+f"(d[j][3])
+          : "r"(a0), "r"(a1), "r"(a0), "r"(a1), "r"(b0), "r"(b1));
+    }
+  }
+  const long long t1 = clock64();
+  float x = 0.0f;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) x += d[j][0] + d[j][1] + d[j][2] + d[j][3];
+  out[blockIdx.x * blockDim.x + threadIdx.x] = __float_as_uint(x);
+  if (threadIdx.x == 0) cycles[blockIdx.x] = t1 - t0;
 }
 
 template <int KIND>
@@ -97,6 +126,7 @@ extern "C" int int_rate(int kind, uint32_t* out, long long* cycles, int blocks, 
     case 2: rate_kernel<2><<<blocks, threads, 0, s>>>(out, cycles, iters, 7u); break;
     case 3: rate_kernel<3><<<blocks, threads, 0, s>>>(out, cycles, iters, 7u); break;
     case 4: rate_kernel<4><<<blocks, threads, 0, s>>>(out, cycles, iters, 7u); break;
+    case 5: hmma_kernel<<<blocks, threads, 0, s>>>(out, cycles, iters, 7u); break;
     default: return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();

@@ -311,8 +311,9 @@ class SrhtEmbedding(Embedding):
 
 class HwPrngGaussianEmbedding(Embedding):
     """Gaussian (or Rademacher) embedding whose Omega is drawn inside the
-    sketch kernel (``ops/gaussian_cuda.py``): it lives in registers (m <= 8)
-    or one shared-memory tile at a time (wider m) and is never stored.
+    sketch kernel (``ops/gaussian_cuda.py``) and is never stored: it lives
+    in registers, consumed by FMAs for narrow X (the small branch) or as
+    each thread's tensor-core fragments for wider X (the tiled branch).
 
     Bitstream contract (``ops/philox.py``): the operator is determined by
     ``(seed, range_dim, block_rows, dist)``. Strip b (columns

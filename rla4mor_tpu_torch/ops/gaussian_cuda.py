@@ -38,12 +38,20 @@ CHUNK_K = philox.CHUNK_K
 DISTS = ("normal", "rademacher")
 # the plain sketch draws strips in groups of at most this many entries
 _PLAIN_GROUP_ENTRIES = 1 << 26
-# the small-m kernel (registers) takes m <= SMALL_M_MAX, the tiled one the rest
-SMALL_M_MAX = 8
+# the small-m kernel (registers) takes m <= SMALL_M_MAX[dist], the tiled one
+# the rest; from probes/gaussian_sketch_probe.py --tiled at n = 2^23, k = 256
+# (PERF.md): for normal draws the small branch is faster up to m = 8,
+# for Rademacher draws the tiled one from m = 2 (m = 1, the HwPrng path's
+# width, stays on the small branch)
+SMALL_M_MAX = {"normal": 8, "rademacher": 1}
 # small kernel: threads a block aims at (the most it takes is the kernel's)
 _SMALL_THREADS = 256
-# the tiled kernel's tile: kTileK sketch rows by kTileW strip columns, both 128
-_TILE = 128
+# the tiled kernel (csrc/gaussian_sketch.cu): a block owns 128 sketch rows
+# and a column chunk of at most TILED_CHUNK columns of x (the source's
+# kTiledN), and walks tiles of 32 strip columns
+_TILED_K, _TILED_W = 128, 32
+TILED_CHUNK = 128
+BRANCHES = ("small", "tiled")
 # draw order of the kernel (csrc/gaussian_sketch.cu ``Mode``)
 _RADEMACHER, _NORMAL_PAIRS, _NORMAL_COS = 0, 1, 2
 
@@ -137,9 +145,14 @@ def _lib() -> ctypes.CDLL:
     lib.gaussian_sketch_small_f32.restype = ctypes.c_int
     lib.gaussian_sketch_tiled_prepare.argtypes = []
     lib.gaussian_sketch_tiled_prepare.restype = ctypes.c_int
+    lib.gaussian_sketch_tiled_groups.argtypes = [ctypes.c_int64]
+    lib.gaussian_sketch_tiled_groups.restype = ctypes.c_int
+    lib.gaussian_sketch_tiled_occupancy.argtypes = [
+        ctypes.c_int, ctypes.c_int64, ctypes.POINTER(ctypes.c_int)]
+    lib.gaussian_sketch_tiled_occupancy.restype = ctypes.c_int
     lib.gaussian_sketch_tiled_f32.argtypes = (
-        [ctypes.c_void_p] * 3 + [ctypes.c_int64] * 6 + [ctypes.c_uint32, ctypes.c_int]
-        + [ctypes.c_int64] * 2 + [ctypes.c_double, ctypes.c_void_p])
+        [ctypes.c_void_p] * 3 + [ctypes.c_int64] * 6
+        + [ctypes.c_uint32, ctypes.c_int, ctypes.c_int64, ctypes.c_double, ctypes.c_void_p])
     lib.gaussian_sketch_tiled_f32.restype = ctypes.c_int
     return lib
 
@@ -195,49 +208,119 @@ def small_launch(dev_index: int, n: int, m: int, k: int, dist: str) -> tuple[int
     return S, G, column_split(n, -(-slots // S), resident)
 
 
+def tiled_tiles(n: int, W: int) -> int:
+    """Tiles of the tiled kernel that meet [0, n): 32 strip columns each,
+    ceil(W / 32) a strip, the last strip cut at n (``tiled_tiles`` of the
+    CUDA source)."""
+    tps = -(-W // _TILED_W)
+    return n // W * tps + -(-(n % W) // _TILED_W)
+
+
+def tiled_instance(m: int) -> tuple[int, int]:
+    """(n-tiles a warp NTW, k-groups KG) of the tiled kernel's instance for x
+    (., m): the fewest n-tiles of 8 columns (a power of 2) that hold one
+    column chunk; 16 warps in 4 k-groups up to NTW = 4, 8 warps in 2
+    k-groups from 8 (``tiled_ntw`` and ``gaussian_sketch_tiled_groups`` of
+    the CUDA source)."""
+    cols = -(-min(m, TILED_CHUNK) // 8)
+    ntw = 1
+    while ntw < cols:
+        ntw *= 2
+    return ntw, 4 if ntw <= 4 else 2
+
+
+def tiled_split(n_tiles: int, k: int, m: int, resident_blocks: int) -> int:
+    """Tile ranges ``n_split`` of the tiled kernel: its grid is n_split x
+    ceil(k / 128) x ceil(m / TILED_CHUNK) blocks, one per block the card holds at
+    once, and no more ranges than tiles. The kernel gives range z the tiles
+    [z T / n_split, (z + 1) T / n_split), T = ``n_tiles``, and k-group kg
+    of its KG the tiles kg, kg + KG, ... of that range."""
+    per_range = -(-k // _TILED_K) * -(-m // TILED_CHUNK)
+    return max(1, min(n_tiles, -(-resident_blocks // per_range)))
+
+
 @functools.cache
-def _prepare_tiled(dev_index: int) -> None:
-    """The tiled kernel's shared-memory attribute, once per device."""
-    _raise_on(_lib().gaussian_sketch_tiled_prepare(), "gaussian_sketch tiled setup")
+def _resident_tiled(dev_index: int, mode: int, ntw: int) -> int:
+    """Blocks of the tiled kernel's instance ``ntw`` that device
+    ``dev_index`` (current when called) holds at once, the shared-memory
+    attribute of every instance set first; once per device and instance."""
+    lib = _lib()
+    _raise_on(lib.gaussian_sketch_tiled_prepare(), "gaussian_sketch tiled setup")
+    per_sm = ctypes.c_int(0)
+    _raise_on(lib.gaussian_sketch_tiled_occupancy(mode, 8 * ntw, ctypes.byref(per_sm)),
+              "gaussian_sketch tiled occupancy query")
+    if per_sm.value < 1:
+        raise RuntimeError("gaussian_sketch: no block of the tiled kernel fits on an SM")
+    return sm_count(dev_index) * per_sm.value
 
 
-def _tiled_launch(dev_index: int, n: int, k: int, W: int) -> tuple[int, int, int]:
-    """(tiles meeting [0, n), tiles per split, n_split) of the tiled kernel."""
-    _prepare_tiled(dev_index)
-    full, rem = divmod(n, W)
-    n_tiles = full * -(-W // _TILE) + -(-rem // _TILE)
-    # about four blocks per SM over the (split, k-tile) grid, >= 1 tile each
-    n_split = max(1, min(n_tiles, -(-4 * sm_count(dev_index) // -(-k // _TILE))))
-    per_split = -(-n_tiles // n_split)
-    return n_tiles, per_split, -(-n_tiles // per_split)
+def tiled_launch(dev_index: int, n: int, m: int, k: int, W: int, dist: str) -> int:
+    """n_split of the tiled kernel for x (n, m) on CUDA device
+    ``dev_index`` (current when called)."""
+    ntw, _ = tiled_instance(m)
+    resident = _resident_tiled(dev_index, _mode(k, dist), ntw)
+    return tiled_split(tiled_tiles(n, W), k, m, resident)
 
 
-def _launch_sketch(Xm: torch.Tensor, k: int, seed: int, W: int,
-                   dist: str) -> torch.Tensor:
+def tf32_round(v: torch.Tensor) -> torch.Tensor:
+    """float32 ``v`` rounded to TF32 (10 mantissa bits, to nearest, ties
+    away from zero), as ``cvt.rna.tf32.f32`` does for finite values."""
+    bits = v.to(torch.float32).view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def product_3xtf32(omega: torch.Tensor, x: torch.Tensor, passes: int = 3) -> torch.Tensor:
+    """The tiled kernel's product in plain torch: omega (k, n) @ x (n, m) as
+    hi hi + hi lo + lo hi over the TF32 splits (``passes=2`` drops lo hi,
+    the Rademacher form; 1 is plain TF32), float32 sums."""
+    def split(v):
+        hi = tf32_round(v)
+        return hi, tf32_round(v.to(torch.float32) - hi)
+
+    (oh, ol), (xh, xl) = split(omega), split(x)
+    out = oh @ xh
+    if passes >= 2:
+        out = oh @ xl + out
+    if passes >= 3:
+        out = ol @ xh + out
+    return out
+
+
+def _launch_sketch(Xm: torch.Tensor, k: int, seed: int, W: int, dist: str,
+                   branch: str | None = None) -> torch.Tensor:
+    """Launch the sketch kernel: the small branch for m <= SMALL_M_MAX[dist],
+    the tiled one above. ``branch`` forces one; the small branch has
+    instances for m <= 8 only."""
     n, m = Xm.shape
     if min(Xm.stride()) < 0:
         raise ValueError(f"gaussian_sketch: negative strides {Xm.stride()}")
+    if branch is None:
+        branch = "small" if m <= SMALL_M_MAX[dist] else "tiled"
+    if branch not in BRANCHES or (branch == "small" and m > 8):
+        raise ValueError(f"gaussian_sketch: no {branch!r} branch for m = {m}")
     lib = _lib()
     dev = Xm.device
     # out is its own allocation: a view into the partial buffer would keep
     # the whole buffer alive as long as the caller holds the sketch
     out = torch.empty((k, m), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
-        small = m <= SMALL_M_MAX
-        if small:
+        if branch == "small":
             S, G, n_split = small_launch(dev.index, n, m, k, dist)
+            partials = n_split
         else:
-            n_tiles, per_split, n_split = _tiled_launch(dev.index, n, k, W)
-        partial = torch.empty(k * m * n_split, dtype=torch.float32, device=dev)
+            n_split = tiled_launch(dev.index, n, m, k, W, dist)
+            partials = n_split * tiled_instance(m)[1]  # a sum per k-group
+        partial = torch.empty(k * m * partials, dtype=torch.float32, device=dev)
         args = (Xm.data_ptr(), partial.data_ptr(), out.data_ptr(), n, m, k,
                 Xm.stride(0), Xm.stride(1), W, int(seed) & philox.MASK32, _mode(k, dist))
         scale, stream = 1.0 / math.sqrt(k), _stream(dev)
-        if small:
+        if branch == "small":
             err = lib.gaussian_sketch_small_f32(*args, S, G, n_split, scale, stream)
         else:
-            err = lib.gaussian_sketch_tiled_f32(*args, n_tiles, per_split, scale, stream)
-    _raise_on(err, "gaussian_sketch kernel launch")
+            err = lib.gaussian_sketch_tiled_f32(*args, n_split, scale, stream)
+    _raise_on(err, f"gaussian_sketch {branch} kernel launch")
     gaussian_sketch.launches += 1
+    gaussian_sketch.launches_by_branch[branch] += 1
     return out
 
 
@@ -249,7 +332,8 @@ def gaussian_sketch(X, k: int, seed: int, block_rows: int = DEFAULT_BLOCK_ROWS,
     On a CUDA tensor this launches the hand-written kernel (built at first
     use) and raises if it cannot; on a CPU tensor it runs
     :func:`gaussian_sketch_plain`. ``gaussian_sketch.launches`` counts
-    kernel launches."""
+    kernel launches, ``gaussian_sketch.launches_by_branch`` the launches of
+    each branch (``"small"``, m <= ``SMALL_M_MAX[dist]``; ``"tiled"``)."""
     _check(k, block_rows, dist)
     Xm, single = _as_input(X)
     if Xm.device.type == "cpu":
@@ -262,6 +346,7 @@ def gaussian_sketch(X, k: int, seed: int, block_rows: int = DEFAULT_BLOCK_ROWS,
 
 
 gaussian_sketch.launches = 0
+gaussian_sketch.launches_by_branch = dict.fromkeys(BRANCHES, 0)
 
 
 def gaussian_strip(k: int, seed: int, b: int, block_rows: int = DEFAULT_BLOCK_ROWS,

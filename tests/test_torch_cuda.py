@@ -271,7 +271,7 @@ SKETCH_CASES = [
     (65541, 40, 256, 2048, "rademacher", "rows"),
     (261121, 1, 256, 2048, "normal", "cols"),
     (261121, 5, 300, 2048, "normal", "cols"),
-    # either side of SMALL_M_MAX = 8 (registers below, tiles above)
+    # either side of SMALL_M_MAX["normal"] = 8 (registers below, tiles above)
     (70001, 8, 256, 2048, "normal", "cols"),
     (70001, 9, 256, 2048, "normal", "cols"),
     # m = 1: k = 1, 100, 300 (exact row count, cos halves), strided, W = 4
@@ -280,8 +280,10 @@ SKETCH_CASES = [
     (261121, 1, 300, 2048, "normal", "cols"),
     (261121, 1, 256, 2048, "rademacher", "every_other_row"),
     (4097, 1, 128, 4, "normal", "column_slice"),
-    # column ranges that cross strips of W = 100 in the small branch
+    # column ranges that cross strips of W = 100: the tiled branch for
+    # Rademacher (SMALL_M_MAX["rademacher"] = 1), the small one for normal
     (1001, 3, 100, 100, "rademacher", "rows"),
+    (1001, 3, 100, 100, "normal", "rows"),
 ]
 
 
@@ -297,6 +299,95 @@ def test_gaussian_sketch_kernel_matches_plain(cuda, n, m, k, W, dist, layout):
     assert rel_err(out, ref) < 1e-4
 
 
+# the tiled branch (m > SMALL_M_MAX[dist], 3xTF32 on the tensor cores): m padded to
+# 8 only, one column chunk up to 128 and more chunks above, k = 300 (cos
+# halves, a short last k-tile), row- and column-major x and strided views,
+# W that is not a multiple of the 32-column tile
+TILED_CASES = [
+    (70001, 9, 256, 2048, "normal", "cols"),
+    (70001, 16, 256, 2048, "rademacher", "cols"),
+    (70001, 33, 256, 2048, "normal", "rows"),
+    (70001, 64, 256, 2048, "rademacher", "rows"),
+    (70001, 128, 256, 2048, "normal", "cols"),
+    (70001, 129, 256, 2048, "normal", "cols"),
+    (20011, 257, 256, 2048, "rademacher", "cols"),
+    (70001, 12, 300, 2048, "normal", "cols"),
+    (70001, 64, 300, 2048, "normal", "rows"),
+    (70001, 20, 100, 100, "rademacher", "every_other_row"),
+    (70001, 40, 256, 2048, "normal", "column_slice"),
+    (5003, 9, 128, 4, "normal", "cols"),
+    (1, 9, 256, 2048, "normal", "cols"),
+    # long sums: 10^4 k-steps an accumulator, where a running sum kept in
+    # the tensor cores' truncating accumulate drifts past 1e-4
+    (1 << 22, 9, 256, 2048, "normal", "cols"),
+    (1 << 22, 64, 256, 2048, "rademacher", "cols"),
+]
+
+
+@pytest.mark.parametrize("n,m,k,W,dist,layout", TILED_CASES)
+def test_gaussian_tiled_kernel_matches_plain(cuda, n, m, k, W, dist, layout):
+    x = _x32(n, m, layout, cuda)
+    before = dict(gcu.gaussian_sketch.launches_by_branch)
+    out = gcu.gaussian_sketch(x, k, 11, W, dist)
+    torch.cuda.synchronize()
+    after = gcu.gaussian_sketch.launches_by_branch
+    assert after["tiled"] == before["tiled"] + 1 and after["small"] == before["small"]
+    assert out.shape == (k, m) and out.dtype == torch.float32 and out.is_cuda
+    ref = gcu.gaussian_sketch_plain(x, k, 11, W, dist)
+    # 1e-5, the CPU mirror's limit (test_3xtf32_product_matches_the_strip_oracle):
+    # one TF32 pass, or a normal product without its Omega_lo x_hi pass, is
+    # 1.4-3e-4 off
+    assert rel_err(out, ref) < 1e-5
+
+
+@pytest.mark.parametrize("n,m,k,W,layout", [(1001, 3, 100, 100, "rows"),
+                                              (261121, 8, 256, 2048, "cols")])
+def test_gaussian_small_rademacher_instances_match_plain(cuda, n, m, k, W, layout):
+    """The small kernel's Rademacher instances for m > 1, which the dispatch
+    no longer picks (SMALL_M_MAX["rademacher"] = 1), forced."""
+    x = _x32(n, m, layout, cuda)
+    before = gcu.gaussian_sketch.launches_by_branch["small"]
+    out = gcu._launch_sketch(x, k, 11, W, "rademacher", branch="small")
+    torch.cuda.synchronize()
+    assert gcu.gaussian_sketch.launches_by_branch["small"] == before + 1
+    assert rel_err(out, gcu.gaussian_sketch_plain(x, k, 11, W, "rademacher")) < 1e-4
+
+
+def test_gaussian_branches_are_counted(cuda):
+    x = _x32(10007, 12, "cols", cuda)
+    counts = gcu.gaussian_sketch.launches_by_branch
+    total, small, tiled = gcu.gaussian_sketch.launches, counts["small"], counts["tiled"]
+    gcu.gaussian_sketch(x[:, :gcu.SMALL_M_MAX["normal"]], 64, 1)
+    gcu.gaussian_sketch(x, 64, 1)
+    gcu.gaussian_sketch(x[:, 0], 64, 1)
+    assert counts["small"] == small + 2 and counts["tiled"] == tiled + 1
+    assert gcu.gaussian_sketch.launches == total + 3
+    # either branch at m <= 8 draws the same Omega
+    a = gcu._launch_sketch(x[:, :4].contiguous(), 256, 1, 2048, "normal", branch="small")
+    b = gcu._launch_sketch(x[:, :4].contiguous(), 256, 1, 2048, "normal", branch="tiled")
+    assert rel_err(b, a) < 1e-4
+
+
+def test_gaussian_tiled_instance_mirror_matches_the_source(cuda):
+    lib = gcu._lib()
+    for m in (1, 8, 9, 16, 17, 32, 33, 64, 65, 128, 129, 257):
+        assert lib.gaussian_sketch_tiled_groups(m) == gcu.tiled_instance(m)[1]
+    assert lib.gaussian_sketch_tiled_groups(0) == 0
+
+
+def test_gaussian_tiled_refusal_raises(cuda, monkeypatch):
+    """A launch the C entry refuses (here n_split = 0) raises; nothing falls
+    back to the plain version or to torch.matmul."""
+    x = _x32(10007, 12, "cols", cuda)
+    before = gcu.gaussian_sketch.launches_by_branch["tiled"]
+    monkeypatch.setattr(gcu, "tiled_launch", lambda *args: 0)
+    monkeypatch.setattr(gcu, "_sketch_plain", None)
+    monkeypatch.setattr(torch, "matmul", None)
+    with pytest.raises(RuntimeError, match="tiled"):
+        gcu.gaussian_sketch(x, 256, 1)
+    assert gcu.gaussian_sketch.launches_by_branch["tiled"] == before
+
+
 def test_gaussian_sketch_vector_and_casts(cuda):
     x = _input(5000, 2, "cols", torch.float64, cuda)
     out = gcu.gaussian_sketch(x[:, 0], 64, 3, 256)
@@ -308,7 +399,7 @@ def test_gaussian_sketch_vector_and_casts(cuda):
 
 
 def test_gaussian_kernels_are_deterministic(cuda):
-    for m in (1, 8, 9):
+    for m in (1, 8, 9, 64, 129):
         x = _x32(261121, m, "cols", cuda)
         a = gcu.gaussian_sketch(x, 256, 1)
         b = gcu.gaussian_sketch(x, 256, 1)

@@ -158,7 +158,9 @@ def test_strip_matches_jax_kernel(philox_pallas, k, dist):
 
 
 SKETCHES = [(256, "normal", 3 * W + 37, 5), (100, "normal", 1000, 3),
-            (300, "rademacher", 2 * W, 4), (256, "rademacher", 700, 1)]
+            (300, "rademacher", 2 * W, 4), (256, "rademacher", 700, 1),
+            # the tiled branch's widths: m = 9 (16 columns), m = 64
+            (256, "normal", 3 * W + 37, 9), (128, "rademacher", 3 * W - 5, 64)]
 
 
 @pytest.mark.parametrize("k,dist,n,m", SKETCHES)
@@ -423,3 +425,90 @@ def test_small_plan_covers_every_column_once(n, k, dist, resident):
     assert edges[0] == 0 and edges[-1] == nq
     sizes = {b - a for a, b in zip(edges, edges[1:])}
     assert sizes <= {nq // n_split, nq // n_split + 1} and min(sizes) >= 1
+
+
+# ---------------------------------------------------------------------------
+# the tiled kernel (m > SMALL_M_MAX[dist]): its 3xTF32 product in plain torch,
+# and its launch plan (ops/gaussian_cuda.py: tiled_instance, tiled_tiles,
+# tiled_split). The kernel itself is held against the plain version by the
+# cuda-marked TILED_CASES of test_torch_cuda.py.
+
+
+def _tf32_reference(v):
+    """Round-to-nearest, ties away from zero, to 10 mantissa bits, in
+    float64 (finite, normal float32 values)."""
+    v = np.asarray(v, dtype=np.float64)
+    mant, exp = np.frexp(v)                      # v = mant 2^exp, |mant| in [0.5, 1)
+    scaled = np.abs(mant) * 2.0 ** 11            # 11 significant bits
+    return np.sign(v) * np.floor(scaled + 0.5) * 2.0 ** (exp - 11)
+
+
+def test_tf32_round_is_cvt_rna():
+    rs = np.random.RandomState(4)
+    v = np.concatenate([rs.normal(size=4000) * 10.0 ** rs.uniform(-6, 6, size=4000),
+                        [1.0, -1.0, 1 + 2 ** -11, -(1 + 2 ** -11), 1 + 3 * 2 ** -12,
+                         2 ** -126, 3.0, 0.0]]).astype(np.float32)
+    got = gcu.tf32_round(torch.tensor(v)).double().numpy()
+    assert np.array_equal(got, _tf32_reference(v.astype(np.float64)))
+    # ties go away from zero; 10 mantissa bits are kept
+    assert got[-6] == 1 + 2 ** -10 and got[-5] == -(1 + 2 ** -10)
+    assert bool(((gcu.tf32_round(torch.tensor(v)).view(torch.int32) & 0x1FFF) == 0).all())
+
+
+@pytest.mark.parametrize("dist", ["normal", "rademacher"])
+@pytest.mark.parametrize("m", [9, 64])
+def test_3xtf32_product_matches_the_strip_oracle(dist, m):
+    """The tiled kernel's 3-pass product (2 for Rademacher, whose strips are
+    exact in TF32) of a (k, n) strip set with an (n, m) block is within 1e-5
+    relative of the float64 product; one pass of plain TF32 is not."""
+    k, n, Wd = 256, 3 * W + 37, W
+    S = philox.strips(k, 11, torch.arange(-(-n // Wd)), Wd, dist)
+    omega = S.permute(1, 0, 2).reshape(k, -1)[:, :n]
+    X = torch.tensor(np.random.RandomState(m).normal(size=(n, m)).astype(np.float32))
+    oracle = omega.double() @ X.double()
+    passes = 3 if dist == "normal" else 2
+    assert rel(gcu.product_3xtf32(omega, X, passes), oracle) < 1e-5
+    if dist == "rademacher":
+        assert torch.equal(gcu.tf32_round(omega), omega)
+    assert rel(gcu.product_3xtf32(omega, X, 1), oracle) > 1e-4
+
+
+TILED_PLANS = [
+    (1, 9, 256, "normal", 2048, 132),        # one column: one tile
+    (37, 12, 300, "normal", 100, 132),       # W not a multiple of 32
+    (5003, 9, 128, "rademacher", 4, 132),    # W = 4: a tile per strip
+    (65541, 40, 100, "normal", 2048, 132),
+    (70001, 129, 256, "normal", 2048, 132),  # two column chunks
+    (20011, 257, 256, "rademacher", 2048, 66),
+    (261121, 12, 256, "normal", 2048, 132),  # [hwprng block]'s blocks
+    (1 << 23, 128, 256, "normal", 2048, 132),  # the bench shape
+]
+
+
+@pytest.mark.parametrize("n,m,k,dist,W,resident", TILED_PLANS)
+def test_tiled_plan_covers_every_tile_once(n, m, k, dist, W, resident):
+    """Every (tile, k-tile, column chunk) is taken by exactly one (block,
+    k-group), and the tiles cover every column of [0, n) once."""
+    chunk = gcu.TILED_CHUNK
+    ntw, kg = gcu.tiled_instance(m)
+    assert 8 * ntw >= min(m, chunk) and (ntw == 1 or 4 * ntw < min(m, chunk))
+    T = gcu.tiled_tiles(n, W)
+    n_split = gcu.tiled_split(T, k, m, resident)
+    k_tiles, chunks = -(-k // 128), -(-m // chunk)
+    assert 1 <= n_split <= T
+    assert n_split * k_tiles * chunks >= min(resident, T * k_tiles * chunks)
+    # the kernel's ranges and the k-groups' round-robin, as it walks them
+    taken = np.zeros(T, dtype=np.int64)
+    for z in range(n_split):
+        t0, t1 = z * T // n_split, (z + 1) * T // n_split
+        for g in range(kg):
+            tiles = np.arange(t0 + g, t1, kg)
+            taken[tiles] += 1
+    assert np.all(taken == 1)  # once per (k-tile, chunk): the grid's other two axes
+    # tile t is columns [32 (t % tps), +32) of strip t // tps, cut at W and n
+    tps = -(-W // 32)
+    t = np.arange(T)
+    start = (t // tps) * W + (t % tps) * 32
+    stop = np.minimum((t // tps) * W + np.minimum((t % tps) * 32 + 32, W), n)
+    assert np.all(stop > start) and start[0] == 0 and stop[-1] == n
+    assert np.array_equal(start[1:], stop[:-1])  # no gap, no overlap

@@ -98,10 +98,29 @@ Phases, each printing one line (any failed check raises and exits non-zero):
    the path's snapshots: the combination C with srb = S(snapshots) C, by
    least squares in sketch space. One more step under ``torch.profiler``
    prints the top device operations and the device's idle share;
-8. the kernels' JSON line (the bf16 instance a row of its own, with the
+8. the sketched preconditioner selector (``[precond]``), through the entry
+   point ``rla4mor_tpu_torch.examples.preconditioned_large_demo.run`` at
+   its defaults: ``StencilThermalBlock((2, 2), PRECOND_GRID)`` in float32
+   (n = 1,050,625), 5 MG-CG snapshots, the ``ur_ur`` HS key, SRHT residual
+   rows (k = ``PRECOND_K_RES``), 3 ``RecycledCGInverseOp`` directions, the
+   batched online stage over ``PRECOND_NMU`` parameters beside a loop over
+   8, the ROM against MG-CG at 3 of them. Checks: ``solve_batch`` equals
+   the per-parameter ``solve`` (1e-4 relative), and at each direction's
+   own parameter the HS residual is at most 1e-3 of ||h||. Then
+   ``[precond hwprng]``: the same FOM, basis and first direction in a
+   ``PreconditionedRom`` with a ``HwPrngGaussianEmbedding`` residual
+   embedding, whose ``source_array`` is the strip kernel's path (one launch
+   a strip: 514; counts set to 0 just before, read just after); its strips
+   against the plain ones (1e-5), its transpose against the sketch kernel
+   on 4 columns (1e-5 relative), and its residual estimate against the
+   SRHT one at the first direction alone, within [0.5, 2] at 3 held-out
+   parameters. Before them the strip kernel at that shape (k = 200, cos
+   halves) against its plain version;
+9. the kernels' JSON line (the bf16 instance a row of its own, with the
    ``[bf16]`` path's bf16-input launches; the tiled Gaussian branch a row
    of its own, with ``[hwprng block]``'s tiled launches at the bench m =
-   128 shape), the run's wall time, then the result line.
+   128 shape; the strip kernel at ``[precond hwprng]``'s shape with its
+   launches, and at k = 256), the run's wall time, then the result line.
 
 Times are CUDA-event means over back-to-back calls after a warm-up (the
 wrapper's host time included where it is longer than the kernel's); an
@@ -193,6 +212,9 @@ BLOCK_SNAPSHOTS, BLOCK_TRUNCATION_RTOL = 12, 1e-3
 # below 4 x 2^-7 of the dual norm of b a bf16-offline estimate is at its
 # floor (tests/test_bf16_offline.py)
 BF16_FLOOR = 4 * 2.0 ** -7
+# [precond]: examples/preconditioned_large_demo.py's defaults
+PRECOND_GRID, PRECOND_K_RES, PRECOND_NMU = 1024, 200, 64
+PRECOND_HW_SEED = 21
 TOL = {torch.float64: 1e-12, torch.float32: 1e-4}
 TOL_NARROW = 8e-3  # 2-byte output against the float32 sums: one bf16 rounding
 HBM_BYTES_PER_S = 3.35e12
@@ -1160,6 +1182,133 @@ def large_phase(device, grid: int, label: str) -> dict:
     }
 
 
+def strip_path_row(device, k: int, wide_muls_per_s: float) -> dict:
+    """The strip kernel at [precond hwprng]'s shape ((k, GAUSS_W), normal, cos
+    halves) against its plain version (1e-5), with its times and bound."""
+    from rla4mor_tpu_torch.ops import gaussian_cuda as gcu
+
+    errs = []
+    for seed, b in ((PRECOND_HW_SEED, 0), (PRECOND_HW_SEED, 513), (7, 3)):
+        S = gcu.gaussian_strip(k, seed, b, GAUSS_W, "normal", device=device)
+        P = gcu.gaussian_strip_plain(k, seed, b, GAUSS_W, "normal", device=device)
+        errs.append((S - P).abs().max().item())
+    check(max(errs) <= 1e-5, f"strip k={k}: |kernel - plain| {max(errs):.2e} > 1e-5")
+    row = {"label": f"path k={k} W={GAUSS_W} normal", "k": k, "W": GAUSS_W,
+           "max_abs_err": max(errs), "library_ms": None}
+    row["ms"] = cuda_ms(lambda: gcu.gaussian_strip(k, 7, 0, GAUSS_W, "normal",
+                                                   device=device), 50)
+    row["plain_ms"] = cuda_ms(lambda: gcu.gaussian_strip_plain(
+        k, 7, 0, GAUSS_W, "normal", device=device), 10)
+    row["bound_ms"], row["bound_by"] = bound(
+        4.0 * k * GAUSS_W, 0.0, torch.float32, philox_calls(k, GAUSS_W, "normal"),
+        wide_muls_per_s)
+    row["share"] = row["bound_ms"] / row["ms"]
+    phase("gaussian strip", **row)
+    return row
+
+
+def rel_max(a: torch.Tensor, b: torch.Tensor) -> float:
+    """max |a - b| / max |b|."""
+    return ((a - b).abs().max() / b.abs().max()).item()
+
+
+def precond_phase(device) -> dict:
+    """[precond]: ``examples/preconditioned_large_demo.py``'s ``run()`` at its
+    defaults (grid 1024, float32), and its checks: the batched online stage
+    equals the per-parameter one (1e-4 relative), and at each direction's
+    own parameter the HS residual is at most 1e-3 of ||h||."""
+    from rla4mor_tpu_torch.examples import preconditioned_large_demo as demo
+
+    t0 = time.perf_counter()
+    res = demo.run(grid=PRECOND_GRID, k_res=PRECOND_K_RES, nmu=PRECOND_NMU, device=device,
+                   log=lambda line: print(f"[precond] {line}", flush=True))
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    red, us = res["reductor"], res["us"]
+    for name in ("us", "ys", "rnorms"):
+        check(bool(torch.isfinite(res[name]).all()), f"precond: {name} not finite")
+    batch_vs_solve = max(rel_max(us[i], red.solve(mu, "ur_ur")[0])
+                         for i, mu in enumerate(res["mus"]["online"][:8]))
+    check(batch_vs_solve <= 1e-4, f"precond: solve_batch vs solve {batch_vs_solve:.3e}")
+    h_norm = float(torch.linalg.vector_norm(red.hs_estimators_rhs["ur_ur"]))
+    hs_at_mu_i = [float(red.minimize_hs_estimator(mu, "ur_ur")[1]) / h_norm
+                  for mu in res["mus"]["dir"]]
+    check(max(hs_at_mu_i) <= 1e-3, f"precond: HS residual at mu_i / ||h|| {hs_at_mu_i}")
+    check(all(math.isfinite(e) for e in res["errors"]), f"precond: errors {res['errors']}")
+    res["summary"] = {
+        "n": res["n"], "wall_s": wall_s, "snapshot_s": res["snapshot_s"],
+        "reductor_s": res["reductor_s"], "add_s": res["add_s"],
+        "solves": [P.solves for P in res["directions"]],
+        "last_iters": [P.last_iters for P in res["directions"]],
+        "batch_ms": res["batch_ms"], "loop_ms": res["loop_ms"], "nmu": PRECOND_NMU,
+        "loop_n": 8, "rom_rel_err": res["errors"], "batch_vs_solve_rel": batch_vs_solve,
+        "hs_at_mu_i_over_h": hs_at_mu_i,
+        "residual_rows_gb": res["n"] * PRECOND_K_RES * 4 / 1e9,
+    }
+    return res
+
+
+def precond_hwprng_phase(res, device) -> dict:
+    """[precond hwprng]: [precond]'s FOM, basis and first direction in a
+    ``PreconditionedRom`` whose residual embedding is
+    ``HwPrngGaussianEmbedding`` (k = ``PRECOND_K_RES``): its ``source_array``
+    draws Omega by the strip kernel (the path's launches, counted just
+    around the build and the direction's add). Checks: the launches, three
+    strips of ``source_array`` against the plain strips (1e-5), its
+    transpose times 4 random columns against the sketch kernel (1e-5
+    relative), and the residual estimate against [precond]'s SRHT one at
+    the direction alone (y = e_0) and the ROM's solution there, within
+    [0.5, 2] at 3 held-out parameters."""
+    from rla4mor_tpu_torch.ops import HwPrngGaussianEmbedding
+    from rla4mor_tpu_torch.ops import gaussian_cuda as gcu
+    from rla4mor_tpu_torch.precond import PreconditionedRom
+
+    fom, U, n, k = res["fom"], res["U"], res["n"], PRECOND_K_RES
+    P0, mu0 = res["directions"][0], res["mus"]["dir"][0]
+    theta = HwPrngGaussianEmbedding.make(n, range_dim=k, seed=PRECOND_HW_SEED, device=device)
+    solves0 = P0.solves
+    gcu.gaussian_strip.launches = 0
+    t0 = time.perf_counter()
+    prom = PreconditionedRom(fom, U, theta, log_level=30)
+    torch.cuda.synchronize()
+    source_s = time.perf_counter() - t0
+    prom.add_preconditioner(P0, mu0)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = gcu.gaussian_strip.launches
+    n_strips = -(-n // theta.block_rows)
+    check(launches == n_strips, f"precond hwprng: {launches} strip launches, not {n_strips}")
+
+    cols, W = prom._res_cols, theta.block_rows                  # (n, k) = Theta^H
+    strip_errs = []
+    for b in (0, n_strips // 2, n_strips - 1):
+        plain = gcu.gaussian_strip_plain(k, PRECOND_HW_SEED, b, W, "normal",
+                                         device=device)
+        got = cols[b * W:(b + 1) * W].T * math.sqrt(k)
+        strip_errs.append((got - plain[:, :got.shape[1]]).abs().max().item())
+    check(max(strip_errs) <= 1e-5, f"precond hwprng: source_array strips {strip_errs}")
+    X = torch.randn((n, 4), generator=torch.Generator(device=device).manual_seed(4),
+                    device=device, dtype=cols.dtype)
+    sketch_rel = rel_max(theta.apply(X), cols.T @ X)
+    check(sketch_rel <= 1e-5, f"precond hwprng: source_array^T X vs sketch {sketch_rel:.2e}")
+
+    srht_rom, ratios = res["reductor"].prom.rom, []
+    p = len(res["directions"])
+    for mu in res["mus"]["online"][:3]:
+        e0 = torch.zeros(p, dtype=U.dtype, device=device)
+        e0[0] = 1.0
+        mu_p = {**mu, "precond": e0}
+        u = srht_rom.solve(mu_p)
+        est_srht = float(srht_rom.estimate_error(mu_p, u))
+        est_hw = float(prom.rom.estimate_error({**mu, "precond": e0[:1]}, u))
+        ratios.append(est_hw / est_srht)
+    check(all(0.5 <= q <= 2.0 for q in ratios), f"precond hwprng: estimate ratios {ratios}")
+    return {"n": n, "k": k, "strip_launches": launches, "strips": n_strips,
+            "source_array_s": source_s, "wall_s": wall_s, "solves": P0.solves - solves0,
+            "last_iters": P0.last_iters, "strip_err_max": max(strip_errs),
+            "sketch_rel": sketch_rel, "est_hw_over_srht": ratios}
+
+
 def build_all(sources) -> dict:
     """nvcc of every source, all started together -> {source: seconds}."""
     from rla4mor_tpu_torch.utils import nvcc
@@ -1257,7 +1406,17 @@ def main(argv=None) -> int:
     phase("large 512", **small)
     torch.cuda.empty_cache()
 
-    # 8. result
+    # 8. the sketched preconditioner selector at 1,050,625 DoF, then with
+    # the HwPrng residual embedding (the strip kernel's path)
+    strip_path = strip_path_row(device, PRECOND_K_RES, rates[0])
+    pre = precond_phase(device)
+    phase("precond", **pre["summary"])
+    pre_hw = precond_hwprng_phase(pre, device)
+    phase("precond hwprng", **pre_hw)
+    del pre
+    torch.cuda.empty_cache()
+
+    # 9. result
     main_row = next(r for r in rows if r["label"].startswith("slice")
                     and r["dtype"] == "float32" and "m=1 " in r["label"])
     gauss_row = next(r for r in gauss_rows if r["label"].startswith("path")
@@ -1298,9 +1457,14 @@ def main(argv=None) -> int:
                      block["launches_by_branch"]["tiled"], tiled_row,
                      note="the tiled branch of the same kernel source: 3xTF32 mma.sync, "
                      "Omega drawn into each thread's A fragments"),
+        # the strip kernel at its path's shape: [precond hwprng]'s
+        # source_array, k = PRECOND_K_RES (cos halves)
+        kernel_entry("gaussian_strip", "rla4mor_tpu_torch/csrc/gaussian_sketch.cu",
+                     "rla4mor_tpu/ops/gaussian_pallas.py:189", pre_hw["strip_launches"],
+                     strip_path),
         kernel_entry("gaussian_strip", "rla4mor_tpu_torch/csrc/gaussian_sketch.cu",
                      "rla4mor_tpu/ops/gaussian_pallas.py:189", hw["strip_launches_path"],
-                     strip_row),
+                     strip_row, note="pairs mode (k % 128 == 0), which no path launches"),
     ]}), flush=True)
     phase("wall", s=time.perf_counter() - t_start)
     print(json.dumps({"ok": True, "device": {

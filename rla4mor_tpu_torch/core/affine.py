@@ -123,6 +123,19 @@ class AffineDense:
         stack, M = self._promoted(M)
         return AffineDense(torch.einsum("tkm,mq->tkq", stack, M), self.coefficients)
 
+    def add(self, other: "AffineDense") -> "AffineDense":
+        """Affine sum: the union of the term lists (T1 + T2 terms)."""
+        if (self.range_dim, self.source_dim) != (other.range_dim, other.source_dim):
+            raise ValueError("AffineDense.add: terms of different shapes")
+        stack, other_stack = self._promoted(other.stack)
+        return AffineDense(torch.cat([stack, other_stack], dim=0),
+                           self.coefficients + other.coefficients)
+
+    def scale(self, c: Union[Coefficient, float]) -> "AffineDense":
+        """c(mu) times the operator: every coefficient multiplied by c."""
+        c = as_coefficient(c)
+        return AffineDense(self.stack, tuple(c * ci for ci in self.coefficients))
+
     def map_terms(self, fn: Callable) -> "AffineDense":
         """terms'_t = fn(terms_t), as one call on the (k, T*m) matrix."""
         T, k, m = self.stack.shape

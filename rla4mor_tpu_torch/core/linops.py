@@ -14,10 +14,15 @@ Two worlds, as in the JAX package:
   the result in numpy, so a :class:`ChainOp` of several host ops (R^-1 A,
   then the sqrt factor inside an embedding) moves a vector to the device
   once, not after every factor.
+
+The device inverses (:class:`CGInverseOp`, :class:`DeviceCholeskyInverse`,
+:class:`RecycledCGInverseOp`) are preconditioner directions A(mu_i)^-1
+solved on the operator's device.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Sequence
 
 import numpy as np
@@ -25,6 +30,7 @@ import scipy.sparse as sps
 import scipy.sparse.linalg as spla
 import torch
 
+from rla4mor_tpu_torch.core.solvers import cg
 from rla4mor_tpu_torch.utils.config import as_tensor, default_dtype, resolve_device
 
 
@@ -294,3 +300,145 @@ class SparseCholeskyOp(HostOp):
         """x with Q^H x = u: solve G x = P u (lower)."""
         return self.to_device(spla.spsolve_triangular(
             self._G, self._scatter(to_numpy(U)), lower=True))
+
+
+# ---------------------------------------------------------------------------
+# Device inverses: preconditioner directions P_i = A(mu_i)^-1 that never
+# leave the device
+# ---------------------------------------------------------------------------
+
+
+class CGInverseOp(LinOp):
+    """Implicit inverse of an SPD matrix-free operator by device CG.
+
+    ``matvec`` (a closure on (n,) vectors, e.g. a stencil apply) and an
+    optional ``precond`` closure, solved to ``tol`` by
+    :func:`~rla4mor_tpu_torch.core.solvers.cg`. The JAX package vmaps its CG
+    over the columns of a block; here the columns are solved one after the
+    other, each to its own iteration count, which is what the vmapped loop
+    computes too."""
+
+    def __init__(self, matvec, dim: int, precond=None, tol: float = 1e-10,
+                 maxiter: int = 1000):
+        self.matvec = matvec
+        self.precond = precond
+        self.tol = tol
+        self.maxiter = maxiter
+        self.source_dim = self.range_dim = dim
+
+    def _solve_one(self, b: torch.Tensor) -> torch.Tensor:
+        return cg(self.matvec, b, precond=self.precond, tol=self.tol,
+                  maxiter=self.maxiter).x
+
+    def apply(self, U, mu=None):
+        U = torch.as_tensor(U)
+        if U.dim() == 1:
+            return self._solve_one(U)
+        return torch.stack([self._solve_one(U[:, j]) for j in range(U.shape[1])], dim=1)
+
+    # SPD: the adjoint solve is the same solve
+    apply_adjoint = apply
+
+    def apply_inverse(self, U, mu=None):
+        U = torch.as_tensor(U)
+        if U.dim() == 1:
+            return self.matvec(U)
+        return torch.stack([self.matvec(U[:, j]) for j in range(U.shape[1])], dim=1)
+
+
+class DeviceCholeskyInverse(LinOp):
+    """Dense SPD inverse by a Cholesky factor computed once on the matrix's
+    device; every apply is ``torch.cholesky_solve`` with it."""
+
+    def __init__(self, A_dense):
+        A = torch.as_tensor(A_dense)
+        if A.dim() != 2 or A.shape[0] != A.shape[1]:
+            raise ValueError(f"DeviceCholeskyInverse needs a square matrix, "
+                             f"got {tuple(A.shape)}")
+        self.A = A
+        self.chol = torch.linalg.cholesky(A)
+        self.source_dim = self.range_dim = A.shape[0]
+
+    def apply(self, U, mu=None):
+        U = torch.as_tensor(U).to(self.A)
+        single = U.dim() == 1
+        X = torch.cholesky_solve(U[:, None] if single else U, self.chol)
+        return X[:, 0] if single else X
+
+    # SPD: the adjoint solve is the same solve
+    apply_adjoint = apply
+
+    def apply_inverse(self, U, mu=None):
+        return matmul(self.A, torch.as_tensor(U).to(self.A.device))
+
+
+class RecycledCGInverseOp(LinOp):
+    """Device CG inverse whose solves start from recycled earlier solutions.
+
+    Keeps up to ``m_max`` A-orthonormal columns W (W^H A W = I), a ring
+    filled from past solutions. Each solve starts CG at the Galerkin
+    projection x0 = W W^H b of its right-hand side, so repeated or nearby
+    right-hand sides take a few iterations instead of a cold start. A
+    solution that took more than 2 iterations is A-orthogonalised against W
+    (two passes) and, if anything is left, written into the next slot of the
+    ring. ``last_iters`` is the CG iteration count of the latest solve,
+    ``solves`` the number of solves so far. Columns of a block are solved one
+    after the other, since each solve updates the ring the next one starts
+    from."""
+
+    def __init__(self, matvec, dim: int, precond=None, tol: float = 1e-10,
+                 maxiter: int = 1000, m_max: int = 16, dtype=None, device=None):
+        self.matvec = matvec
+        self.precond = precond
+        self.tol = tol
+        self.maxiter = maxiter
+        self.m_max = m_max
+        self.source_dim = self.range_dim = dim
+        device = resolve_device(device)
+        self._W = torch.zeros((dim, m_max), dtype=dtype or default_dtype(device),
+                              device=device)
+        self._count = 0
+        self.last_iters = 0
+        self.solves = 0
+
+    def _solve_one(self, b: torch.Tensor) -> torch.Tensor:
+        W = self._W
+        b = b.to(W)
+        x0 = W @ (W.conj().T @ b)  # W^H A W = I: the Galerkin coefficients
+        res = cg(self.matvec, b, x0=x0, precond=self.precond, tol=self.tol,
+                 maxiter=self.maxiter)
+        self.last_iters = int(res.iters)
+        self.solves += 1
+        self._recycle(res.x)
+        return res.x
+
+    def _recycle(self, x: torch.Tensor) -> None:
+        if self.last_iters <= 2:
+            # the deflated start already solved it: x lies (numerically) in
+            # span(W), and inserting it again would only cost 3 matvecs
+            return
+        W = self._W
+        w = x.to(W)
+        Aw = self.matvec(w).to(W)
+        for _ in range(2):  # A-orthogonalise, then one re-orthogonalisation
+            w = w - W @ (W.conj().T @ Aw)
+            Aw = self.matvec(w).to(W)
+        nrm2 = float(torch.vdot(w, Aw).real)
+        if nrm2 > 1e-28:
+            self._W[:, self._count % self.m_max] = w / math.sqrt(nrm2)
+            self._count += 1
+
+    def apply(self, U, mu=None):
+        U = torch.as_tensor(U)
+        if U.dim() == 1:
+            return self._solve_one(U)
+        return torch.stack([self._solve_one(U[:, j]) for j in range(U.shape[1])], dim=1)
+
+    # SPD: the adjoint solve is the same solve
+    apply_adjoint = apply
+
+    def apply_inverse(self, U, mu=None):
+        U = torch.as_tensor(U)
+        if U.dim() == 1:
+            return self.matvec(U)
+        return torch.stack([self.matvec(U[:, j]) for j in range(U.shape[1])], dim=1)

@@ -13,6 +13,8 @@ from rla4mor_tpu_torch.ops.embeddings import (
     HwPrngGaussianEmbedding,
     IdentityEmbedding,
     SrhtEmbedding,
+    VectorizedEmbedding,
+    EmbeddingVectorized,
 )
 
 __all__ = [
@@ -22,5 +24,6 @@ __all__ = [
     "gaussian_sketch", "gaussian_sketch_plain", "gaussian_strip",
     "gaussian_strip_plain",
     "Embedding", "GaussianEmbedding", "HwPrngGaussianEmbedding",
-    "IdentityEmbedding", "SrhtEmbedding",
+    "IdentityEmbedding", "SrhtEmbedding", "VectorizedEmbedding",
+    "EmbeddingVectorized",
 ]

@@ -113,6 +113,14 @@ class Embedding(LinOp):
                     self.sqrt_product.apply_adjoint(om.conj().T)).conj().T
         return self._theta
 
+    def source_array(self) -> torch.Tensor:
+        """Theta^H (n, k): the rows of Theta as U-space vectors."""
+        return self.matrix().conj().T
+
+    def range_array(self) -> torch.Tensor:
+        """Theta^T (n, k)."""
+        return self.matrix().T
+
 
 class GaussianEmbedding(Embedding):
     """Omega with iid N(0, 1/k) entries, drawn on the canonical tile grid
@@ -374,3 +382,49 @@ class HwPrngGaussianEmbedding(Embedding):
                   for b in range(-(-self.l2_dim // W))]
         full = torch.cat(strips, dim=1)[:, :self.l2_dim]
         return (full / math.sqrt(self.range_dim)).to(self.dtype)
+
+
+class VectorizedEmbedding(LinOp):
+    """Sketch of a whole (rows, cols) matrix: its C-order flattening (index
+    ``i_row * cols + i_col``) through ``embedding``, whose source dimension
+    is rows * cols."""
+
+    def __init__(self, embedding: Embedding, rows: int, cols: int):
+        if embedding.source_dim != rows * cols:
+            raise ValueError(f"embedding acts on {embedding.source_dim} entries, "
+                             f"not {rows} x {cols}")
+        self.embedding = embedding
+        self.rows, self.cols = int(rows), int(cols)
+        self.source_dim = self.rows * self.cols
+        self.range_dim = embedding.range_dim
+
+    @property
+    def seed(self) -> int:
+        return self.embedding.seed
+
+    def with_seed(self, seed) -> "VectorizedEmbedding":
+        return VectorizedEmbedding(self.embedding.with_seed(seed), self.rows, self.cols)
+
+    def with_range_dim(self, range_dim) -> "VectorizedEmbedding":
+        return VectorizedEmbedding(self.embedding.with_range_dim(range_dim),
+                                   self.rows, self.cols)
+
+    def apply_matrix(self, M) -> torch.Tensor:
+        """(k,) sketch of the (rows, cols) matrix M."""
+        M = torch.as_tensor(M)
+        if tuple(M.shape) != (self.rows, self.cols):
+            raise ValueError(f"matrix {tuple(M.shape)} is not ({self.rows}, {self.cols})")
+        return self.embedding.apply(M.reshape(-1))
+
+    def apply(self, U, mu=None):
+        return self.embedding.apply(U)
+
+    def apply_adjoint(self, V, mu=None):
+        return self.embedding.apply_adjoint(V)
+
+    def matrix(self):
+        return self.embedding.matrix()
+
+
+# the reference's name
+EmbeddingVectorized = VectorizedEmbedding

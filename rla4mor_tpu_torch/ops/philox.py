@@ -25,6 +25,17 @@ numbers: as easy as 1, 2, 3", SC'11; Random123's known-answer vectors hold):
 are its plain version. Words are held in int64 tensors, and 32 x 32-bit
 products are split in 16-bit halves so that nothing overflows (torch has no
 full unsigned 64-bit multiply).
+
+The plain Box-Muller is evaluated in float64 from the float32 uniforms and
+rounded once to float32, and it uses only additions, multiplications,
+divisions, rounding to an integer and bit operations (:func:`_log`,
+:func:`_sqrt`, :func:`_cos_sin_turns`). Each of those is correctly rounded,
+so the strip has the same bits on every call, thread and device. PyTorch's
+CPU ``log1p`` / ``sqrt`` / ``cos`` / ``sin`` are not: their float32 kernels
+run a grain of 32768 entries per worker thread through a vectorised math
+library, and in a process that had initialised XLA one worker's first
+grain once came out about 1e-4 off (a whole grain, rows 48-63 of a
+(64, 2048) draw).
 """
 
 from __future__ import annotations
@@ -40,7 +51,11 @@ PHILOX_W0 = 0x9E3779B9  # key bump of key word 0
 PHILOX_W1 = 0xBB67AE85  # key bump of key word 1
 ROUNDS = 10
 CHUNK_K = 64  # rows of one normal draw (rademacher: 4 * CHUNK_K)
-TWO_PI_F32 = float(torch.tensor(2.0 * math.pi, dtype=torch.float32))
+# float64 constants of the plain Box-Muller
+_LN2 = math.log(2.0)
+_SQRT_HALF = math.sqrt(0.5)
+_HALF_PI = math.pi / 2
+_MANT = (1 << 52) - 1
 
 
 def _mulhilo(a: int, b: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -89,12 +104,81 @@ def bits_to_unit(bits: torch.Tensor) -> torch.Tensor:
     return mant.view(torch.float32) - 1.0
 
 
+def _frexp(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(m, e) with x = m 2^e, m in [0.5, 1), for positive normal float64 x,
+    from the bits."""
+    bits = x.view(torch.int64)
+    m = ((bits & _MANT) | (1022 << 52)).view(torch.float64)
+    return m, (bits >> 52) - 1022
+
+
+def _pow2(e: torch.Tensor) -> torch.Tensor:
+    """2^e as float64 for int64 e in the normal range, from the bits."""
+    return ((e + 1023) << 52).view(torch.float64)
+
+
+def _log(x: torch.Tensor) -> torch.Tensor:
+    """ln x for positive normal float64 x: x = m 2^e with m in [sqrt(1/2),
+    sqrt(2)), ln m = 2 atanh(s), s = (m - 1) / (m + 1), |s| < 0.172, by its
+    series to s^23 (first omitted term below 1e-18)."""
+    m, e = _frexp(x)
+    low = m < _SQRT_HALF
+    m = torch.where(low, m * 2.0, m)
+    e = e - low.to(torch.int64)
+    s = (m - 1.0) / (m + 1.0)
+    z = s * s
+    p = torch.full_like(z, 1.0 / 23.0)
+    for j in range(21, 0, -2):
+        p = p * z + 1.0 / j
+    return e.to(torch.float64) * _LN2 + 2.0 * s * p
+
+
+def _sqrt(y: torch.Tensor) -> torch.Tensor:
+    """sqrt y for float64 y >= 0 (0 at 0): y = m 4^h with m in [0.25, 1), a
+    linear first guess (6 bits) and five Newton steps."""
+    pos = y > 0
+    m, e = _frexp(torch.where(pos, y, torch.ones_like(y)))
+    odd = (e & 1) != 0
+    m = torch.where(odd, m * 0.5, m)
+    h = (e + odd.to(torch.int64)) >> 1
+    g = 0.41731 + 0.59016 * m
+    for _ in range(5):
+        g = 0.5 * (g + m / g)
+    return torch.where(pos, g * _pow2(h), torch.zeros_like(y))
+
+
+def _cos_sin_turns(u: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(cos 2 pi u, sin 2 pi u) for float64 u in [0, 1) of at most 50
+    significant bits: 4u = q + f exactly, q an integer and |f| <= 1/2, and
+    the Taylor series of r = f pi / 2 (|r| <= pi / 4) to r^18 (first omitted
+    term below 1e-19) turned by q quarter turns."""
+    q4 = 4.0 * u
+    q = torch.round(q4)
+    r = (q4 - q) * _HALF_PI
+    z = r * r
+    sn = torch.full_like(z, 1.0 / math.factorial(17))
+    for j in range(15, 0, -2):
+        sn = sn * z + (-1.0) ** (j // 2) / math.factorial(j)
+    sn = sn * r
+    cs = torch.full_like(z, -1.0 / math.factorial(18))
+    for j in range(16, -1, -2):
+        cs = cs * z + (-1.0) ** (j // 2) / math.factorial(j)
+    quarter = q.to(torch.int64) & 3
+    cos = torch.where(quarter == 0, cs, torch.where(quarter == 1, -sn,
+                      torch.where(quarter == 2, -cs, sn)))
+    sin = torch.where(quarter == 0, sn, torch.where(quarter == 1, cs,
+                      torch.where(quarter == 2, -sn, -cs)))
+    return cos, sin
+
+
 def normal_pair(b1: torch.Tensor, b2: torch.Tensor):
-    """Box-Muller from two word grids: (cos half, sin half), float32."""
-    u1, u2 = bits_to_unit(b1), bits_to_unit(b2)
-    radius = torch.sqrt(-2.0 * torch.log1p(-u1))
-    t = TWO_PI_F32 * u2
-    return radius * torch.cos(t), radius * torch.sin(t)
+    """Box-Muller from two word grids: (cos half, sin half), float32, each
+    the float64 value rounded once."""
+    u1 = bits_to_unit(b1).to(torch.float64)
+    u2 = bits_to_unit(b2).to(torch.float64)
+    radius = _sqrt(-2.0 * _log(1.0 - u1))  # 1 - u1 >= 2^-23 is exact
+    cos, sin = _cos_sin_turns(u2)
+    return (radius * cos).to(torch.float32), (radius * sin).to(torch.float32)
 
 
 def rademacher(bits: torch.Tensor) -> torch.Tensor:

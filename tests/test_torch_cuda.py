@@ -518,3 +518,28 @@ def test_driver_sketch_takes_the_kernel_in_the_rows_layout(cuda, monkeypatch):
     n = 257 * 257
     assert [s[:2] for s in seen] == [((n, 1), (1, 1))] + [((n, 5), (1, n))] * 2
     assert all(s[2] < TOL[torch.float64] for s in seen), seen
+
+
+def test_plain_strip_has_the_same_bits_on_the_card_and_the_cpu(cuda):
+    """The plain Box-Muller uses only correctly rounded operations, so the
+    card's plain strip is the CPU's, bit for bit."""
+    from rla4mor_tpu_torch.ops import gaussian_cuda as gcu
+
+    for k, dist in ((200, "normal"), (256, "normal"), (300, "rademacher")):
+        on_card = gcu.gaussian_strip_plain(k, 21, 513, 2048, dist, device=cuda)
+        assert torch.equal(on_card.cpu(), gcu.gaussian_strip_plain(k, 21, 513, 2048, dist,
+                                                                    device="cpu"))
+
+
+def test_precond_demo_on_the_card_matches_the_cpu(cuda):
+    """The preconditioner selector's demo at grid 32 in float64 on the card
+    (the RecycledCG directions, the reductor, the batched online stage)
+    against the same run on the CPU."""
+    from rla4mor_tpu_torch.examples import preconditioned_large_demo as demo
+
+    kw = dict(grid=32, nmu=8, k_res=40, dtype=torch.float64, log=lambda *a: None)
+    card, host = demo.run(device=cuda, **kw), demo.run(device="cpu", **kw)
+    assert [P.last_iters for P in card["directions"]] == \
+        [P.last_iters for P in host["directions"]]
+    assert rel_err(card["us"].cpu(), host["us"]) < 1e-8
+    assert rel_err(card["rnorms"].cpu(), host["rnorms"]) < 1e-8

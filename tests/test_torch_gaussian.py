@@ -14,7 +14,11 @@ values are at most ~6; XLA's and torch's log1p/cos/sin differ by ulps);
 sketches and float32 sketched-RB quantities 1e-5 relative.
 """
 
+import os
+import subprocess
+import sys
 import types
+from pathlib import Path
 
 import jax
 import jax.experimental.pallas as pl
@@ -39,6 +43,7 @@ from rla4mor_tpu_torch.ops import philox
 
 W = 256
 M32 = 0xFFFFFFFF
+ROOT = Path(__file__).resolve().parent.parent
 
 
 def rel(a, b):
@@ -226,6 +231,79 @@ def test_strip_statistics_and_reproducibility(dist):
         assert set(np.unique(v)) == {-1.0, 1.0}
     else:
         assert v.min() < -3.5 and v.max() > 3.5
+
+
+_STRIP_CHILD = r"""
+import sys
+
+import jax
+
+jax.config.update("jax_platforms", "cpu")
+jax.config.update("jax_enable_x64", True)
+import jax.numpy as jnp
+import numpy as np
+import torch
+
+(jnp.ones(3) * 2.0).sum().block_until_ready()  # XLA is initialised
+from rla4mor_tpu_torch.ops import gaussian_cuda as gcu
+
+two = [gcu.gaussian_strip_plain(256, 7, 0, 2048, "normal", device="cpu") for _ in range(2)]
+np.save(sys.argv[1], torch.stack(two).numpy())
+print(torch.get_num_threads())
+"""
+
+
+def _box_muller_f64(k: int, seed: int, b: int, width: int) -> np.ndarray:
+    """Strip b in pairs mode (k % 128 == 0) by numpy: the float32 uniforms
+    of the contract, Box-Muller in float64, rounded once to float32."""
+    out = np.empty((k, width), np.float32)
+    for p in range(k // 128):
+        u1, u2 = (philox.bits_to_unit(philox.draw_bits(
+            seed, torch.tensor([b]), 2 * p + j, 64, width))[0].double().numpy()
+            for j in (0, 1))
+        radius = np.sqrt(-2.0 * np.log1p(-u1))
+        out[128 * p:128 * p + 64] = radius * np.cos(2.0 * np.pi * u2)
+        out[128 * p + 64:128 * p + 128] = radius * np.sin(2.0 * np.pi * u2)
+    return out
+
+
+def test_plain_strip_is_deterministic_with_xla_initialised(philox_pallas, tmp_path):
+    """The plain strip gives the same bits on every call in a process that
+    initialised XLA, torch at its default thread count: a fresh process
+    draws strip 0 twice (k = 256, W = 2048, a (64, 2048) draw is 4 of
+    torch's intra-op grains). Both are within 1e-5 of the JAX kernel, and
+    bit-equal to Box-Muller evaluated in float64 and rounded once, which
+    torch's float32 log1p / sqrt / cos / sin are not. About 12 s: the
+    process imports JAX and torch, and the JAX kernel draws in interpret
+    mode."""
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("OMP_NUM_THREADS", "MKL_NUM_THREADS")}
+    env["PYTHONPATH"] = str(ROOT)
+    out = tmp_path / "strips.npy"
+    subprocess.run([sys.executable, "-c", _STRIP_CHILD, str(out)], cwd=ROOT, env=env,
+                   capture_output=True, text=True, timeout=300, check=True)
+    first, second = np.load(out)
+    assert np.array_equal(first, second)
+    ref = np.asarray(jgp.gaussian_strip(256, 7, 0, block_rows=2048, dist="normal",
+                                        interpret=True))
+    assert np.abs(first - ref).max() <= 1e-5
+    assert np.array_equal(first, _box_muller_f64(256, 7, 0, 2048))
+
+
+@pytest.mark.parametrize("dist", ["normal", "rademacher"])
+def test_hwprng_source_array_matches_jax(philox_pallas, dist):
+    """``source_array()`` of the port's HwPrng embedding (the plain strips,
+    on the CPU) is the JAX package's ``random_matrix()`` transposed: four
+    strips, the last one cut at n, the cos-half draw order at k = 200."""
+    n, k = 3 * W + 37, 200
+    je = jemb.HwPrngGaussianEmbedding.make(n, range_dim=k, seed=5, block_rows=W, dist=dist)
+    te = temb.HwPrngGaussianEmbedding.make(n, range_dim=k, seed=5, block_rows=W, dist=dist,
+                                           device="cpu")
+    launches = gcu.gaussian_strip.launches
+    got = te.source_array()
+    assert got.shape == (n, k) and gcu.gaussian_strip.launches == launches
+    assert rel(got, np.asarray(je.random_matrix()).T) < 1e-5
+    assert torch.equal(te.range_array(), got)
 
 
 # ---------------------------------------------------------------------------

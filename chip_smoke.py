@@ -24,7 +24,8 @@ Phases, each printing one line (any failed check raises and exits non-zero):
    to the plain version's float32 sums: 1e-4 for float32 output, 8e-3 for
    bf16 output (one bf16 rounding); its library call is the bf16 product
    with the explicit operator;
-4. Gaussian kernels vs plain: the strip kernel against its plain version
+4. Gaussian kernels vs plain: the strip (the Omega kernel on one strip)
+   against its plain version
    (Rademacher bit-equal, normal to 1e-5 absolute; seeds and strips differ,
    redraws are equal; mean, standard deviation and tails), and the sketch
    kernel against its plain version (1e-4 relative on the small branch,
@@ -34,7 +35,16 @@ Phases, each printing one line (any failed check raises and exits non-zero):
    the bench shape (n = 2^23, k = 256, m = 8, 9, 16, 32, 64, 128, both
    dists; at m = 32 also k = 300 (cos halves) and a column-major x); each
    row names the branch it took (``SMALL_M_MAX[dist]``) and is held to
-   that branch's bound;
+   that branch's bound; ``[gaussian omega]``: the whole scaled Omega in one
+   launch against its plain version, in full at (200, 3 W + 37) and (256,
+   2^18 + 3), normal and Rademacher, and on strips 0, middle and last (cut)
+   at [precond hwprng]'s (200, 1,050,625, cos halves) and at (256, 261,121)
+   in pairs and Rademacher mode (Rademacher bit-equal, normal within 1e-5
+   absolute on the unscaled values); there its time by events and in a
+   CUDA graph, its bound and share, beside the old composition (a strip
+   launch a strip, ``torch.cat``, the slice and the scale) and a
+   ``normal_`` fill of a (k, n) tensor (a yardstick of generate-and-store,
+   not the same function), with the peak memory of each;
 5. the SRHT slice: thermal block 2x2 at ``--grid`` intervals (n = 261,121
    at 512, so every sketch takes the kernel), SRHT k = 300 over the h1_0
    sqrt factor, Galerkin reductor, weak greedy over 200 training
@@ -45,7 +55,8 @@ Phases, each printing one line (any failed check raises and exits non-zero):
    ``HW_EXTENSIONS`` extensions, ``reduce_adaptive`` over 64 held-out
    parameters (tol 0.2), ``serve_batch`` on one batch padded to 256, and
    ``apply == random_matrix() @ (Q U)`` on the final basis (1e-4 relative:
-   the only strip-kernel launches, counted apart from the path's);
+   the only Omega-kernel launch, one and no strip launch, counted apart
+   from the path's);
    then a second ``reduce_adaptive`` from an online k = 32 at tol 0.05,
    which must double the online sketch at least once;
    ``[bf16]``: the bf16 offline mode on the same FOM,
@@ -109,8 +120,9 @@ Phases, each printing one line (any failed check raises and exits non-zero):
    own parameter the HS residual is at most 1e-3 of ||h||. Then
    ``[precond hwprng]``: the same FOM, basis and first direction in a
    ``PreconditionedRom`` with a ``HwPrngGaussianEmbedding`` residual
-   embedding, whose ``source_array`` is the strip kernel's path (one launch
-   a strip: 514; counts set to 0 just before, read just after); its strips
+   embedding, whose ``source_array`` is the Omega kernel's path (one
+   launch for the whole (200, 1,050,625) Omega and no strip launch; counts
+   set to 0 just before, read just after; its peak memory); its strips
    against the plain ones (1e-5), its transpose against the sketch kernel
    on 4 columns (1e-5 relative), and its residual estimate against the
    SRHT one at the first direction alone, within [0.5, 2] at 3 held-out
@@ -119,8 +131,10 @@ Phases, each printing one line (any failed check raises and exits non-zero):
 9. the kernels' JSON line (the bf16 instance a row of its own, with the
    ``[bf16]`` path's bf16-input launches; the tiled Gaussian branch a row
    of its own, with ``[hwprng block]``'s tiled launches at the bench m =
-   128 shape; the strip kernel at ``[precond hwprng]``'s shape with its
-   launches, and at k = 256), the run's wall time, then the result line.
+   128 shape; the Omega kernel at ``[precond hwprng]``'s shape with its
+   launches, and at (256, 261,121) in pairs and Rademacher mode; its
+   one-strip call at k = 200 and 256), the run's wall time, then the result
+   line.
 
 Times are CUDA-event means over back-to-back calls after a warm-up (the
 wrapper's host time included where it is longer than the kernel's); an
@@ -143,9 +157,9 @@ them at the tensor cores' dense rate: 2048 TF32 flop a clock per SM
 (``TF32_FLOP_PER_CLOCK_SM``, one mma.m16n8k8, which ``probes/int_rates.cu``
 measures at 1.04 a clock per SM) at the card's SM count and maximum SM
 clock, as the generation term below.
-The Gaussian sketch and strip rows have a third term, the generation: the
-Philox4x32-10 calls this run's shape needs (k ceil(n/4) in pairs and
-Rademacher mode, 2 k ceil(n/4) in cos-halves mode; n = W for a strip;
+The Gaussian sketch, strip and Omega rows have a third term, the
+generation: the Philox4x32-10 calls this run's shape needs (k ceil(n/4) in
+pairs and Rademacher mode, 2 k ceil(n/4) in cos-halves mode; n = W for a strip;
 once per column chunk of ``TILED_CHUNK`` on the tiled branch),
 each at the 32 x 32 -> 64-bit multiplies (IMAD.WIDE.U32) that its own
 counter needs, over 32 of them per clock per SM, the card's SM count and
@@ -214,6 +228,7 @@ BLOCK_SNAPSHOTS, BLOCK_TRUNCATION_RTOL = 12, 1e-3
 BF16_FLOOR = 4 * 2.0 ** -7
 # [precond]: examples/preconditioned_large_demo.py's defaults
 PRECOND_GRID, PRECOND_K_RES, PRECOND_NMU = 1024, 200, 64
+PRECOND_N = (PRECOND_GRID + 1) ** 2  # 1,050,625 stencil unknowns
 PRECOND_HW_SEED = 21
 TOL = {torch.float64: 1e-12, torch.float32: 1e-4}
 TOL_NARROW = 8e-3  # 2-byte output against the float32 sums: one bf16 rounding
@@ -787,7 +802,7 @@ def hwprng_phase(fom, device, extensions: int, training: int = 200,
     held = mu_stack(fom.parameter_space.sample_randomly(64, seed=3, device=device))
 
     gcu.gaussian_sketch.launches = 0
-    gcu.gaussian_strip.launches = 0
+    gcu.gaussian_strip.launches = gcu.gaussian_omega.launches = 0
     result, t_greedy, host_solve, _ = timed_greedy(fom, reductor, train, extensions)
     greedy_sketches = gcu.gaussian_sketch.launches
     t0 = time.perf_counter()
@@ -810,8 +825,8 @@ def hwprng_phase(fom, device, extensions: int, training: int = 200,
 
     serving = serve_once(rom, fom, device, "hwprng", batch)
     # the path (greedy, reduce_adaptive, serving) never forms Omega: the
-    # strip kernel runs only in the random_matrix oracle check below
-    path_strips = gcu.gaussian_strip.launches
+    # Omega kernel runs only in the random_matrix oracle check below
+    path_omegas = gcu.gaussian_omega.launches + gcu.gaussian_strip.launches
 
     U = reductor.rb
     applied = theta.apply(U)
@@ -819,11 +834,13 @@ def hwprng_phase(fom, device, extensions: int, training: int = 200,
     matrix_rel = ((applied - explicit).abs().max() / explicit.abs().max()).item()
     del explicit
     sketch_launches = gcu.gaussian_sketch.launches
-    oracle_strips = gcu.gaussian_strip.launches - path_strips
+    oracle_omegas = gcu.gaussian_omega.launches - path_omegas
     check(matrix_rel <= 1e-4, f"hwprng apply vs random_matrix @ QU {matrix_rel:.2e}")
     check(sketch_launches > 0, "the HwPrng path launched no Gaussian sketch kernel")
-    check(oracle_strips > 0,
-          "HwPrngGaussianEmbedding.random_matrix launched no Gaussian strip kernel")
+    # the whole Omega in one launch, and no per-strip launch
+    check(oracle_omegas == 1 and gcu.gaussian_strip.launches == 0,
+          f"HwPrngGaussianEmbedding.random_matrix: {oracle_omegas} Omega launches and "
+          f"{gcu.gaussian_strip.launches} strip launches, not 1 and 0")
 
     return {
         "n": n, "k": GAUSS_K, **path_summary(result, t_greedy, host_solve),
@@ -836,8 +853,8 @@ def hwprng_phase(fom, device, extensions: int, training: int = 200,
         "doubling_max_rel_dev": doubled["max_rel_dev"],
         "doubling_rounds": doubled["rounds"], **checks, **serving,
         "apply_vs_matrix_rel": matrix_rel,
-        "sketch_launches": sketch_launches, "strip_launches_path": path_strips,
-        "strip_launches_oracle": oracle_strips,
+        "sketch_launches": sketch_launches, "omega_launches_path": path_omegas,
+        "omega_launches_oracle": oracle_omegas,
     }
 
 
@@ -1207,6 +1224,100 @@ def strip_path_row(device, k: int, wide_muls_per_s: float) -> dict:
     return row
 
 
+def omega_row(device, k: int, n: int, dist: str, wide_muls_per_s: float) -> dict:
+    """The one-launch Omega at (k, n): strips 0, middle and last (cut)
+    against the plain strips times the same float32 scale (Rademacher
+    bit-equal, normal within 1e-5 absolute on the unscaled values); its
+    times by events and in a CUDA graph, its bound, and beside it in the
+    same run the old composition (a strip launch a strip, ``torch.cat``, the
+    slice to n and the scale) and ``normal_`` on a (k, n) tensor, each with
+    its peak memory above the start."""
+    from rla4mor_tpu_torch.ops import gaussian_cuda as gcu
+
+    W, seed, scale = GAUSS_W, PRECOND_HW_SEED, gcu.omega_scale(k)
+    n_strips = -(-n // W)
+
+    def omega():
+        return gcu.gaussian_omega(k, n, seed, W, dist, device=device)
+
+    def composition():
+        strips = [gcu.gaussian_strip(k, seed, b, W, dist, device=device)
+                  for b in range(n_strips)]
+        return torch.cat(strips, dim=1)[:, :n] / math.sqrt(k)
+
+    def peak_gb(fn):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        out = fn()
+        torch.cuda.synchronize()
+        del out
+        return (torch.cuda.max_memory_allocated() - base) / 1e9
+
+    out = omega()
+    torch.cuda.synchronize()
+    check(tuple(out.shape) == (k, n) and out.is_contiguous(), f"omega {k}x{n}: {out.shape}")
+    check(bool(torch.isfinite(out).all()), f"omega {k}x{n}: not finite")
+    errs = []
+    for b in (0, n_strips // 2, n_strips - 1):
+        plain = gcu.gaussian_strip_plain(k, seed, b, W, dist, device=device) * scale
+        got = out[:, b * W:(b + 1) * W]
+        plain = plain[:, :got.shape[1]]
+        if dist == "rademacher":
+            check(torch.equal(got, plain), f"rademacher omega {k}x{n}: strip {b} not bit-equal")
+        errs.append((got - plain).abs().max().item())
+    check(max(errs) / scale <= 1e-5, f"omega {k}x{n} {dist}: |kernel - plain| / scale "
+          f"{max(errs) / scale:.2e} > 1e-5")
+    mode = ("rademacher" if dist == "rademacher" else
+            "normal pairs" if k % 128 == 0 else "normal cos halves")
+    row = {"label": f"omega k={k} n={n} {mode}", "k": k, "n": n, "dist": dist,
+           "max_abs_err": max(errs), "unscaled_err": max(errs) / scale}
+    del out, got, plain
+    row["ms"] = cuda_ms(omega, 20)
+    row["graph_ms"] = graph_ms(omega, 10)
+    row["bound_ms"], row["bound_by"] = bound(4.0 * k * n, 0.0, torch.float32,
+                                             philox_calls(k, n, dist), wide_muls_per_s)
+    row["share"] = row["bound_ms"] / row["ms"]
+    row["graph_share"] = row["bound_ms"] / row["graph_ms"]
+    row["composition_ms"] = cuda_ms(composition, 3)
+    row["composition_launches"] = n_strips
+    gen = torch.Generator(device=device).manual_seed(5)
+    # a yardstick of generate-and-store on this card, not the same function
+    row["normal_fill_ms"] = cuda_ms(
+        lambda: torch.empty((k, n), device=device).normal_(generator=gen), 20)
+    row["peak_gb"], row["composition_peak_gb"] = peak_gb(omega), peak_gb(composition)
+    row["plain_ms"] = cuda_ms(lambda: gcu.gaussian_omega_plain(k, n, seed, W, dist,
+                                                                device=device), 1)
+    row["library_ms"] = None  # no PyTorch call draws this Philox contract
+    torch.cuda.empty_cache()
+    phase("gaussian omega", **row)
+    return row
+
+
+def gaussian_omega_phase(device, wide_muls_per_s: float) -> dict:
+    """[gaussian omega]: the one-launch Omega against its plain version in
+    full at (200, 3 W + 37) and (256, 2^18 + 3), normal and Rademacher
+    (Rademacher bit-equal, normal within 1e-5 absolute on the unscaled
+    values), then ``omega_row`` at [precond hwprng]'s shape (k = 200, n =
+    1,050,625, cos halves) and at (256, 261,121) in pairs and Rademacher
+    mode. Returns the rows by name."""
+    from rla4mor_tpu_torch.ops import gaussian_cuda as gcu
+
+    for k, n in ((PRECOND_K_RES, 3 * GAUSS_W + 37), (GAUSS_K, (1 << 18) + 3)):
+        for dist in ("normal", "rademacher"):
+            out = gcu.gaussian_omega(k, n, 7, GAUSS_W, dist, device=device)
+            ref = gcu.gaussian_omega_plain(k, n, 7, GAUSS_W, dist, device=device)
+            err = (out - ref).abs().max().item() / gcu.omega_scale(k)
+            if dist == "rademacher":
+                check(torch.equal(out, ref), f"rademacher omega {k}x{n} not bit-equal")
+            check(err <= 1e-5, f"omega {k}x{n} {dist}: unscaled |kernel - plain| {err:.2e}")
+            phase("gaussian omega", label=f"full k={k} n={n} {dist}", unscaled_err=err)
+    del out, ref
+    return {"path": omega_row(device, PRECOND_K_RES, PRECOND_N, "normal", wide_muls_per_s),
+            "pairs": omega_row(device, GAUSS_K, SLICE_N, "normal", wide_muls_per_s),
+            "rademacher": omega_row(device, GAUSS_K, SLICE_N, "rademacher", wide_muls_per_s)}
+
+
 def rel_max(a: torch.Tensor, b: torch.Tensor) -> float:
     """max |a - b| / max |b|."""
     return ((a - b).abs().max() / b.abs().max()).item()
@@ -1252,8 +1363,10 @@ def precond_hwprng_phase(res, device) -> dict:
     """[precond hwprng]: [precond]'s FOM, basis and first direction in a
     ``PreconditionedRom`` whose residual embedding is
     ``HwPrngGaussianEmbedding`` (k = ``PRECOND_K_RES``): its ``source_array``
-    draws Omega by the strip kernel (the path's launches, counted just
-    around the build and the direction's add). Checks: the launches, three
+    draws Omega by one launch of the Omega kernel (the path's launches,
+    counted just around the build and the direction's add; the peak memory
+    allocated above the start across the build). Checks: one Omega launch
+    and no strip launch, three
     strips of ``source_array`` against the plain strips (1e-5), its
     transpose times 4 random columns against the sketch kernel (1e-5
     relative), and the residual estimate against [precond]'s SRHT one at
@@ -1267,17 +1380,22 @@ def precond_hwprng_phase(res, device) -> dict:
     P0, mu0 = res["directions"][0], res["mus"]["dir"][0]
     theta = HwPrngGaussianEmbedding.make(n, range_dim=k, seed=PRECOND_HW_SEED, device=device)
     solves0 = P0.solves
-    gcu.gaussian_strip.launches = 0
+    gcu.gaussian_strip.launches = gcu.gaussian_omega.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
     prom = PreconditionedRom(fom, U, theta, log_level=30)
     torch.cuda.synchronize()
     source_s = time.perf_counter() - t0
+    source_peak_gb = (torch.cuda.max_memory_allocated() - base) / 1e9
     prom.add_preconditioner(P0, mu0)
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
-    launches = gcu.gaussian_strip.launches
+    launches, strip_launches = gcu.gaussian_omega.launches, gcu.gaussian_strip.launches
     n_strips = -(-n // theta.block_rows)
-    check(launches == n_strips, f"precond hwprng: {launches} strip launches, not {n_strips}")
+    check(launches == 1 and strip_launches == 0, f"precond hwprng: {launches} Omega launches "
+          f"and {strip_launches} strip launches, not 1 and 0")
 
     cols, W = prom._res_cols, theta.block_rows                  # (n, k) = Theta^H
     strip_errs = []
@@ -1303,8 +1421,10 @@ def precond_hwprng_phase(res, device) -> dict:
         est_hw = float(prom.rom.estimate_error({**mu, "precond": e0[:1]}, u))
         ratios.append(est_hw / est_srht)
     check(all(0.5 <= q <= 2.0 for q in ratios), f"precond hwprng: estimate ratios {ratios}")
-    return {"n": n, "k": k, "strip_launches": launches, "strips": n_strips,
-            "source_array_s": source_s, "wall_s": wall_s, "solves": P0.solves - solves0,
+    return {"n": n, "k": k, "omega_launches": launches, "strip_launches": strip_launches,
+            "strips": n_strips, "source_array_s": source_s,
+            "source_peak_gb": source_peak_gb, "omega_gb": 4.0 * k * n / 1e9,
+            "wall_s": wall_s, "solves": P0.solves - solves0,
             "last_iters": P0.last_iters, "strip_err_max": max(strip_errs),
             "sketch_rel": sketch_rel, "est_hw_over_srht": ratios}
 
@@ -1375,6 +1495,7 @@ def main(argv=None) -> int:
     rows = kernel_phase(device)
     bf16_rows = kernel_bf16_phase(device)
     strip_row, gauss_rows = gaussian_kernel_phase(device, rates)
+    omega_rows = gaussian_omega_phase(device, rates[0])
 
     # 5-6. the paths, through the entry points a user calls
     from rla4mor_tpu_torch.models import ThermalBlockFOM
@@ -1407,7 +1528,7 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
 
     # 8. the sketched preconditioner selector at 1,050,625 DoF, then with
-    # the HwPrng residual embedding (the strip kernel's path)
+    # the HwPrng residual embedding (the Omega kernel's path)
     strip_path = strip_path_row(device, PRECOND_K_RES, rates[0])
     pre = precond_phase(device)
     phase("precond", **pre["summary"])
@@ -1457,14 +1578,26 @@ def main(argv=None) -> int:
                      block["launches_by_branch"]["tiled"], tiled_row,
                      note="the tiled branch of the same kernel source: 3xTF32 mma.sync, "
                      "Omega drawn into each thread's A fragments"),
-        # the strip kernel at its path's shape: [precond hwprng]'s
-        # source_array, k = PRECOND_K_RES (cos halves)
+        # the Omega kernel at its path's shape: [precond hwprng]'s
+        # source_array, k = PRECOND_K_RES (cos halves), the whole Omega
+        kernel_entry("gaussian_omega", "rla4mor_tpu_torch/csrc/gaussian_sketch.cu",
+                     "rla4mor_tpu/ops/gaussian_pallas.py:189", pre_hw["omega_launches"],
+                     omega_rows["path"]),
+        kernel_entry("gaussian_omega", "rla4mor_tpu_torch/csrc/gaussian_sketch.cu",
+                     "rla4mor_tpu/ops/gaussian_pallas.py:189", hw["omega_launches_path"],
+                     omega_rows["pairs"], note="pairs mode (k % 128 == 0), which no path "
+                     "launches (the [hwprng] random_matrix check draws it once)"),
+        kernel_entry("gaussian_omega", "rla4mor_tpu_torch/csrc/gaussian_sketch.cu",
+                     "rla4mor_tpu/ops/gaussian_pallas.py:189", hw["omega_launches_path"],
+                     omega_rows["rademacher"], note="Rademacher, which no path launches"),
+        # the one-strip call of the same kernel (b0 = b, W columns, scale 1)
         kernel_entry("gaussian_strip", "rla4mor_tpu_torch/csrc/gaussian_sketch.cu",
                      "rla4mor_tpu/ops/gaussian_pallas.py:189", pre_hw["strip_launches"],
-                     strip_path),
+                     strip_path, note="the Omega kernel on one strip; no path launches it"),
         kernel_entry("gaussian_strip", "rla4mor_tpu_torch/csrc/gaussian_sketch.cu",
-                     "rla4mor_tpu/ops/gaussian_pallas.py:189", hw["strip_launches_path"],
-                     strip_row, note="pairs mode (k % 128 == 0), which no path launches"),
+                     "rla4mor_tpu/ops/gaussian_pallas.py:189", pre_hw["strip_launches"],
+                     strip_row, note="the Omega kernel on one strip, pairs mode "
+                     "(k % 128 == 0); no path launches it"),
     ]}), flush=True)
     phase("wall", s=time.perf_counter() - t_start)
     print(json.dumps({"ok": True, "device": {

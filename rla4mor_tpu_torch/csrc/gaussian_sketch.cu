@@ -15,7 +15,9 @@
 // Replaces the TPU kernels `gaussian_sketch` and `gaussian_strip`
 // (rla4mor_tpu/ops/gaussian_pallas.py), which drew each (k, W) strip with
 // the TPU's hardware PRNG into VMEM and carried the sum over strips across a
-// sequential grid.
+// sequential grid. `gaussian_strip`'s counterpart is the `omega` kernel
+// (below), which writes any range of strips of the scaled Omega in one
+// launch.
 //
 // What bounds it on an H100. Three terms, the largest wins: the read of x
 // and the write of the sketch (4 (n m + k m) bytes at 3.35 TB/s); the
@@ -117,6 +119,46 @@
 //   The threshold SMALL_M_MAX is measured by `probes/gaussian_sketch_probe.py
 //   --tiled` (PERF.md).
 //
+// The explicit Omega: `omega` kernel, one launch for any range of strips
+// (the TPU kernel `gaussian_strip` drew one (k, W) strip a grid into VMEM,
+// and its callers concatenated and scaled the strips). Column c < n_cols of
+// the output is column c % W of strip b0 + c / W, times the float32 `scale`,
+// and row r is stored at out + r ld + c: the whole scaled Omega of an
+// embedding is (b0 = 0, n_cols = n, ld = n, scale = 1/sqrt(k)), one unscaled
+// strip b is (b0 = b, n_cols = ld = W, scale = 1). It writes k n_cols floats
+// and reads nothing, so the bytes bound it (840.5 MB, 0.251 ms at k = 200,
+// n = 1,050,625); the generation is close behind (2 k ceil(n / 4) Philox
+// calls in cos halves, 0.188 ms at the same shape), and Box-Muller comes on
+// top of it, so drawing and storing must overlap and nothing may be paid
+// per quad that can be paid per strip. The grid is persistent (the wrapper
+// sizes it by the occupancy API, ops/gaussian_cuda.py `omega_plan`). A warp
+// draws a group of `omega_slots(mode)` slots (2 in cos-halves mode, whose
+// slots take 2 Philox calls for 4 values: 4 independent calls a lane and
+// the quad's round-0 word shared; 1 in the other modes) for each of its
+// quads: a task is a (group, column range) pair, ranges = the ranges of
+// [0, ceil(n_cols / 4)) quads that each group is cut into, and warp w takes
+// tasks w, w + warps, ... (one task a warp wherever the card holds groups x
+// ranges warps at once). The round 0 state of each slot (`slot_state`) is
+// made once a task, the seed's round keys are kernel parameters (constant
+// bank operands of the XORs), and lane l walks the range's quads l, l + 32,
+// ... across strip boundaries, making its strip's round keys anew only
+// where it enters a new strip. What the walk costs on the card, measured
+// (PERF.md): the kernel issues about 58 instructions a value in cos
+// halves (Philox 18, Box-Muller 35, the rest staging and the walk) and is
+// bound by them, not by its stores: with the stores switched off it took
+// 97% of its time. Warps that interleave their chunks of a row (denser
+// writes, new keys every chunk), 1, 3 or 4 slots a warp and 2 to 5 blocks
+// an SM were all slower or no faster at the path's shape. Stores: row r of a (k, n) float32 tensor is 16-byte aligned only
+// where r n % 4 == 0 (n = 1,050,625 is odd), so a lane's float4 would be
+// misaligned on three rows in four, and TMA needs 16-byte global strides.
+// So each warp stages its 32 quads (128 columns of each of its rows) in
+// shared memory as float4s (conflict-free) and stores them back as 4 warp
+// stores a row of 32 consecutive floats, whatever the row's alignment: each store
+// covers 128 contiguous bytes (4 whole sectors, or 3 and two ends that the
+// neighbouring stores of the same warp complete). A padded leading
+// dimension would have kept the float4 stores but handed every consumer a
+// non-contiguous view.
+//
 // Bits to values (one device function, `draw_quad`, for every kernel, so a
 // strip equals the columns the sketch contracts): u = bitcast((bits >> 9) |
 // 0x3F800000) - 1; radius = sqrt(-2 log(1 - u1)); cos / sin of 2 pi u2. The
@@ -139,9 +181,15 @@
 // - cos / sin: sincosf(2 pi u) (range reduction): dropped. __sinf / __cosf
 //   (MUFU.SIN / COS on 2 pi u, which the hardware scales back to turns):
 //   dropped, two roundings of the angle and an absolute error near 2^-21
-//   add up to about 6e-6 on the largest radius, too close to 1e-5. Kept:
-//   sincospif(2 u) (cospif alone in cos-halves mode): no range reduction,
-//   the exact angle, under 2e-6 from the plain version.
+//   add up to about 6e-6 on the largest radius, too close to 1e-5.
+//   sincospif(2 u) (cospif alone in cos-halves mode), no range reduction
+//   and the exact angle, was kept until the omega kernel: it is about 24
+//   instructions a value (rounding and a large-argument test in float),
+//   and dropped for `turn_cos_sin`, which takes the quarter turn and the
+//   rest from the integer bits (u is a multiple of 2^-23: an add, a shift
+//   and a mask), one rounding of the angle, and Taylor polynomials to x^8
+//   and x^9 on |x| <= pi/4: 9.1e-8 off cos / sin over all 2^23 values of
+//   u, and the omega kernel 10% faster at its path's shape (PERF.md).
 // Rademacher is the sign bit or'd into 1.0f, bit-equal to the plain version.
 
 #include <cuda_runtime.h>
@@ -149,12 +197,23 @@
 
 namespace {
 
-constexpr int kThreads = 256;
 constexpr int kChunkK = 64;  // rows of one normal draw (Rademacher: 4 x)
 constexpr int kSmallMaxThreads = 512;  // small kernel: slots per block x column groups
 constexpr int kPrefetch = 16;  // small kernel: iterations its L1 prefetch of x runs ahead
+constexpr int kOmegaThreads = 256;  // omega kernel: 8 warps a block
+// omega kernel: resident blocks its registers must allow (at most 128 a
+// thread; the instances take 70, 48 and 36, so 3, 5 and 7 blocks of 256
+// threads an SM: check the build's .log after a change). A minimum of 3
+// or 4 pinned them lower and ran 1.5-2.5% slower in cos halves (PERF.md)
+constexpr int kOmegaMinBlocks = 2;
 
 enum Mode { kRademacher = 0, kNormalPairs = 1, kNormalCos = 2 };
+
+// omega kernel: slots a warp draws for each column quad; two in cos-halves
+// mode, whose slots take 2 Philox calls for 4 values (pairs mode draws 8)
+__host__ __device__ constexpr int omega_slots(int mode) { return mode == kNormalCos ? 2 : 1; }
+
+__host__ __device__ __forceinline__ int64_t min64(int64_t a, int64_t b) { return a < b ? a : b; }
 
 struct Quad {
   uint32_t w[4];
@@ -167,15 +226,29 @@ struct Keys {
   uint32_t k0[9], k1[9];
 };
 
+__host__ __device__ __forceinline__ uint32_t seed_key(uint32_t seed, int i) {
+  return seed + (uint32_t)i * 0x9E3779B9u;
+}
+
+__device__ __forceinline__ void set_strip_keys(Keys& key, uint32_t b) {
+#pragma unroll
+  for (int i = 1; i < 10; ++i) key.k1[i - 1] = b + (uint32_t)i * 0xBB67AE85u;
+}
+
 __device__ __forceinline__ Keys make_keys(uint32_t seed, uint32_t b) {
   Keys key;
 #pragma unroll
-  for (int i = 1; i < 10; ++i) {
-    key.k0[i - 1] = seed + (uint32_t)i * 0x9E3779B9u;
-    key.k1[i - 1] = b + (uint32_t)i * 0xBB67AE85u;
-  }
+  for (int i = 1; i < 10; ++i) key.k0[i - 1] = seed_key(seed, i);
+  set_strip_keys(key, b);
   return key;
 }
+
+// The seed's round keys k0[i] = seed + i W0, i = 1..9, passed by value to
+// the omega kernel: kernel parameters, which the XORs of every round read
+// from the constant bank instead of registers the loop would recompute.
+struct SeedKeys {
+  uint32_t k0[9];
+};
 
 // Philox4x32-10 from its state after round 0: rounds 1..9. Each multiply is
 // one 32 x 32 -> 64-bit product (IMAD.WIDE.U32), the instruction that bounds
@@ -254,7 +327,7 @@ __device__ __forceinline__ SlotState slot_state(const Slot& s, uint32_t seed) {
 // below 0.5) moves the radius sqrt(y) >= 0.177 there by under 1e-6. The
 // .ftz form skips __log2f's denormal fix-up: 1 - u >= 2^-23 is never one.
 __device__ __forceinline__ float minus_two_log1m(float u) {
-  const float series = 2.0f * u * fmaf(u, fmaf(u, fmaf(u, 0.25f, 1.0f / 3.0f), 0.5f), 1.0f);
+  const float series = u * fmaf(u, fmaf(u, fmaf(u, 0.5f, 2.0f / 3.0f), 1.0f), 2.0f);
   float lg2;
   asm("lg2.approx.ftz.f32 %0, %1;" : "=f"(lg2) : "f"(1.0f - u));
   return u < 0.015625f ? series : -1.38629436111989061883f * lg2;  // -2 ln 2 log2
@@ -265,6 +338,28 @@ __device__ __forceinline__ float sqrt_approx(float y) {
   float r;
   asm("sqrt.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(y));
   return r;
+}
+
+// cos and sin of 2 pi u, u = bits_to_unit(bits), from the integer bits: the
+// nearest quarter turn q and the rest x in [-pi/4, pi/4), exact but for the
+// one rounding of x, then Taylor polynomials to x^8 and x^9.
+__device__ __forceinline__ void turn_cos_sin(uint32_t bits, float* cs, float* sn) {
+  const uint32_t v = bits + 0x20000000u;  // + an eighth of a turn
+  const uint32_t q = v >> 30;
+  const float x = fmaf((float)(v & 0x3FFFFE00u), 1.46291807926715968e-9f,  // pi 2^-31
+                       -0.785398163397448310f);
+  const float z = x * x;
+  const float c = fmaf(z, fmaf(z, fmaf(z, fmaf(z, 2.48015873015873016e-5f,
+                                                -1.38888888888888889e-3f),
+                                          4.16666666666666667e-2f), -0.5f), 1.0f);
+  const float s = x * fmaf(z, fmaf(z, fmaf(z, fmaf(z, 2.75573192239858907e-6f,
+                                                    -1.98412698412698413e-4f),
+                                              8.33333333333333333e-3f),
+                                        -0.166666666666666667f), 1.0f);
+  const bool odd = q & 1u;
+  // cos(q pi / 2 + x) = c, -s, -c, s; sin(q pi / 2 + x) = s, c, -s, -c
+  *cs = __uint_as_float(__float_as_uint(odd ? s : c) ^ (((q + 1u) & 2u) << 30));
+  *sn = __uint_as_float(__float_as_uint(odd ? c : s) ^ ((q & 2u) << 30));
 }
 
 // The values of column quad j4 of a slot in strip b (keys `key`, state
@@ -288,39 +383,109 @@ __device__ __forceinline__ void draw_quad(const Keys& key, uint32_t b, uint32_t 
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const float radius = sqrt_approx(minus_two_log1m(bits_to_unit(b1.w[i])));
-    const float t = 2.0f * bits_to_unit(b2.w[i]);  // exact
-    if (MODE == kNormalPairs) {
-      float sn, cs;
-      sincospif(t, &sn, &cs);
-      va[i] = radius * cs;
-      vb[i] = radius * sn;
-    } else {
-      va[i] = radius * cospif(t);
-    }
+    float cs, sn;
+    turn_cos_sin(b2.w[i], &cs, &sn);
+    va[i] = radius * cs;
+    if (MODE == kNormalPairs) vb[i] = radius * sn;
   }
 }
 
 // ---------------------------------------------------------------------------
-// Strip kernel: the unscaled (k, W) strip b, row-major; one (slot, column
-// quad) per thread, quads fastest so neighbouring threads store neighbouring
-// float4s.
+// Omega kernel (the note at the top): columns [0, n_cols) from strip b0 on,
+// times `scale`, row r at out + r ld. A group is omega_slots(MODE) consecutive
+// slots (the last one may be short). Task t of the groups x `ranges` tasks
+// is group t / ranges and quad range z = t % ranges, [z nq / ranges, (z + 1)
+// nq / ranges) of the nq = ceil(n_cols / 4) quads; warp w of the grid takes
+// tasks w, w + warps, ... The wrapper picks `ranges` and the grid
+// (ops/gaussian_cuda.py, omega_plan).
 
 template <int MODE>
-__global__ void __launch_bounds__(kThreads)
-gaussian_strip_kernel(float* __restrict__ out, int64_t k, uint32_t qps, uint32_t seed,
-                      uint32_t b) {
+__global__ void __launch_bounds__(kOmegaThreads, kOmegaMinBlocks)
+gaussian_omega_kernel(float* __restrict__ out, int64_t k, int64_t n_cols, uint32_t qps,
+                      uint32_t seed, const SeedKeys seed_keys, uint32_t b0, int64_t ld,
+                      float scale, int64_t ranges) {
+  constexpr int R = MODE == kNormalPairs ? 2 : 1;  // rows of a slot
+  constexpr int S = omega_slots(MODE);
+  __shared__ float4 stage[kOmegaThreads / 32][S * R][32];
+  const int lane = threadIdx.x % 32, wib = threadIdx.x / 32;
+  const float* sw = reinterpret_cast<const float*>(stage[wib]);  // [S R][128]
   const int64_t n_slots = MODE == kNormalPairs ? k / 2 : k;
-  const int64_t u = (int64_t)blockIdx.x * kThreads + threadIdx.x;
-  if (u >= n_slots * qps) return;
-  const uint32_t j4 = (uint32_t)(u % qps);
-  const Slot s = slot_map<MODE>((uint32_t)(u / qps));
-  float va[4], vb[4];
-  draw_quad<MODE>(make_keys(seed, b), b, j4, slot_state<MODE>(s, seed), va, vb);
-  const int64_t W = 4 * (int64_t)qps;
-  *reinterpret_cast<float4*>(out + s.row * W + 4 * j4) = make_float4(va[0], va[1], va[2], va[3]);
-  if (MODE == kNormalPairs) {
-    *reinterpret_cast<float4*>(out + (s.row + kChunkK) * W + 4 * j4) =
-        make_float4(vb[0], vb[1], vb[2], vb[3]);
+  const int64_t nq = (n_cols + 3) / 4;
+  const int64_t tasks = (n_slots + S - 1) / S * ranges;
+  const int64_t warps = (int64_t)gridDim.x * (kOmegaThreads / 32);
+  Keys key;
+#pragma unroll
+  for (int i = 0; i < 9; ++i) key.k0[i] = seed_keys.k0[i];
+  for (int64_t t = (int64_t)blockIdx.x * (kOmegaThreads / 32) + wib; t < tasks; t += warps) {
+    const int64_t z = t % ranges;
+    const int64_t q_beg = z * nq / ranges, q_end = (z + 1) * nq / ranges;
+    // the group's slots: a slot past the last (a short last group) repeats
+    // the group's first, drawing and storing the same values again
+    SlotState st[S];
+    float* row[S * R];
+#pragma unroll
+    for (int j = 0; j < S; ++j) {
+      const int64_t slot = t / ranges * S + j;
+      const Slot s = slot_map<MODE>((uint32_t)(slot < n_slots ? slot : t / ranges * S));
+      st[j] = slot_state<MODE>(s, seed);
+#pragma unroll
+      for (int a = 0; a < R; ++a) row[j * R + a] = out + (int64_t)(s.row + a * kChunkK) * ld;
+    }
+    // iterations of 32 quads, and how many of them store all 128 columns
+    // (the last quad of [0, n_cols) may be cut)
+    const int cols = (int)(min64(4 * q_end, n_cols) - 4 * q_beg);
+    const int iters = (int)((q_end - q_beg + 31) / 32), full = cols / 128;
+    // this lane's column in the warp's stores, in each row of the group
+#pragma unroll
+    for (int a = 0; a < S * R; ++a) row[a] += 4 * q_beg + lane;
+    // this lane's first quad, and its place in the strips
+    const int64_t q = q_beg + lane;
+    uint32_t b = b0 + (uint32_t)(q / qps), j4 = (uint32_t)(q % qps);
+    set_strip_keys(key, b);
+    for (int it = 0; it < iters; ++it) {
+      // lanes past q_end draw too (no divergence) and store nothing
+#pragma unroll
+      for (int j = 0; j < S; ++j) {
+        float va[4], vb[4];
+        draw_quad<MODE>(key, b, j4, st[j], va, vb);
+        stage[wib][j * R][lane] = make_float4(va[0] * scale, va[1] * scale, va[2] * scale,
+                                              va[3] * scale);
+        if (R == 2) {
+          stage[wib][j * R + R - 1][lane] =
+              make_float4(vb[0] * scale, vb[1] * scale, vb[2] * scale, vb[3] * scale);
+        }
+      }
+      __syncwarp();
+      // the warp's 128 columns, 32 consecutive floats a store; only an
+      // iteration past `full` checks them
+      if (it < full) {
+#pragma unroll
+        for (int a = 0; a < S * R; ++a) {
+#pragma unroll
+          for (int i = 0; i < 4; ++i) row[a][32 * i] = sw[128 * a + 32 * i + lane];
+        }
+      } else {
+        const int rest = cols - 128 * it;
+#pragma unroll
+        for (int a = 0; a < S * R; ++a) {
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            if (32 * i + lane < rest) row[a][32 * i] = sw[128 * a + 32 * i + lane];
+          }
+        }
+      }
+      __syncwarp();
+#pragma unroll
+      for (int a = 0; a < S * R; ++a) row[a] += 128;
+      j4 += 32;
+      if (j4 >= qps) {  // the next quad lies in a later strip
+        do {
+          j4 -= qps;
+          ++b;
+        } while (j4 >= qps);
+        set_strip_keys(key, b);
+      }
+    }
   }
 }
 
@@ -576,7 +741,6 @@ struct TiledShape {
   static constexpr int smem = (ring + sums) * (int)sizeof(float);
 };
 
-__host__ __device__ __forceinline__ int64_t min64(int64_t a, int64_t b) { return a < b ? a : b; }
 
 __device__ __forceinline__ int swz(int w, int c) { return c ^ (((w >> 2) & 3) << 3); }
 
@@ -916,33 +1080,56 @@ bool mode_ok(int mode, int64_t k) {
   return k >= 1 && mode >= 0 && mode <= 2 && !(mode == kNormalPairs && k % (2 * kChunkK));
 }
 
+const void* omega_kernel(int mode) {
+  switch (mode) {
+    case kRademacher: return (const void*)gaussian_omega_kernel<kRademacher>;
+    case kNormalPairs: return (const void*)gaussian_omega_kernel<kNormalPairs>;
+    case kNormalCos: return (const void*)gaussian_omega_kernel<kNormalCos>;
+    default: return nullptr;
+  }
+}
+
 }  // namespace
 
 extern "C" {
 
-// Strip b of the unscaled Omega into out (k, W) float32, row-major.
-// Returns the cudaError_t of the launch (0 on success).
-int gaussian_strip_f32(float* out, int64_t k, int64_t W, uint32_t seed, uint32_t b, int mode,
-                       void* stream) {
-  if (!mode_ok(mode, k) || W < 4 || W % 4 || W / 4 > 0xFFFFFFFF) {
+// Warps a block of the omega kernel has: the unit of omega_plan's grid.
+int gaussian_omega_warps(void) { return kOmegaThreads / 32; }
+
+// Slots a warp of the omega kernel draws for each of its column quads, in
+// `mode`.
+int gaussian_omega_slots(int mode) { return omega_slots(mode); }
+
+// Resident blocks per SM of the omega kernel for `mode` on the current
+// device, into *blocks_per_sm.
+int gaussian_omega_occupancy(int mode, int* blocks_per_sm) {
+  if (mode < 0 || mode > 2) return (int)cudaErrorInvalidValue;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, omega_kernel(mode),
+                                                            kOmegaThreads, 0);
+}
+
+// Columns [0, n_cols) of Omega from strip b0 on, times `scale`, into out
+// (k rows at leading dimension ld >= n_cols) float32: column c is column
+// c % W of strip b0 + c / W. One launch of `blocks` blocks, each slot's
+// quads cut into `ranges` ranges. Returns the cudaError_t of the launch (0
+// on success).
+int gaussian_omega_f32(float* out, int64_t k, int64_t n_cols, int64_t W, uint32_t seed,
+                       uint32_t b0, int64_t ld, float scale, int mode, int64_t ranges,
+                       int64_t blocks, void* stream) {
+  if (!mode_ok(mode, k) || k > 0xFFFFFFFF || n_cols < 1 || n_cols > 0x7FFFFFFF || ld < n_cols ||
+      W < 4 || W % 4 ||
+      W / 4 > 0xFFFFFFFF || (int64_t)b0 + (n_cols - 1) / W > 0xFFFFFFFF || ranges < 1 ||
+      ranges > (n_cols + 3) / 4 || blocks < 1 || blocks > 0x7FFFFFFF) {
     return (int)cudaErrorInvalidValue;
   }
-  const int64_t units = (mode == kNormalPairs ? k / 2 : k) * (W / 4);
-  const int64_t blocks = (units + kThreads - 1) / kThreads;
-  if (blocks > 0x7FFFFFFF) return (int)cudaErrorInvalidValue;
-  const uint32_t qps = (uint32_t)(W / 4);
-  cudaStream_t s = (cudaStream_t)stream;
-  switch (mode) {
-    case kRademacher:
-      gaussian_strip_kernel<kRademacher><<<(unsigned)blocks, kThreads, 0, s>>>(out, k, qps, seed, b);
-      break;
-    case kNormalPairs:
-      gaussian_strip_kernel<kNormalPairs><<<(unsigned)blocks, kThreads, 0, s>>>(out, k, qps, seed, b);
-      break;
-    default:
-      gaussian_strip_kernel<kNormalCos><<<(unsigned)blocks, kThreads, 0, s>>>(out, k, qps, seed, b);
-  }
-  return (int)cudaGetLastError();
+  uint32_t qps = (uint32_t)(W / 4);
+  SeedKeys seed_keys;
+  for (int i = 1; i < 10; ++i) seed_keys.k0[i - 1] = seed_key(seed, i);
+  void* args[] = {(void*)&out,       (void*)&k,  (void*)&n_cols, (void*)&qps,
+                  (void*)&seed,      (void*)&seed_keys, (void*)&b0, (void*)&ld,
+                  (void*)&scale,     (void*)&ranges};
+  return (int)cudaLaunchKernel(omega_kernel(mode), dim3((unsigned)blocks), dim3(kOmegaThreads),
+                               args, 0, (cudaStream_t)stream);
 }
 
 // The most threads (slots per block x column groups) a block of the small

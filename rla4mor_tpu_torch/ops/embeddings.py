@@ -14,7 +14,6 @@ packages to the same operator.
 
 from __future__ import annotations
 
-import math
 from typing import Optional
 
 import numpy as np
@@ -25,8 +24,8 @@ from rla4mor_tpu_torch.ops import dims as _dims
 from rla4mor_tpu_torch.ops.fwht import Plan, _srht_plan, ceil_log2, srht, srht_rows
 from rla4mor_tpu_torch.ops.gaussian_cuda import (
     DEFAULT_BLOCK_ROWS,
+    gaussian_omega,
     gaussian_sketch,
-    gaussian_strip,
 )
 from rla4mor_tpu_torch.ops.srht_cuda import srht_onepass
 from rla4mor_tpu_torch.utils.config import as_tensor, default_dtype, resolve_device
@@ -375,13 +374,10 @@ class HwPrngGaussianEmbedding(Embedding):
 
     def random_matrix(self):
         """The (k, l2_dim) Omega: the strips side by side, cut to l2_dim and
-        scaled by 1/sqrt(k) in float32, then held in the working dtype."""
-        W = self.block_rows
-        strips = [gaussian_strip(self.range_dim, self.seed, b, W, self.dist,
-                                 device=self.device)
-                  for b in range(-(-self.l2_dim // W))]
-        full = torch.cat(strips, dim=1)[:, :self.l2_dim]
-        return (full / math.sqrt(self.range_dim)).to(self.dtype)
+        scaled by 1/sqrt(k) in float32 (one launch of the Omega kernel on
+        the card), then held in the working dtype."""
+        return gaussian_omega(self.range_dim, self.l2_dim, self.seed, self.block_rows,
+                              self.dist, device=self.device).to(self.dtype)
 
 
 class VectorizedEmbedding(LinOp):

@@ -11,7 +11,9 @@ under the port's bitstream contract (``ops/philox.py``), so
     gaussian_sketch(X) = (1/sqrt(k)) * sum_b strip_b[:, :rows_b] @ X_b
 
 over the rows i < n of X only (the zero-padding semantics of the TPU
-kernel). The TPU kernel's hardware bits cannot be reproduced off the TPU;
+kernel). :func:`gaussian_omega` writes the explicit scaled Omega (k, n) in
+one launch, and :func:`gaussian_strip` one unscaled strip, by the same
+kernel. The TPU kernel's hardware bits cannot be reproduced off the TPU;
 everything else of its contract holds: a 1-D X returns 1-D, bf16 / f16 /
 f64 input is cast to float32, complex input raises ``TypeError``, the
 computation and the output are float32.
@@ -129,10 +131,17 @@ def gaussian_sketch_plain(X, k: int, seed: int,
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = nvcc.load(SOURCE)
-    lib.gaussian_strip_f32.argtypes = [
-        ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_uint32,
-        ctypes.c_uint32, ctypes.c_int, ctypes.c_void_p]
-    lib.gaussian_strip_f32.restype = ctypes.c_int
+    lib.gaussian_omega_warps.argtypes = []
+    lib.gaussian_omega_warps.restype = ctypes.c_int
+    lib.gaussian_omega_slots.argtypes = [ctypes.c_int]
+    lib.gaussian_omega_slots.restype = ctypes.c_int
+    lib.gaussian_omega_occupancy.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    lib.gaussian_omega_occupancy.restype = ctypes.c_int
+    lib.gaussian_omega_f32.argtypes = (
+        [ctypes.c_void_p] + [ctypes.c_int64] * 3
+        + [ctypes.c_uint32, ctypes.c_uint32, ctypes.c_int64, ctypes.c_float, ctypes.c_int,
+           ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p])
+    lib.gaussian_omega_f32.restype = ctypes.c_int
     lib.gaussian_sketch_small_max_threads.argtypes = []
     lib.gaussian_sketch_small_max_threads.restype = ctypes.c_int
     lib.gaussian_sketch_small_occupancy.argtypes = (
@@ -349,30 +358,133 @@ gaussian_sketch.launches = 0
 gaussian_sketch.launches_by_branch = dict.fromkeys(BRANCHES, 0)
 
 
+def omega_scale(k: int) -> float:
+    """1/sqrt(k) rounded to float32, the factor of the scaled Omega (kernel
+    and plain version multiply by this same float32)."""
+    return float(torch.tensor(1.0 / math.sqrt(k), dtype=torch.float32))
+
+
+def gaussian_omega_plain(k: int, n: int, seed: int, block_rows: int = DEFAULT_BLOCK_ROWS,
+                         dist: str = "normal", device=None,
+                         scale: float | None = None) -> torch.Tensor:
+    """Plain PyTorch Omega: the strips 0, 1, ... side by side, cut at n
+    columns and multiplied by the float32 ``scale`` (default
+    :func:`omega_scale`), (k, n) float32 on ``device``. The strips are drawn
+    in groups of at most ``_PLAIN_GROUP_ENTRIES`` entries."""
+    _check(k, block_rows, dist)
+    if n < 1:
+        raise ValueError(f"gaussian_omega: n={n} columns")
+    dev = resolve_device(device)
+    W = block_rows
+    scale = omega_scale(k) if scale is None else float(
+        torch.tensor(scale, dtype=torch.float32))
+    out = torch.empty((k, n), dtype=torch.float32, device=dev)
+    group = max(1, _PLAIN_GROUP_ENTRIES // (k * W))
+    n_blocks = -(-n // W)
+    for g0 in range(0, n_blocks, group):
+        blocks = torch.arange(g0, min(n_blocks, g0 + group), device=dev)
+        S = philox.strips(k, seed, blocks, W, dist)              # (g, k, W)
+        cols = min(n, (g0 + len(blocks)) * W) - g0 * W
+        flat = S.permute(1, 0, 2).reshape(k, len(blocks) * W)
+        out[:, g0 * W:g0 * W + cols] = flat[:, :cols] * scale
+    return out
+
+
+def omega_plan(n_cols: int, k: int, dist: str, resident_blocks: int, warps_per_block: int,
+               slots_per_warp: int) -> tuple[int, int]:
+    """(ranges, blocks) of the Omega kernel for ``n_cols`` columns.
+
+    A warp draws ``slots_per_warp`` consecutive slots (a group; the last
+    may be short) for each of its column quads. A task is a (group, quad
+    range) pair, and warp w of the grid takes the tasks w, w + warps, ...
+    Each group's ceil(n_cols / 4) column quads are cut into as many ranges
+    as let the card's resident warps hold one task each (at least one range,
+    and no range under 32 quads, one quad a lane); the grid is as many
+    blocks as those tasks fill, at most the resident ones. The kernel gives
+    range z the quads [z nq / ranges, (z + 1) nq / ranges), nq =
+    ceil(n_cols / 4)."""
+    slots = k // 2 if _mode(k, dist) == _NORMAL_PAIRS else k
+    groups = -(-slots // slots_per_warp)
+    nq = -(-n_cols // 4)
+    ranges = max(1, min(resident_blocks * warps_per_block // groups, -(-nq // 32)))
+    blocks = max(1, min(resident_blocks, -(-groups * ranges // warps_per_block)))
+    return ranges, blocks
+
+
+@functools.cache
+def _resident_omega(dev_index: int, mode: int) -> int:
+    """Blocks of the Omega kernel that device ``dev_index`` (current when
+    called) holds at once, from the occupancy API, once per mode."""
+    per_sm = ctypes.c_int(0)
+    _raise_on(_lib().gaussian_omega_occupancy(mode, ctypes.byref(per_sm)),
+              "gaussian_omega occupancy query")
+    if per_sm.value < 1:
+        raise RuntimeError("gaussian_omega: no block of the kernel fits on an SM")
+    return sm_count(dev_index) * per_sm.value
+
+
+def _launch_omega(k: int, n_cols: int, seed: int, b0: int, W: int, dist: str, scale: float,
+                  dev: torch.device, what: str) -> torch.Tensor:
+    """One launch of the Omega kernel: columns [0, n_cols) from strip b0 on,
+    times ``scale``, into a new (k, n_cols) float32 tensor on ``dev``."""
+    if not (0 <= int(b0) and int(b0) + (n_cols - 1) // W <= philox.MASK32):
+        raise ValueError(f"{what}: strip indices from {b0} out of range")
+    lib = _lib()
+    out = torch.empty((k, n_cols), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        mode = _mode(k, dist)
+        ranges, blocks = omega_plan(n_cols, k, dist, _resident_omega(dev.index, mode),
+                                    lib.gaussian_omega_warps(), lib.gaussian_omega_slots(mode))
+        err = lib.gaussian_omega_f32(out.data_ptr(), k, n_cols, W, int(seed) & philox.MASK32,
+                                     int(b0), n_cols, scale, mode, ranges, blocks,
+                                     _stream(dev))
+    _raise_on(err, f"{what} kernel launch")
+    return out
+
+
+def gaussian_omega(k: int, n: int, seed: int, block_rows: int = DEFAULT_BLOCK_ROWS,
+                   dist: str = "normal", device=None) -> torch.Tensor:
+    """The whole scaled Omega (k, n) float32 of the contract: strips 0, 1, ...
+    side by side, cut at n, times :func:`omega_scale` (entries ~ N(0, 1/k),
+    or +-1/sqrt(k)).
+
+    On a CUDA ``device`` (the default) this makes one allocation and one
+    launch of the hand-written Omega kernel, and raises if it cannot; on the
+    CPU it runs :func:`gaussian_omega_plain`. ``gaussian_omega.launches``
+    counts kernel launches."""
+    _check(k, block_rows, dist)
+    if n < 1:
+        raise ValueError(f"gaussian_omega: n={n} columns")
+    dev = resolve_device(device)
+    if dev.type == "cpu":
+        return gaussian_omega_plain(k, n, seed, block_rows, dist, dev)
+    if dev.type != "cuda":
+        raise ValueError(f"gaussian_omega: unsupported device {dev}")
+    out = _launch_omega(k, n, seed, 0, block_rows, dist, omega_scale(k), dev,
+                        "gaussian_omega")
+    gaussian_omega.launches += 1
+    return out
+
+
+gaussian_omega.launches = 0
+
+
 def gaussian_strip(k: int, seed: int, b: int, block_rows: int = DEFAULT_BLOCK_ROWS,
                    dist: str = "normal", device=None) -> torch.Tensor:
     """Strip ``b`` of the unscaled Omega, (k, block_rows) float32: the values
     :func:`gaussian_sketch` contracts with rows ``[b W, (b + 1) W)``.
 
-    On a CUDA ``device`` (the default) this launches the hand-written strip
-    kernel and raises if it cannot; on the CPU it runs
-    :func:`gaussian_strip_plain`. ``gaussian_strip.launches`` counts kernel
-    launches."""
+    On a CUDA ``device`` (the default) this launches the Omega kernel on the
+    one strip (from strip b, W columns, scale 1) and raises if it cannot; on
+    the CPU it runs :func:`gaussian_strip_plain`. ``gaussian_strip.launches``
+    counts kernel launches."""
     _check(k, block_rows, dist)
     dev = resolve_device(device)
     if dev.type == "cpu":
         return gaussian_strip_plain(k, seed, b, block_rows, dist, dev)
     if dev.type != "cuda":
         raise ValueError(f"gaussian_strip: unsupported device {dev}")
-    if not 0 <= int(b) <= philox.MASK32:
-        raise ValueError(f"gaussian_strip: strip index {b} out of range")
-    lib = _lib()
-    out = torch.empty((k, block_rows), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        err = lib.gaussian_strip_f32(out.data_ptr(), k, block_rows,
-                                     int(seed) & philox.MASK32, int(b),
-                                     _mode(k, dist), _stream(dev))
-    _raise_on(err, "gaussian_strip kernel launch")
+    out = _launch_omega(k, block_rows, seed, b, block_rows, dist, 1.0, dev, "gaussian_strip")
     gaussian_strip.launches += 1
     return out
 

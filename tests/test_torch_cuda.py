@@ -233,10 +233,12 @@ def test_slice_on_the_card_matches_the_cpu(cuda, monkeypatch):
 
 
 # ---------------------------------------------------------------------------
-# Gaussian / Rademacher sketch with Omega drawn in the kernel. Strips:
-# Rademacher bit-equal to the plain version, normals to 1e-5 absolute (the
-# same float32 formulas; the values are at most ~6). Sketches: 1e-4 relative
-# (float32 sums in different orders).
+# Gaussian / Rademacher sketch with Omega drawn in the kernel. Strips and
+# the one-launch Omega: Rademacher bit-equal to the plain version, normals
+# to 1e-5 absolute on the unscaled values (the plain Box-Muller is float64
+# rounded once; the kernels' approximate log, sqrt and cos stay within
+# ~1e-6 of it; the values are at most ~6). Sketches: 1e-4 relative (float32
+# sums in different orders).
 
 from rla4mor_tpu_torch.ops import gaussian_cuda as gcu  # noqa: E402
 
@@ -256,6 +258,41 @@ def test_gaussian_strip_kernel_matches_plain(cuda, k, W, dist):
         assert torch.equal(out, ref)
     else:
         assert (out - ref).abs().max().item() <= 1e-5
+
+
+# the whole scaled Omega in one launch: against its plain version
+# (Rademacher bit-equal; normal to 1e-5 absolute on the unscaled values),
+# at chip_smoke.py's shapes, n odd (rows not 16-byte aligned) and n % 4 == 0
+OMEGA_CASES = [(200, 3 * 2048 + 37, 2048, "normal"), (200, 3 * 2048 + 37, 2048, "rademacher"),
+               (256, (1 << 18) + 3, 2048, "normal"), (256, (1 << 18) + 3, 2048, "rademacher"),
+               (300, 1001, 100, "normal"), (128, 4096, 256, "normal"), (100, 5, 4, "normal"),
+               (64, 3, 2048, "rademacher")]
+
+
+@pytest.mark.parametrize("k,n,W,dist", OMEGA_CASES)
+def test_gaussian_omega_kernel_matches_plain(cuda, k, n, W, dist):
+    o0, t0 = gcu.gaussian_omega.launches, gcu.gaussian_strip.launches
+    out = gcu.gaussian_omega(k, n, 7, W, dist, device=cuda)
+    torch.cuda.synchronize()
+    assert (gcu.gaussian_omega.launches, gcu.gaussian_strip.launches) == (o0 + 1, t0)
+    assert out.shape == (k, n) and out.dtype == torch.float32 and out.is_contiguous()
+    ref = gcu.gaussian_omega_plain(k, n, 7, W, dist, device=cuda)
+    if dist == "rademacher":
+        assert torch.equal(out, ref)
+    else:
+        assert (out - ref).abs().max().item() / gcu.omega_scale(k) <= 1e-5
+
+
+@pytest.mark.parametrize("k,n,W,dist", OMEGA_CASES[:4] + OMEGA_CASES[5:6])
+def test_gaussian_omega_is_the_strip_kernels_strips(cuda, k, n, W, dist):
+    """The one-launch Omega is the per-strip kernel's strips side by side,
+    cut at n and scaled by the same float32, bit for bit; and a redraw is
+    equal."""
+    out = gcu.gaussian_omega(k, n, 7, W, dist, device=cuda)
+    strips = [gcu.gaussian_strip(k, 7, b, W, dist, device=cuda) for b in range(-(-n // W))]
+    assert torch.equal(out, torch.cat(strips, dim=1)[:, :n] * gcu.omega_scale(k))
+    assert torch.equal(out, gcu.gaussian_omega(k, n, 7, W, dist, device=cuda))
+    assert not torch.equal(out, gcu.gaussian_omega(k, n, 8, W, dist, device=cuda))
 
 
 def _x32(n, m, layout, device):
@@ -419,6 +456,10 @@ def test_gaussian_unsupported_input_raises_on_the_card(cuda):
         gcu.gaussian_sketch(x, 8, 0, dist="uniform")
     with pytest.raises(ValueError):
         gcu.gaussian_strip(8, 0, 0, block_rows=10, device=cuda)
+    with pytest.raises(ValueError):
+        gcu.gaussian_omega(8, 0, 0, device=cuda)
+    with pytest.raises(ValueError):
+        gcu.gaussian_strip(8, 0, 1 << 32, device=cuda)
 
 
 def test_hwprng_embedding_dispatches_to_the_kernels(cuda):
@@ -427,10 +468,13 @@ def test_hwprng_embedding_dispatches_to_the_kernels(cuda):
                                             device=cuda)
     x = _x32(n, 3, "cols", cuda)
     s0, t0 = gcu.gaussian_sketch.launches, gcu.gaussian_strip.launches
+    o0 = gcu.gaussian_omega.launches
     y = emb.apply(x)
     M = emb.random_matrix()
     assert gcu.gaussian_sketch.launches == s0 + 1
-    assert gcu.gaussian_strip.launches == t0 + 5
+    # the whole Omega in one launch, no strip launch
+    assert gcu.gaussian_omega.launches == o0 + 1
+    assert gcu.gaussian_strip.launches == t0
     assert M.shape == (k, n) and M.is_cuda
     assert rel_err(y, M @ x) < 1e-4
 

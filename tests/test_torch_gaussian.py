@@ -14,6 +14,7 @@ values are at most ~6; XLA's and torch's log1p/cos/sin differ by ulps);
 sketches and float32 sketched-RB quantities 1e-5 relative.
 """
 
+import functools
 import os
 import subprocess
 import sys
@@ -299,9 +300,10 @@ def test_hwprng_source_array_matches_jax(philox_pallas, dist):
     je = jemb.HwPrngGaussianEmbedding.make(n, range_dim=k, seed=5, block_rows=W, dist=dist)
     te = temb.HwPrngGaussianEmbedding.make(n, range_dim=k, seed=5, block_rows=W, dist=dist,
                                            device="cpu")
-    launches = gcu.gaussian_strip.launches
+    launches = gcu.gaussian_strip.launches, gcu.gaussian_omega.launches
     got = te.source_array()
-    assert got.shape == (n, k) and gcu.gaussian_strip.launches == launches
+    assert got.shape == (n, k)
+    assert (gcu.gaussian_strip.launches, gcu.gaussian_omega.launches) == launches
     assert rel(got, np.asarray(je.random_matrix()).T) < 1e-5
     assert torch.equal(te.range_array(), got)
 
@@ -590,3 +592,158 @@ def test_tiled_plan_covers_every_tile_once(n, m, k, dist, W, resident):
     stop = np.minimum((t // tps) * W + np.minimum((t % tps) * 32 + 32, W), n)
     assert np.all(stop > start) and start[0] == 0 and stop[-1] == n
     assert np.array_equal(start[1:], stop[:-1])  # no gap, no overlap
+
+
+# ---------------------------------------------------------------------------
+# the explicit Omega (ops/gaussian_cuda.py: gaussian_omega, its plain
+# version and omega_plan). The kernel itself is held against the plain
+# version by the cuda-marked OMEGA_CASES of test_torch_cuda.py.
+
+OMEGA_CASES = [(k, dist, n, Wd)
+               for k, dist in ((200, "normal"), (256, "normal"), (300, "rademacher"))
+               for Wd, cols in ((100, (1036, 1037, 1039)), (2048, (2084, 2085, 2087)))
+               for n in cols]
+
+
+@functools.lru_cache(maxsize=None)
+def _cut_scaled_strips(k, dist, Wd, n):
+    """The plain strips side by side, cut at n and multiplied by the float32
+    1/sqrt(k); the strips are drawn once per (k, dist, W) for the longest n
+    of OMEGA_CASES (the plain Box-Muller is float64, seconds on a loaded
+    CPU)."""
+    longest = max(c[2] for c in OMEGA_CASES if c[0] == k and c[3] == Wd)
+    return _strips_once(k, dist, Wd, -(-longest // Wd))[:, :n] * gcu.omega_scale(k)
+
+
+@functools.lru_cache(maxsize=None)
+def _strips_once(k, dist, Wd, n_strips):
+    return torch.cat([gcu.gaussian_strip_plain(k, 9, b, Wd, dist, device="cpu")
+                      for b in range(n_strips)], dim=1)
+
+
+@pytest.mark.parametrize("k,dist,n,Wd", OMEGA_CASES)
+def test_omega_plain_is_the_cut_scaled_strips(k, dist, n, Wd):
+    """The Omega is the plain strips side by side, cut at n and multiplied
+    by the float32 1/sqrt(k), bit for bit (n % 4 in {0, 1, 3}, n % W != 0;
+    cos halves, pairs and Rademacher): on the CPU ``gaussian_omega`` is
+    ``gaussian_omega_plain`` and launches nothing."""
+    assert gcu.omega_scale(k) == np.float32(1.0 / np.sqrt(k))
+    launches = gcu.gaussian_omega.launches
+    got = gcu.gaussian_omega(k, n, 9, Wd, dist, device="cpu")
+    assert gcu.gaussian_omega.launches == launches
+    assert got.dtype == torch.float32 and got.shape == (k, n)
+    assert torch.equal(got, _cut_scaled_strips(k, dist, Wd, n))
+    if dist == "rademacher":
+        assert set(torch.unique(got * np.sqrt(k)).tolist()) <= {-1.0, 1.0}
+
+
+def test_omega_plain_takes_a_float32_scale():
+    """``gaussian_omega_plain``'s ``scale`` is rounded to float32 and
+    multiplies the cut strips (scale 1 gives the unscaled strips)."""
+    strips = torch.cat([gcu.gaussian_strip_plain(64, 3, b, 8, "normal", device="cpu")
+                        for b in range(3)], dim=1)[:, :21]
+    assert torch.equal(gcu.gaussian_omega_plain(64, 21, 3, 8, "normal", "cpu", 1.0), strips)
+    third = float(np.float32(1.0 / 3.0))
+    assert torch.equal(gcu.gaussian_omega_plain(64, 21, 3, 8, "normal", "cpu", 1.0 / 3.0),
+                       strips * third)
+
+
+def _omega_walk(n_cols, k, dist, Wd, b0, ranges, blocks, warps_per_block, slots_per_warp):
+    """The Omega kernel's walk (csrc/gaussian_sketch.cu
+    ``gaussian_omega_kernel``) in Python: per warp its tasks (a group of
+    slots and a quad range), per lane its quad and its place in the strips
+    (advanced by 32 quads with the kernel's wrap), per warp store the
+    staged columns. Returns how often each (row, column) is stored, and
+    checks on the way that every stored value is the right quad's word."""
+    qps = Wd // 4
+    slots = k // 2 if dist == "normal" and k % 128 == 0 else k
+    groups = -(-slots // slots_per_warp)
+    nq = -(-n_cols // 4)
+    stored = np.zeros((k, n_cols), dtype=np.int64)
+    lanes = np.arange(32)
+    # warp store i, lane l stores staged float 32 i + l: word (32 i + l) % 4
+    # of lane (32 i + l) // 4's quad
+    src, word = np.divmod(32 * np.arange(4)[:, None] + lanes, 4)        # (4, 32)
+    warps = blocks * warps_per_block
+    for w in range(warps):
+        for t in range(w, groups * ranges, warps):
+            # a slot past the last repeats the group's first (the same values
+            # to the same places)
+            first = t // ranges * slots_per_warp
+            group = [s if s < slots else first for s in range(first, first + slots_per_warp)]
+            rows = sorted({r for s in group for r in _slot_rows(s, k, dist)})
+            z = t % ranges
+            q_beg, q_end = z * nq // ranges, (z + 1) * nq // ranges
+            c_beg, c_end = 4 * q_beg, min(4 * q_end, n_cols)
+            iters, full = -(-(q_end - q_beg) // 32), (c_end - c_beg) // 128
+            b, j4 = b0 + (q_beg + lanes) // qps, (q_beg + lanes) % qps
+            for it in range(iters):
+                q0 = q_beg + 32 * it
+                # lane l's quad q0 + l lies at column j4 of strip b
+                assert np.array_equal(b * qps + j4, b0 * qps + q0 + lanes)
+                c = 4 * (q0 + src) + word   # the column each store writes
+                assert np.array_equal(c, c_beg + 128 * it + 32 * np.arange(4)[:, None] + lanes)
+                rest = 128 if it < full else c_end - c_beg - 128 * it
+                c = c[32 * np.arange(4)[:, None] + lanes < rest]
+                assert np.all(c < c_end)
+                for r in rows:
+                    stored[r, c] += 1
+                j4 = j4 + 32
+                while np.any(j4 >= qps):
+                    wrap = j4 >= qps
+                    j4, b = np.where(wrap, j4 - qps, j4), np.where(wrap, b + 1, b)
+    return stored
+
+
+OMEGA_PLANS = [
+    # n_cols, k, dist, W, b0, resident blocks, warps a block, slots a warp
+    (1, 200, "normal", 2048, 0, 528, 8, 2),        # one column
+    (7, 128, "normal", 4, 3, 528, 8, 2),           # W = 4: 32 strips a step
+    (1037, 200, "normal", 100, 0, 528, 8, 2),      # qps = 25 < 32, n % 4 = 1
+    (1039, 256, "normal", 100, 2, 3, 8, 2),        # pairs; fewer warps than groups
+    (2048, 300, "rademacher", 2048, 513, 528, 8, 2),  # one strip from b0
+    (4133, 301, "rademacher", 2048, 0, 20, 4, 2),  # a short group; warps loop
+    (6181, 64, "normal", 2048, 0, 132, 8, 2),      # (3 W + 37): ranges cross strips
+    (4133, 199, "normal", 2048, 0, 132, 8, 3),     # 3 slots a warp, short group
+    (1037, 200, "normal", 100, 0, 528, 8, 1),      # 1 slot a warp
+]
+
+
+@pytest.mark.parametrize("n_cols,k,dist,Wd,b0,resident,wpb,spw", OMEGA_PLANS)
+def test_omega_walk_covers_every_entry_once(n_cols, k, dist, Wd, b0, resident, wpb, spw):
+    """Every (row, column) of [0, k) x [0, n_cols) is stored exactly once by
+    the kernel's persistent walk under ``omega_plan``, across strip
+    boundaries, and every stored value is its column's word."""
+    ranges, blocks = gcu.omega_plan(n_cols, k, dist, resident, wpb, spw)
+    stored = _omega_walk(n_cols, k, dist, Wd, b0, ranges, blocks, wpb, spw)
+    assert np.all(stored == 1)
+
+
+@pytest.mark.parametrize("n_cols,k,dist", [
+    (1_050_625, 200, "normal"),      # [precond hwprng]'s Omega
+    (261_121, 256, "normal"), (261_121, 256, "rademacher"),
+    (2048, 200, "normal"), (2048, 256, "normal"),   # one strip
+    (5, 10_000, "normal"),
+])
+@pytest.mark.parametrize("resident", [132, 528, 1056])
+def test_omega_plan_fills_the_card(n_cols, k, dist, resident):
+    """At the path's shapes the plan gives one task to a warp, as many as
+    the card holds at once, ranges of at least 32 quads (a quad a lane),
+    and no more blocks than resident ones."""
+    wpb, spw = 8, 2
+    ranges, blocks = gcu.omega_plan(n_cols, k, dist, resident, wpb, spw)
+    slots = k // 2 if dist == "normal" and k % 128 == 0 else k
+    groups = -(-slots // spw)
+    nq = -(-n_cols // 4)
+    assert 1 <= ranges <= max(1, nq // 32) or ranges == 1
+    assert 1 <= blocks <= resident
+    tasks, warps = groups * ranges, blocks * wpb
+    if groups <= resident * wpb:
+        assert tasks <= warps < tasks + wpb  # one task a warp, no idle block
+        # no more ranges would fit: either the card or the quads are used up
+        assert groups * (ranges + 1) > resident * wpb or ranges == -(-nq // 32)
+    else:
+        assert ranges == 1 and blocks == resident
+    edges = [z * nq // ranges for z in range(ranges + 1)]
+    assert edges[0] == 0 and edges[-1] == nq
+    assert min(b - a for a, b in zip(edges, edges[1:])) >= min(32, nq)

@@ -5,6 +5,7 @@ from rla4mor_tpu_torch.core.parameters import (
     ConstantCoefficient,
     ProjectionCoefficient,
     ProductCoefficient,
+    ExpressionCoefficient,
     ONE,
     eval_coefficients,
     mu_stack,
@@ -38,7 +39,7 @@ from rla4mor_tpu_torch.core.image import estimate_image
 
 __all__ = [
     "Mu", "ParameterSpace", "Coefficient", "ConstantCoefficient",
-    "ProjectionCoefficient", "ProductCoefficient", "ONE",
+    "ProjectionCoefficient", "ProductCoefficient", "ExpressionCoefficient", "ONE",
     "eval_coefficients", "mu_stack",
     "LinOp", "IdentityOp", "DenseOp", "ChainOp", "CastInputOp", "HostOp", "HostSparseOp",
     "HostLUInverse", "SparseCholeskyOp", "CGInverseOp", "DeviceCholeskyInverse",

@@ -9,9 +9,9 @@ port's replacement for ``vmap``).
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from functools import reduce
-from typing import Dict, Mapping, Sequence, Tuple, Union
+from typing import Callable, Dict, Mapping, Sequence, Tuple, Union
 
 import torch
 
@@ -58,12 +58,17 @@ class ParameterSpace:
         out = []
         for i in range(count):
             g = generator(seed, i)
-            mu: Mu = {}
-            for name, size in self.shapes:
-                u = torch.rand((size,), generator=g, dtype=torch.float64)
-                mu[name] = (self.low + (self.high - self.low) * u).to(dev, dt)
-            out.append(mu)
+            out.append({name: uniform(g, size, self.low, self.high, dev, dt)
+                        for name, size in self.shapes})
         return out
+
+
+def uniform(g: torch.Generator, size: int, low: float, high: float, device,
+            dtype) -> torch.Tensor:
+    """(size,) uniform in [low, high) drawn from the CPU generator ``g`` in
+    float64, then moved to ``device`` in ``dtype``."""
+    u = torch.rand((size,), generator=g, dtype=torch.float64)
+    return (low + (high - low) * u).to(device, dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -111,6 +116,24 @@ class ProductCoefficient(Coefficient):
 
     def __call__(self, mu):
         return reduce(lambda a, f: a * f(mu), self.factors, 1.0)
+
+
+@dataclass(frozen=True)
+class ExpressionCoefficient(Coefficient):
+    """theta(mu) = fn(mu) for any fn of a Mu (one value, or one per row of a
+    batched Mu).
+
+    ``fn`` takes part in equality and hash by its identity: two
+    coefficients holding different functions never compare equal (in the
+    JAX package coefficient tuples key compiled programs, and a comparison
+    blind to ``fn`` once served one coefficient's program to another).
+    ``name`` is for display only."""
+
+    fn: Callable[[Mu], torch.Tensor]
+    name: str = field(default="expr", compare=False)
+
+    def __call__(self, mu):
+        return torch.as_tensor(self.fn(mu))
 
 
 def as_coefficient(c: Union[Coefficient, float, int]) -> Coefficient:

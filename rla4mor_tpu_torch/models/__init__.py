@@ -4,7 +4,12 @@ from rla4mor_tpu_torch.models.stationary import (
     ResidualErrorEstimator,
 )
 from rla4mor_tpu_torch.models.stencil import StencilThermalBlock
+from rla4mor_tpu_torch.models.stencil3d import StencilThermalBlock3D
+from rla4mor_tpu_torch.models.stencil_advection import StencilAdvectionDiffusion
+from rla4mor_tpu_torch.models.stencil_helmholtz import StencilHelmholtz
+from rla4mor_tpu_torch.models.advection_diffusion import AdvectionDiffusionFOM
 from rla4mor_tpu_torch.models.thermal_block import ThermalBlockFOM
 
 __all__ = ["StationaryFOM", "StationaryROM", "ResidualErrorEstimator",
-           "StencilThermalBlock", "ThermalBlockFOM"]
+           "StencilThermalBlock", "StencilThermalBlock3D", "StencilAdvectionDiffusion",
+           "StencilHelmholtz", "AdvectionDiffusionFOM", "ThermalBlockFOM"]

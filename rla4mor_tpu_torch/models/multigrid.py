@@ -135,6 +135,9 @@ def make_vcycle(
     down to 8x8 elements (or ``n_levels``). The coarse right-hand side is
     P^T r (see the module docstring). The returned closure is a fixed
     linear map (fixed sweep counts): a valid CG preconditioner."""
+    if kappa.dim() != 2:
+        raise ValueError(f"make_vcycle needs a 2-D (N, N) element field, got "
+                         f"{tuple(kappa.shape)}")
     N = kappa.shape[-1]
     if N & (N - 1):
         raise ValueError("multigrid needs power-of-two element counts")

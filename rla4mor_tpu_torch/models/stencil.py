@@ -15,6 +15,7 @@ applies the operator to every grid in one call, which is how
 
 from __future__ import annotations
 
+import math
 from functools import lru_cache
 from typing import Tuple
 
@@ -142,6 +143,22 @@ def stencil_apply(u: torch.Tensor, kappa_el: torch.Tensor) -> torch.Tensor:
     return out * mask
 
 
+def preconditioner(fom, mu, kind: str = "jacobi"):
+    """``M(r)`` approximating A(mu)^-1 r for a stencil FOM: ``'jacobi'``
+    divides by ``fom.jacobi_diag(mu)``; ``'mg'`` is the V-cycle
+    (``models/multigrid.py``) on the 2-D element field ``fom.kappa(mu)``
+    (the operator itself for the thermal block, its SPD part for the
+    advection and Helmholtz families)."""
+    if kind == "mg":
+        from rla4mor_tpu_torch.models.multigrid import make_vcycle
+
+        return make_vcycle(fom.kappa(mu))
+    if kind != "jacobi":
+        raise ValueError(f"unknown preconditioner {kind!r}")
+    diag = fom.jacobi_diag(mu)
+    return lambda r: r / diag
+
+
 class StencilThermalBlock:
     """Matrix-free affine thermal block A(mu) = sum_b mu_b A_b (stencils) on
     ``device`` (the current card unless named), working dtype by default
@@ -261,14 +278,19 @@ class StencilThermalBlock:
 
 
 class FlatGridOp(LinOp):
-    """A symmetric operator on the (n_nodes, n_nodes) grid as a LinOp on
-    flattened vectors: (n,) or (n, m) columns, all m grids in one batched
-    ``_grid_apply``."""
+    """A symmetric operator on a node grid as a LinOp on flattened vectors:
+    (n,) or (n, m) columns, all m grids in one batched ``_grid_apply``.
+    Pass ``n_nodes`` for the square (n_nodes, n_nodes) grid or
+    ``grid_shape`` for any rank (the 3-D family's (M, M, M))."""
 
-    def __init__(self, n_nodes: int):
-        self.n_nodes = int(n_nodes)
-        self.grid_shape = (self.n_nodes, self.n_nodes)
-        self.source_dim = self.range_dim = self.n_nodes * self.n_nodes
+    def __init__(self, n_nodes: int | None = None, grid_shape=None):
+        if (n_nodes is None) == (grid_shape is None):
+            raise TypeError("FlatGridOp: pass exactly one of n_nodes / grid_shape")
+        if grid_shape is None:
+            grid_shape = (n_nodes, n_nodes)
+        self.grid_shape = tuple(int(d) for d in grid_shape)
+        self.n_nodes = self.grid_shape[0]
+        self.source_dim = self.range_dim = math.prod(self.grid_shape)
 
     def _grid_apply(self, grid: torch.Tensor) -> torch.Tensor:
         raise NotImplementedError

@@ -27,6 +27,7 @@ import torch
 
 from rla4mor_tpu_torch.core.orthonormalize import masked_append
 from rla4mor_tpu_torch.core.solvers import bicgstab, cg, lstsq_dense
+from rla4mor_tpu_torch.models.stencil import preconditioner
 from rla4mor_tpu_torch.parallel.sharded_sketch import gaussian_sketch_sharded
 
 
@@ -85,8 +86,10 @@ def make_sharded_greedy_step(
     ``fom`` follows the stencil protocol (``models/stencil.py``):
     ``n_terms``, ``solution_shape``, ``dtype``, ``device``,
     ``theta_vector(mu)``, ``apply(mu, u)``, ``apply_term(t, u)``,
-    ``rhs(dtype=None)``, ``jacobi_diag(mu)``, ``is_spd``; ``kappa(mu)`` for
-    ``cg_precond="mg"``; ``output(u)`` for the ROM's output columns.
+    ``rhs(dtype=None)``, ``jacobi_diag(mu)``, ``is_spd`` (``False``:
+    BiCGStab); ``kappa(mu)``, a 2-D element field, for ``cg_precond="mg"``;
+    ``output(u)`` for the ROM's output columns. ``solution_shape`` may have
+    rank 2 or 3 (``models/stencil3d.py``).
 
     ``sketch``: ``"gaussian"`` (the canonical Omega of ``seed``, generated in
     column chunks) or ``"srht"`` (``SrhtEmbedding(k, n, seed)``, the one-pass
@@ -105,9 +108,17 @@ def make_sharded_greedy_step(
     scores by the true residual ``||A(mu) U y - b||_2`` in ``exact_dtype``.
     ``model_error`` (``score="exact"`` only): ``(mu, u_grid) -> scalar``
     added to each exact estimate."""
+    if cg_precond not in ("jacobi", "mg"):
+        raise ValueError(f"unknown cg_precond {cg_precond!r}")
     if cg_precond == "mg" and not hasattr(fom, "kappa"):
-        raise ValueError("cg_precond='mg' needs a kappa(mu) grid (SPD stencil "
-                         "thermal block); use 'jacobi' for this FOM")
+        raise ValueError("cg_precond='mg' needs a kappa(mu) element field (the "
+                         "V-cycle's operator: the thermal block's own, the SPD part "
+                         "of the advection and Helmholtz operators); use 'jacobi' "
+                         "for this FOM")
+    if cg_precond == "mg" and len(fom.solution_shape) != 2:
+        raise ValueError(f"cg_precond='mg': the port's V-cycle is 2-D "
+                         f"(models/multigrid.py) and this FOM's grid is "
+                         f"{len(fom.solution_shape)}-D; use 'jacobi'")
     if projection not in ("galerkin", "minres"):
         raise ValueError(f"unknown projection mode {projection!r}")
     if model_error is not None and score != "exact":
@@ -187,16 +198,9 @@ def make_sharded_greedy_step(
 
     def step(state: GreedyState, mu, mu_batch):
         # 1) FOM solve
-        b = fom.rhs()
-        if cg_precond == "mg":
-            from rla4mor_tpu_torch.models.multigrid import make_vcycle
-
-            M = make_vcycle(fom.kappa(mu))
-        else:
-            diag = fom.jacobi_diag(mu)
-            M = lambda r: r / diag  # noqa: E731
         solver = cg if getattr(fom, "is_spd", True) else bicgstab
-        result = solver(lambda v: fom.apply(mu, v), b, precond=M, tol=cg_tol,
+        result = solver(lambda v: fom.apply(mu, v), fom.rhs(),
+                        precond=preconditioner(fom, mu, cg_precond), tol=cg_tol,
                         maxiter=cg_maxiter)
         step.last_solve = result
         u = result.x

@@ -200,6 +200,37 @@ def test_embedding_dispatches_to_the_kernel(cuda, dtype):
         assert rel_err(out.double().cpu(), ref) < TOL[dtype]
 
 
+# the stencil families' step blocks at their full width: the snapshot and its
+# T residual terms stacked as (1 + T, n) rows and handed to the embedding as
+# the (n, 1 + T) transposed view (parallel/driver.py). Advection (T = 3) and
+# Helmholtz (T = 2) at grid 2048 (n odd, padded to 2^23); the 3-D block
+# (T = 8) at 256^3 = 2^24 (no padding) and at 65^3 (odd, padded)
+FAMILY_BLOCKS = [
+    (4_198_401, 4),
+    (4_198_401, 3),
+    (1 << 24, 9),
+    (65 ** 3, 9),
+]
+
+
+@pytest.mark.parametrize("n,m", FAMILY_BLOCKS)
+def test_kernel_matches_plain_at_the_family_blocks(cuda, n, m):
+    """``SrhtEmbedding(256, n).apply_random`` of the rows view launches the
+    kernel once and agrees with the plain version (1e-4 relative)."""
+    k = 256
+    emb = temb.SrhtEmbedding(k, n, seed=0, device=cuda, dtype=torch.float32)
+    signs, sampling, _ = emb.plan
+    x = _input(n, m, "rows", torch.float32, cuda)
+    assert x.stride() == (1, n)
+    before = srht_cuda.srht_onepass.launches
+    out = emb.apply_random(x)
+    torch.cuda.synchronize()
+    assert srht_cuda.srht_onepass.launches == before + 1
+    assert out.shape == (k, m) and out.dtype == torch.float32
+    ref = srht_cuda.srht_onepass_plain(x, k, signs, sampling)
+    assert rel_err(out, ref) < TOL[torch.float32]
+
+
 def test_slice_on_the_card_matches_the_cpu(cuda, monkeypatch):
     """The small slice (one-pass branch forced) on CUDA in float32 selects
     the same parameters as on the CPU in float64, with ROM outputs close."""

@@ -267,6 +267,6 @@ def test_large_scale_demo_runs_on_the_cpu(capsys):
     assert res["grid"] == 16 and res["n"] == 289 and len(res["cg_iters"]) == 2
     assert all(t < 1e-6 for t in res["true_res"])
     assert torch.isfinite(res["served"]["output"]).all()
-    for flag in (["--family", "advection"], ["--bounds"]):
+    for flag in (["--family", "nonaffine"], ["--family", "lossy"], ["--bounds"]):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             large_scale_demo.main(["--cpu", "--grid", "16", *flag])

@@ -143,14 +143,38 @@ Phases, each printing one line (any failed check raises and exits non-zero):
    SRHT one at the first direction alone, within [0.5, 2] at 3 held-out
    parameters. Before them the strip kernel at that shape (k = 200, cos
    halves) against its plain version;
-9. the kernels' JSON line (the bf16 instance a row of its own, with the
+9. state estimation (``[estim]``), through the entry point
+   ``rla4mor_tpu_torch.examples.inverse_problems_demo.run``:
+   ``ThermalBlockFOM((3, 3), ESTIM_GRID)`` in float32 (n = 36,481), 200
+   training and ``ESTIM_TEST`` = 32 test states (host ``splu`` in a pool
+   of threads), m = 50 observations, PBDW with a 20-mode POD, dictionary
+   recovery of the 32 columns over 200 atoms (the LARS paths once, in
+   float64), each column's path point selected by the manifold distance
+   of the residual sketch (k = 256, one sketch of the K + m = 250 columns
+   a term) through the Gaussian, SRHT and HwPrng embeddings, and the path
+   study of the worst column; then the Gaussian run in float64 from the
+   same host solves. First the SRHT kernel (1e-4) and the tiled Gaussian
+   branch (1e-5) against their plain versions at that sketch, (36,481,
+   250), with the FWHT route's time beside the SRHT's. Checks: the SRHT
+   kernel and the tiled branch launched on the path (counts set to 0 just
+   before, read just after); along the worst column's path each sketched
+   manifold distance within [0.5, 2] of the exact one (an
+   ``IdentityEmbedding``) where that is above 1e-3 of its largest;
+   float32 PBDW within 1e-4 of float64 in the R norm; each float32
+   recovery error within a factor 2 of float64's (the columns whose
+   selected atoms differ are counted). It prints the seconds of each part
+   (FOM solves, the sketch's host part and each embedding's, PBDW, the
+   LARS paths, each embedding's selection and path study), the homotopy
+   steps, the errors and the card's name and power limit;
+10. the kernels' JSON line (the bf16 instance a row of its own, with the
    ``[bf16]`` path's bf16-input launches; the SRHT at each stencil
    family's block a row, with that phase's launches; the tiled Gaussian branch a row
    of its own, with ``[hwprng block]``'s tiled launches at the bench m =
    128 shape; the Omega kernel at ``[precond hwprng]``'s shape with its
    launches, and at (256, 261,121) in pairs and Rademacher mode; its
-   one-strip call at k = 200 and 256), the run's wall time, then the result
-   line.
+   one-strip call at k = 200 and 256; the SRHT and the tiled Gaussian
+   branch at [estim]'s sketch with that path's launches), the run's wall
+   time, then the result line.
 
 Times are CUDA-event means over back-to-back calls after a warm-up (the
 wrapper's host time included where it is longer than the kernel's); an
@@ -260,6 +284,12 @@ BF16_FLOOR = 4 * 2.0 ** -7
 PRECOND_GRID, PRECOND_K_RES, PRECOND_NMU = 1024, 200, 64
 PRECOND_N = (PRECOND_GRID + 1) ** 2  # 1,050,625 stencil unknowns
 PRECOND_HW_SEED = 21
+# [estim]: examples/inverse_problems_demo.py's run() on ThermalBlockFOM((3, 3),
+# 192), n = 191^2 = 36,481: 200 training and 32 test states, m = 50
+# observations, 200 atoms, the residual sketch of the K + m = 250 columns at
+# k = 256 through each embedding
+ESTIM_GRID, ESTIM_TEST = 192, 32
+ESTIM_N, ESTIM_COLS, ESTIM_K = (ESTIM_GRID - 1) ** 2, 250, 256
 TOL = {torch.float64: 1e-12, torch.float32: 1e-4}
 TOL_NARROW = 8e-3  # 2-byte output against the float32 sums: one bf16 rounding
 HBM_BYTES_PER_S = 3.35e12
@@ -1494,6 +1524,135 @@ def precond_hwprng_phase(res, device) -> dict:
             "sketch_rel": sketch_rel, "est_hw_over_srht": ratios}
 
 
+def estim_kernel_rows(device, rates) -> tuple[dict, dict]:
+    """The two kernels at [estim]'s residual sketch, (ESTIM_N, ESTIM_COLS)
+    columns to k = ESTIM_K, against their plain versions: the SRHT through
+    the path's embedding (seed 3; 1e-4 relative), with the time of the
+    three-pass FWHT route that ``SrhtEmbedding`` takes below
+    ``_ONEPASS_MIN_DIM`` beside it (``fwht_ms``), and the tiled Gaussian
+    branch (seed 3; 1e-5 relative); each with the library product."""
+    from rla4mor_tpu_torch.ops.embeddings import SrhtEmbedding
+    from rla4mor_tpu_torch.ops.fwht import srht
+
+    n, m, k = ESTIM_N, ESTIM_COLS, ESTIM_K
+    gen = torch.Generator(device=device).manual_seed(n)
+    x = torch.randn((n, m), generator=gen, device=device)
+    emb = SrhtEmbedding(k, n, seed=3, device=device, dtype=torch.float32)
+    check(n >= emb._ONEPASS_MIN_DIM, "estim: the SRHT embedding would not take the kernel")
+    signs, samp, _ = emb.plan
+    S = explicit_srht(signs, samp, n, k, torch.float32, device)
+    srht_row = compare(f"estim n={n} m={m} k={k} cols", x, k, signs, samp, reps=20,
+                       kernel=lambda: emb.apply_random(x), library=lambda: torch.matmul(S, x))
+    del S
+    srht_row["fwht_ms"] = cuda_ms(lambda: srht(x.T, k, emb.plan), 20)
+    phase("kernel", label=srht_row["label"], fwht_ms=srht_row["fwht_ms"], ms=srht_row["ms"])
+    tiled_row = gaussian_sketch_row(f"estim n={n} m={m} k={k}", x, k, "normal", 20, gen, rates)
+    check(tiled_row["branch"] == "tiled", "estim: the Gaussian sketch took the small branch")
+    del x
+    torch.cuda.empty_cache()
+    return srht_row, tiled_row
+
+
+def estim_phase(device) -> dict:
+    """[estim]: ``examples/inverse_problems_demo.py``'s ``run()`` on the 3x3
+    thermal block at ESTIM_GRID in float32 with the Gaussian, SRHT and
+    HwPrng residual sketches (kernel counts set to 0 just before, read just
+    after), then PBDW, the Gaussian sketch and the selection again in
+    float64 from the same host solves and float64 LARS paths (the
+    dictionary recovery is float64 in both: the demo's
+    ``RECOVERY_DTYPE``). Checks: the SRHT kernel and the tiled Gaussian branch launched;
+    along the worst test state's LARS path, each sketched manifold distance
+    within [0.5, 2] of the exact one (an ``IdentityEmbedding`` over the
+    same sqrt factor) wherever that is above 1e-3 of the path's largest;
+    float32 PBDW recoveries within 1e-4 of float64's in the R norm; each
+    float32 dictionary-recovery error within a factor 2 of float64's. The
+    columns whose float32 selection has other atoms than float64's are
+    counted, not held."""
+    from rla4mor_tpu_torch.estim import ResidualDistanceAffine
+    from rla4mor_tpu_torch.examples import inverse_problems_demo as demo
+    from rla4mor_tpu_torch.ops import IdentityEmbedding
+    from rla4mor_tpu_torch.ops import gaussian_cuda as gcu
+    from rla4mor_tpu_torch.ops import srht_cuda
+
+    def log(line):
+        print(f"[estim] {line}", flush=True)
+
+    gcu.gaussian_sketch.launches_by_branch.update(dict.fromkeys(gcu.BRANCHES, 0))
+    srht_cuda.srht_onepass.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = demo.run(grid=ESTIM_GRID, n_test=ESTIM_TEST, device=device, log=log)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    srht_launches = srht_cuda.srht_onepass.launches
+    tiled_launches = gcu.gaussian_sketch.launches_by_branch["tiled"]
+    check(srht_launches > 0, "estim: the SRHT run launched no SRHT kernel")
+    check(tiled_launches > 0, "estim: the HwPrng run launched no tiled Gaussian sketch")
+    res = out["embeddings"]
+    for name, r in res.items():
+        check(bool(torch.isfinite(r["rel"]).all()), f"estim {name}: recovery errors not finite")
+
+    # the exact manifold distance (no sketch) at each embedding's path points
+    t1 = time.perf_counter()
+    fom, n, rec = out["fom"], out["n"], out["prepared"]
+    exact_S = IdentityEmbedding(n, sqrt_product=rec.Ru.sqrt, device=device,
+                                dtype=demo.RECOVERY_DTYPE)
+    space = fom.parameter_space
+    exact = ResidualDistanceAffine(*demo.sketched_system(exact_S, *rec.residual, fom),
+                                   ([space.low] * space.dim(), [space.high] * space.dim()),
+                                   pg_iters=demo.PG_ITERS)
+    ratios = {}
+    for name, r in res.items():
+        d_exact = np.concatenate([exact.evaluate(c)[0] for c in r["coefs"].split(128, dim=1)])
+        held = d_exact > 1e-3 * d_exact.max()
+        q = r["dist"][held] / d_exact[held]
+        ratios[name] = (float(q.min()), float(q.max()), int(held.sum()), len(d_exact))
+        check(0.5 <= q.min() and q.max() <= 2.0,
+              f"estim {name}: sketched / exact manifold distance in [{q.min():.3f}, "
+              f"{q.max():.3f}], not in [0.5, 2]")
+    del exact
+    torch.cuda.empty_cache()
+    exact_s = time.perf_counter() - t1
+
+    # float32 against float64: PBDW, the sketch and the selection again in
+    # float64, from the same host solves (and the same float64 LARS paths)
+    t1 = time.perf_counter()
+    out64 = demo.run(grid=ESTIM_GRID, embeddings={"gaussian": demo.embedding_makers()["gaussian"]},
+                     device=device, dtype=torch.float64, prepared=rec, log=log)
+    f64_s = time.perf_counter() - t1
+    Ru64, u64 = rec.Ru, out64["pbdw_u"]
+    pbdw_rel = (Ru64.norm(out["pbdw_u"].double() - u64) / Ru64.norm(u64)).max().item()
+    check(pbdw_rel <= 1e-4, f"estim: float32 PBDW vs float64 {pbdw_rel:.2e} > 1e-4")
+    g32, g64 = res["gaussian"], out64["embeddings"]["gaussian"]
+    err_ratio = (g32["rel"] / g64["rel"]).cpu()
+    check(bool(((err_ratio >= 0.5) & (err_ratio <= 2.0)).all()),
+          f"estim: float32 / float64 recovery errors in [{err_ratio.min():.3f}, "
+          f"{err_ratio.max():.3f}], not within a factor 2")
+    other_atoms = int(((g32["v"] != 0) != (g64["v"] != 0)).any(dim=0).sum())
+
+    summary = {"n": n, "test": ESTIM_TEST, "wall_s": wall_s,
+               "solve_s": rec.seconds["solve"], "residual_s": rec.seconds["residual"],
+               "lars_s": rec.seconds["lars"], "pbdw_s": out["pbdw_s"],
+               "exact_distance_s": exact_s, "float64_run_s": f64_s,
+               "homotopy_steps": [int(rec.steps.min()), int(rec.steps.max())],
+               "max_steps": rec.rm._resolve_max_steps(None), "srht_launches": srht_launches,
+               "tiled_launches": tiled_launches, "pbdw_mean_err": out["pbdw"],
+               "pbdw_f32_vs_f64_rel": pbdw_rel,
+               "recovery_err_f32_over_f64": [float(err_ratio.min()), float(err_ratio.max())],
+               "f32_columns_other_atoms": other_atoms}
+    for name, r in res.items():
+        summary[name] = {
+            "sketch_s": r["sketch_s"], "select_s": r["select_s"], "path_s": r["path_s"],
+            "recovery_err": [float(e) for e in r["rel"]],
+            "argmin_distance": r["argmin_dist"], "argmin_error": r["argmin_err"],
+            "distance_over_exact": ratios[name]}
+    summary["float64"] = {
+        "pbdw_s": out64["pbdw_s"], "sketch_s": g64["sketch_s"], "select_s": g64["select_s"],
+        "path_s": g64["path_s"], "recovery_err": [float(e) for e in g64["rel"]],
+        "argmin_distance": g64["argmin_dist"], "argmin_error": g64["argmin_err"]}
+    return summary
+
+
 def build_all(sources) -> dict:
     """nvcc of every source, all started together -> {source: seconds}."""
     from rla4mor_tpu_torch.utils import nvcc
@@ -1613,7 +1772,14 @@ def main(argv=None) -> int:
     del pre
     torch.cuda.empty_cache()
 
-    # 9. result
+    # 9. state estimation: the two kernels at the residual sketch's shape,
+    # then the inverse-problems demo with the three embeddings
+    estim_srht_row, estim_tiled_row = estim_kernel_rows(device, rates)
+    estim = estim_phase(device)
+    phase("estim", **estim, card=smi)
+    torch.cuda.empty_cache()
+
+    # 10. result
     main_row = next(r for r in rows if r["label"].startswith("slice")
                     and r["dtype"] == "float32" and "m=1 " in r["label"])
     gauss_row = next(r for r in gauss_rows if r["label"].startswith("path")
@@ -1627,7 +1793,8 @@ def main(argv=None) -> int:
     large_launches = large["srht_launches"] + small["srht_launches"]
     family_launches = sum(res["srht_launches"] for _, res in families.values())
     f32_launches = (summary["srht_launches"] + padded["srht_launches"]
-                    + strong["srht_launches"] + large_launches + family_launches)
+                    + strong["srht_launches"] + large_launches + family_launches
+                    + estim["srht_launches"])
     print(json.dumps({"kernels": [
         kernel_entry("srht_onepass", "rla4mor_tpu_torch/csrc/srht_onepass.cu",
                      "rla4mor_tpu/ops/srht_pallas.py:580", f32_launches, main_row),
@@ -1681,6 +1848,15 @@ def main(argv=None) -> int:
                      "rla4mor_tpu/ops/gaussian_pallas.py:189", pre_hw["strip_launches"],
                      strip_row, note="the Omega kernel on one strip, pairs mode "
                      "(k % 128 == 0); no path launches it"),
+        # [estim]'s residual sketch: K + m = 250 columns of n = 36,481 to
+        # k = 256, one launch a term, through the SRHT and HwPrng embeddings
+        kernel_entry("srht_onepass", "rla4mor_tpu_torch/csrc/srht_onepass.cu",
+                     "rla4mor_tpu/ops/srht_pallas.py:580", estim["srht_launches"],
+                     estim_srht_row, note="the [estim] path's launches, a subset of "
+                     "the first row's"),
+        kernel_entry("gaussian_sketch_tiled", "rla4mor_tpu_torch/csrc/gaussian_sketch.cu",
+                     "rla4mor_tpu/ops/gaussian_pallas.py:116", estim["tiled_launches"],
+                     estim_tiled_row, note="the [estim] path's tiled launches"),
     ]}), flush=True)
     phase("wall", s=time.perf_counter() - t_start)
     print(json.dumps({"ok": True, "device": {

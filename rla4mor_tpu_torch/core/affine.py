@@ -24,6 +24,7 @@ from rla4mor_tpu_torch.core.parameters import (
     Coefficient,
     Mu,
     as_coefficient,
+    conj_coefficient,
     eval_coefficients,
 )
 
@@ -58,6 +59,12 @@ class AffineOp:
             raise ValueError("AffineOp: terms of different shapes")
         self.source_dim = t0.source_dim
         self.range_dim = t0.range_dim
+
+    @property
+    def H(self) -> "AffineOp":
+        """The adjoint: adjoint terms, conjugated coefficients."""
+        return AffineOp(tuple(t.H for t in self.terms),
+                        tuple(conj_coefficient(c) for c in self.coefficients))
 
     def assemble_dense(self, mu: Mu | None = None) -> np.ndarray:
         """Host float64 dense matrix at one parameter."""
@@ -106,6 +113,12 @@ class AffineDense:
             return (A @ U[..., None])[..., 0]
         return A @ U
 
+    @property
+    def H(self) -> "AffineDense":
+        """The adjoint: conjugate-transposed terms, conjugated coefficients."""
+        return AffineDense(self.stack.transpose(1, 2).conj(),
+                           tuple(conj_coefficient(c) for c in self.coefficients))
+
     def _promoted(self, M):
         """(stack, M) on the stack's device in their promoted dtype, as the
         JAX package's products promote."""
@@ -135,6 +148,9 @@ class AffineDense:
         """c(mu) times the operator: every coefficient multiplied by c."""
         c = as_coefficient(c)
         return AffineDense(self.stack, tuple(c * ci for ci in self.coefficients))
+
+    def astype(self, dtype) -> "AffineDense":
+        return AffineDense(self.stack.to(dtype), self.coefficients)
 
     def map_terms(self, fn: Callable) -> "AffineDense":
         """terms'_t = fn(terms_t), as one call on the (k, T*m) matrix."""
@@ -196,6 +212,11 @@ def project(op: AnyOp, V, W, product: Optional[LinOp] = None) -> AffineDense:
     return AffineDense(torch.stack(mats), op.coefficients)
 
 
+def apply2(op: AnyOp, V, W, mu: Mu | None = None, product=None) -> torch.Tensor:
+    """V^H [R] op(mu) W as a dense matrix."""
+    return project(op, V, W, product=product).assemble(mu)
+
+
 def materialize(op: AnyOp) -> AffineDense:
     """AffineDense with each term materialised (small-source ops only)."""
     op = as_affine(op)
@@ -214,3 +235,24 @@ def concat_affine(ops: Sequence[Union[AffineDense, AffineOp]],
     if any(d.coefficients != coeffs for d in dense):
         raise ValueError("concat_affine requires identical coefficient tuples")
     return AffineDense(torch.cat([d.stack for d in dense], dim=1 + axis), coeffs)
+
+
+def project_block(op: AnyOp, V, W, product=None,
+                  max_block_size: Optional[int] = None) -> AffineDense:
+    """:func:`project` with the source basis W (or, without W, the range
+    basis V) split into blocks of at most ``max_block_size`` columns,
+    projected one after the other and concatenated term-wise: the peak
+    memory of a wide basis is that of one block."""
+    if max_block_size is None or (V is None and W is None):
+        return project(op, V, W, product=product)
+    # the product goes on the test basis once, before any split
+    if product is not None and V is not None:
+        V = torch.as_tensor(product.apply(V))
+        product = None
+    if W is not None:
+        W = torch.as_tensor(W)
+        parts = [project(op, V, W[:, i:i + max_block_size])
+                 for i in range(0, W.shape[1], max_block_size)]
+        return concat_affine(parts, axis=1)
+    # range-side blocks through the adjoint
+    return project_block(as_affine(op).H, None, V, max_block_size=max_block_size).H

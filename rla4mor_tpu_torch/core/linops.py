@@ -64,10 +64,20 @@ class LinOp:
     def apply_adjoint(self, V, mu=None):
         raise NotImplementedError
 
+    @property
+    def H(self) -> "LinOp":
+        return AdjointOp(self)
+
     def matrix(self) -> torch.Tensor:
         """Dense matrix of the operator (small ops only)."""
         return torch.as_tensor(
             self.apply(torch.eye(self.source_dim, dtype=torch.float64)))
+
+
+def _as_2d(U):
+    """(U as a matrix, whether it was a vector)."""
+    U = torch.as_tensor(U)
+    return (U[:, None], True) if U.dim() == 1 else (U, False)
 
 
 class IdentityOp(LinOp):
@@ -79,6 +89,10 @@ class IdentityOp(LinOp):
 
     def apply_adjoint(self, V, mu=None):
         return V
+
+    @property
+    def H(self):
+        return self
 
     def matrix(self):
         return torch.eye(self.source_dim, dtype=torch.float64)
@@ -102,8 +116,94 @@ class DenseOp(LinOp):
     def apply_adjoint(self, V, mu=None):
         return matmul(self.A.conj().T, self._in(V))
 
+    @property
+    def H(self):
+        return DenseOp(self.A.conj().T, self.A.device, self.A.dtype)
+
     def matrix(self):
         return self.A
+
+
+class DiagonalOp(LinOp):
+    """diag(d) on ``device`` (working dtype by default)."""
+
+    def __init__(self, d, device=None, dtype=None):
+        self.d = as_tensor(d, device, dtype)
+        self.source_dim = self.range_dim = self.d.shape[0]
+
+    def _scale(self, d, U):
+        U, single = _as_2d(U)
+        out = d[:, None] * as_tensor(U, self.d.device, self.d.dtype)
+        return out[:, 0] if single else out
+
+    def apply(self, U, mu=None):
+        return self._scale(self.d, U)
+
+    def apply_adjoint(self, V, mu=None):
+        return self._scale(self.d.conj(), V)
+
+    def matrix(self):
+        return torch.diag(self.d)
+
+
+class AdjointOp(LinOp):
+    """The adjoint of ``op``: ``apply`` is its ``apply_adjoint``."""
+
+    def __init__(self, op: LinOp):
+        self.op = op
+        self.source_dim = op.range_dim
+        self.range_dim = op.source_dim
+
+    def apply(self, U, mu=None):
+        return self.op.apply_adjoint(U, mu)
+
+    def apply_adjoint(self, V, mu=None):
+        return self.op.apply(V, mu)
+
+    @property
+    def H(self):
+        return self.op
+
+    def matrix(self):
+        return torch.as_tensor(self.op.matrix()).conj().T
+
+
+class ScaledOp(LinOp):
+    """alpha * op for a scalar alpha."""
+
+    def __init__(self, op: LinOp, alpha: float):
+        self.op, self.alpha = op, alpha
+        self.source_dim, self.range_dim = op.source_dim, op.range_dim
+
+    def apply(self, U, mu=None):
+        return self.alpha * torch.as_tensor(self.op.apply(U, mu))
+
+    def apply_adjoint(self, V, mu=None):
+        return np.conj(self.alpha) * torch.as_tensor(self.op.apply_adjoint(V, mu))
+
+    def matrix(self):
+        return self.alpha * torch.as_tensor(self.op.matrix())
+
+
+class ZeroOp(LinOp):
+    """The zero map from ``source_dim`` to ``range_dim``."""
+
+    def __init__(self, range_dim: int, source_dim: int):
+        self.range_dim, self.source_dim = range_dim, source_dim
+
+    def _zeros(self, dim, U):
+        U, single = _as_2d(U)
+        out = U.new_zeros((dim, U.shape[1]))
+        return out[:, 0] if single else out
+
+    def apply(self, U, mu=None):
+        return self._zeros(self.range_dim, U)
+
+    def apply_adjoint(self, V, mu=None):
+        return self._zeros(self.source_dim, V)
+
+    def matrix(self):
+        return torch.zeros((self.range_dim, self.source_dim), dtype=torch.float64)
 
 
 class CastInputOp(LinOp):
@@ -186,6 +286,10 @@ class ChainOp(LinOp):
 
     def apply_adjoint(self, V, mu=None):
         return self._run(self.ops, V, mu, adjoint=True)
+
+    @property
+    def H(self):
+        return ChainOp(tuple(op.H for op in reversed(self.ops)))
 
 
 # ---------------------------------------------------------------------------
@@ -300,6 +404,21 @@ class SparseCholeskyOp(HostOp):
         """x with Q^H x = u: solve G x = P u (lower)."""
         return self.to_device(spla.spsolve_triangular(
             self._G, self._scatter(to_numpy(U)), lower=True))
+
+
+def sparse_cholesky(S) -> sps.csc_matrix:
+    """Sparse factor Q with ``Q^H Q = S`` for an SPD sparse S: the
+    symmetric-mode SuperLU factorisation ``S = P^T L U`` with
+    ``U = D L^T P`` up to scaling gives ``Q = (P^T L D^{1/2})^H``."""
+    S = sps.csc_matrix(S)
+    factor = spla.splu(
+        S, permc_spec="MMD_AT_PLUS_A", diag_pivot_thresh=0,
+        options={"SymmetricMode": True},
+    )
+    n = S.shape[0]
+    P = sps.csc_matrix((np.ones(n), (factor.perm_r, np.arange(n))), shape=(n, n))
+    D = sps.diags(np.sqrt(factor.U.diagonal()))
+    return sps.csc_matrix((P.T @ factor.L @ D).conj().T)
 
 
 # ---------------------------------------------------------------------------
@@ -442,3 +561,25 @@ class RecycledCGInverseOp(LinOp):
         if U.dim() == 1:
             return self.matvec(U)
         return torch.stack([self.matvec(U[:, j]) for j in range(U.shape[1])], dim=1)
+
+
+class ScipyLinearOperator(spla.LinearOperator):
+    """A LinOp as a scipy ``LinearOperator`` (for scipy's iterative
+    solvers, e.g. ``gmres(..., M=ScipyLinearOperator(P))``): numpy vectors
+    in and out."""
+
+    def __init__(self, op: LinOp, dtype=np.float64):
+        self.op = op
+        super().__init__(dtype=np.dtype(dtype), shape=(op.range_dim, op.source_dim))
+
+    def _matvec(self, x):
+        return np.array(to_numpy(self.op.apply(torch.as_tensor(np.asarray(x).reshape(-1)))))
+
+    def _rmatvec(self, x):
+        return np.array(to_numpy(self.op.apply_adjoint(torch.as_tensor(np.asarray(x).reshape(-1)))))
+
+
+def to_matrix(op, dtype=None) -> torch.Tensor:
+    """Dense matrix of a LinOp, or an array or tensor as a tensor."""
+    m = torch.as_tensor(op.matrix() if isinstance(op, LinOp) else op)
+    return m.to(dtype) if dtype is not None else m

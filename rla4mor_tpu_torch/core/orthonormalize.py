@@ -1,6 +1,7 @@
-"""Gram-Schmidt orthonormalisation.
+"""Gram-Schmidt orthonormalisation and POD.
 
-Counterpart of ``gram_schmidt`` in ``rla4mor_tpu/core/orthonormalize.py``.
+Counterpart of ``rla4mor_tpu/core/orthonormalize.py`` (``gram_schmidt``,
+``pod``).
 In the sketched workflow it runs on k x r sketch-space matrices (small), as
 classical Gram-Schmidt with one re-orthogonalisation pass (CGS-2).
 :func:`masked_append` is the fixed-shape incremental form the padded
@@ -62,6 +63,36 @@ def gram_schmidt(
             Q[:, j] = v / nv
             R[j, j] = nv
     return (Q, R) if return_R else Q
+
+
+def pod(U, product: Optional[Product] = None, modes: Optional[int] = None,
+        rtol: Optional[float] = 1e-7):
+    """POD by the method of snapshots: the eigendecomposition of the Gram
+    matrix U^H R U (r, r) gives the R-orthonormal modes U V / sqrt(lambda).
+    Returns (modes (n, q), singular values (q,)), descending.
+
+    ``rtol`` keeps the singular values above ``rtol`` times the largest (the
+    method's noise floor is about sqrt(eps), hence 1e-7), at most ``modes``
+    of them; ``rtol=None`` keeps exactly ``modes``."""
+    U = torch.as_tensor(U)
+    RU = U if product is None else torch.as_tensor(product.op.apply(U)).to(U)
+    G = U.conj().T @ RU
+    G = 0.5 * (G + G.conj().T)
+    lam, V = torch.linalg.eigh(G)
+    lam, V = lam.flip(0), V.flip(1)  # descending
+    svals = torch.sqrt(torch.clamp(lam, min=0.0))
+    if rtol is None:
+        if modes is None:
+            raise ValueError("pod: rtol=None needs modes")
+        keep = min(modes, svals.shape[0])
+    else:
+        ref = float(svals[0]) if svals.shape[0] else 1.0
+        keep = int((svals > rtol * ref).sum())
+        if modes is not None:
+            keep = min(keep, modes)
+    svals = svals[:keep]
+    safe = torch.clamp(svals, min=torch.finfo(svals.dtype).tiny)
+    return U @ (V[:, :keep] / safe[None, :]).to(U.dtype), svals
 
 
 def masked_append(srb: torch.Tensor, ncols: torch.Tensor, su: torch.Tensor,

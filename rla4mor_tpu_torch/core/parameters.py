@@ -29,6 +29,17 @@ def mu_stack(mus: Sequence[Mu]) -> Mu:
     return {k: torch.stack([torch.as_tensor(m[k]) for m in mus]) for k in keys}
 
 
+def mu_unstack(batched: Mu) -> list[Mu]:
+    """The Mu of each row of a batched Mu (the inverse of :func:`mu_stack`)."""
+    n = len(next(iter(batched.values())))
+    return [{k: v[i] for k, v in batched.items()} for i in range(n)]
+
+
+def mu_flat(mu: Mu, names: Sequence[str]) -> torch.Tensor:
+    """The leaves ``names`` of one Mu, flattened and concatenated in order."""
+    return torch.cat([torch.atleast_1d(torch.as_tensor(mu[n]).reshape(-1)) for n in names])
+
+
 @dataclass(frozen=True)
 class ParameterSpace:
     """Box-constrained parameter space: ``shapes`` maps name -> size."""
@@ -134,6 +145,35 @@ class ExpressionCoefficient(Coefficient):
 
     def __call__(self, mu):
         return torch.as_tensor(self.fn(mu))
+
+
+@dataclass(frozen=True)
+class ConjugateCoefficient(Coefficient):
+    """conj(inner(mu)): the coefficient of an adjoint term, so the adjoint
+    conjugates complex-valued coefficients."""
+
+    inner: Coefficient
+
+    def __call__(self, mu):
+        value = self.inner(mu)
+        return value.conj() if isinstance(value, torch.Tensor) else complex(value).conjugate()
+
+
+def conj_coefficient(c: Coefficient) -> Coefficient:
+    """Conjugate of a coefficient, simplified where its value is known real:
+    projections of the (real) box parameters are their own conjugates, and
+    conj of conj unwraps, so an adjoint's adjoint keeps the original
+    coefficient tuple."""
+    if isinstance(c, ConjugateCoefficient):
+        return c.inner
+    if isinstance(c, ProjectionCoefficient):
+        return c
+    if isinstance(c, ConstantCoefficient):
+        v = complex(c.value)
+        return c if v.imag == 0 else ConstantCoefficient(v.conjugate())
+    if isinstance(c, ProductCoefficient):
+        return ProductCoefficient(tuple(conj_coefficient(f) for f in c.factors))
+    return ConjugateCoefficient(c)
 
 
 def as_coefficient(c: Union[Coefficient, float, int]) -> Coefficient:

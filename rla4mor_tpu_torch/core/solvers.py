@@ -1,7 +1,7 @@
 """Device iterative solvers: preconditioned CG and BiCGStab.
 
 Counterpart of ``rla4mor_tpu/core/solvers.py`` (``CGResult``, ``cg``,
-``bicgstab``, ``solve_dense``, ``lstsq_dense``). The JAX package runs them
+``bicgstab``, ``solve_dense``, ``lstsq_dense``, ``bounded_lstsq``). The JAX package runs them
 as one ``lax.while_loop``; here they are eager PyTorch loops on the
 operand's device. The stopping rules are the JAX package's, evaluated in
 the operand's dtype, and the residual test is read on the host once an
@@ -10,6 +10,7 @@ iteration, so the iteration counts equal the JAX ones.
 
 from __future__ import annotations
 
+import math
 from typing import Callable, NamedTuple, Optional
 
 import torch
@@ -126,10 +127,29 @@ def solve_dense(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.linalg.solve(A, b)
 
 
+def svd_thin(A: torch.Tensor):
+    """Thin SVD ``A = U diag(s) Vh`` of (..., m, n) matrices, the same
+    factorisation as ``torch.linalg.svd(A, full_matrices=False)`` to
+    rounding. cuSOLVER takes a batch of SVDs in one call up to 32 x 32 and
+    loops over the batch above, so a larger A goes through a QR of its tall
+    side first, A = Q R (or A^H = Q R), then the SVD of the small square R
+    (Householder QR is backward stable)."""
+    m, n = A.shape[-2:]
+    if max(m, n) <= 32:
+        return torch.linalg.svd(A, full_matrices=False)
+    if m < n:
+        U, s, Vh = svd_thin(A.conj().transpose(-1, -2))
+        return Vh.conj().transpose(-1, -2), s, U.conj().transpose(-1, -2)
+    Q, R = torch.linalg.qr(A)
+    Ur, s, Vh = torch.linalg.svd(R)
+    return Q @ Ur, s, Vh
+
+
 def lstsq_dense(A: torch.Tensor, b: torch.Tensor, rcond: Optional[float] = None
                 ) -> torch.Tensor:
-    """Minimum-norm least squares through an economic SVD, batched over
-    leading dimensions; ``b`` is (..., m) or (..., m, q).
+    """Minimum-norm least squares through an economic SVD
+    (:func:`svd_thin`), batched over leading dimensions; ``b`` is (..., m)
+    or (..., m, q).
 
     ``rcond=None`` is ``jnp.linalg.lstsq``'s default cutoff, singular values
     kept where ``s > 0`` and ``s >= eps * max(m, n) * s_max``; a number
@@ -137,7 +157,7 @@ def lstsq_dense(A: torch.Tensor, b: torch.Tensor, rcond: Optional[float] = None
     explicit SVD, since ``torch.linalg.lstsq`` on CUDA offers only the
     full-rank ``gels`` driver, and the masked minres systems are
     rank-deficient."""
-    U, s, Vh = torch.linalg.svd(A, full_matrices=False)
+    U, s, Vh = svd_thin(A)
     smax = s[..., :1]
     if rcond is None:
         cut = torch.finfo(s.dtype).eps * max(A.shape[-2:])
@@ -151,3 +171,39 @@ def lstsq_dense(A: torch.Tensor, b: torch.Tensor, rcond: Optional[float] = None
     x = Vh.conj().transpose(-1, -2) @ (s_inv[..., None].to(U.dtype)
                                        * (U.conj().transpose(-1, -2) @ B))
     return x[..., 0] if vec else x
+
+
+def _mv(A: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """Batched matrix-vector product: (..., k, p) @ (..., p) -> (..., k)."""
+    return (A @ x[..., None])[..., 0]
+
+
+def bounded_lstsq(G: torch.Tensor, g: torch.Tensor, lb, ub,
+                  iters: int = 200) -> torch.Tensor:
+    """Bound-constrained least squares min ||G x - g||, lb <= x <= ub, for
+    G (..., k, p) and g (..., k): one problem, or a batch of them along the
+    leading dimensions, solved together.
+
+    Projected gradient with Nesterov momentum and the step 1 / L, L =
+    ||G||_2^2 from 20 power iterations, started at the clipped least-squares
+    solution (SVD cutoff 1e-12); ``iters`` fixed steps, as the JAX
+    package's two ``lax.scan`` loops."""
+    Gt = G.conj().transpose(-1, -2)
+    lb = torch.as_tensor(lb, dtype=G.dtype, device=G.device)
+    ub = torch.as_tensor(ub, dtype=G.dtype, device=G.device)
+    v = torch.ones(G.shape[:-2] + G.shape[-1:], dtype=G.dtype, device=G.device)
+    v = v / torch.linalg.vector_norm(v, dim=-1, keepdim=True)
+    for _ in range(20):  # power iteration for the Lipschitz constant
+        w = _mv(Gt, _mv(G, v))
+        v = w / torch.clamp(torch.linalg.vector_norm(w, dim=-1, keepdim=True), min=1e-30)
+    L = torch.clamp(torch.linalg.vector_norm(_mv(G, v), dim=-1, keepdim=True) ** 2,
+                    min=1e-30)
+    x = torch.clamp(lstsq_dense(G, g, rcond=1e-12), lb, ub)
+    y, t = x, 1.0
+    for _ in range(iters):
+        grad = _mv(Gt, _mv(G, y) - g)
+        x_new = torch.clamp(y - grad / L, lb, ub)
+        t_new = 0.5 * (1.0 + math.sqrt(1.0 + 4.0 * t * t))
+        y = x_new + ((t - 1.0) / t_new) * (x_new - x)
+        x, t = x_new, t_new
+    return x

@@ -24,7 +24,7 @@ from rla4mor_tpu_torch.core.affine import AffineDense, AffineOp
 from rla4mor_tpu_torch.core.linops import HostSparseOp, to_numpy
 from rla4mor_tpu_torch.core.parameters import Mu, ParameterSpace, eval_coefficients
 from rla4mor_tpu_torch.core.products import Product
-from rla4mor_tpu_torch.utils.config import as_tensor, resolve_device
+from rla4mor_tpu_torch.utils.config import as_tensor, default_dtype, resolve_device
 
 
 class StationaryFOM:
@@ -39,6 +39,7 @@ class StationaryFOM:
         parameter_space: Optional[ParameterSpace] = None,
         name: str = "fom",
         device=None,
+        dtype=None,
     ):
         self.operator = operator
         self.rhs = rhs
@@ -47,6 +48,7 @@ class StationaryFOM:
         self.parameter_space = parameter_space
         self.name = name
         self.device = resolve_device(device)
+        self.dtype = default_dtype(self.device) if dtype is None else dtype
         self.solution_dim = operator.source_dim
 
     def assemble_sparse(self, mu: Mu) -> sps.csc_matrix:
@@ -72,7 +74,7 @@ class StationaryFOM:
 
     def solve(self, mu: Mu) -> torch.Tensor:
         """Direct sparse solve on the host, returned on ``device``."""
-        return as_tensor(self.solve_host(mu), self.device)
+        return as_tensor(self.solve_host(mu), self.device, self.dtype)
 
     def solve_many(self, mus) -> torch.Tensor:
         return torch.stack([self.solve(mu) for mu in mus], dim=1)
@@ -89,8 +91,8 @@ class StationaryFOM:
         b = self.assemble_rhs(mu)
         r = self.assemble_sparse(mu) @ U - (b[:, None] if U.ndim > 1 else b)
         if product is None:
-            return as_tensor(np.linalg.norm(r, axis=0), self.device)
-        return product.norm(as_tensor(r, self.device))
+            return as_tensor(np.linalg.norm(r, axis=0), self.device, self.dtype)
+        return product.norm(as_tensor(r, self.device, self.dtype))
 
 
 class ResidualErrorEstimator:

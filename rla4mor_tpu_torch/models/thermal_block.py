@@ -9,7 +9,8 @@ jax):
 kappa piecewise constant on a BX x BY block partition, so
 A(mu) = sum_b mu['diffusion'][b] * A_b. The FOM carries h1_0 and l2
 products and a mean-value output functional. The sparse terms and products
-stay on the host; the rhs and output functional are dense on ``device``.
+stay on the host; the rhs and output functional are dense on ``device``, in
+``dtype`` (the device's working dtype unless named).
 """
 
 from __future__ import annotations
@@ -78,6 +79,7 @@ class ThermalBlockFOM(StationaryFOM):
         num_intervals: int = 32,
         parameter_range: Tuple[float, float] = (0.1, 1.0),
         device=None,
+        dtype=None,
     ):
         bx_n, by_n = grid_shape
         nx = num_intervals
@@ -107,7 +109,8 @@ class ThermalBlockFOM(StationaryFOM):
         for b in range(bx_n * by_n):
             mask = (blk == b).astype(float)
             A_b = _assemble(el_nodes, _K_EL, n_nodes, mask)
-            terms.append(HostSparseOp(restrict @ A_b @ restrict.T, device=device))
+            terms.append(HostSparseOp(restrict @ A_b @ restrict.T, device=device,
+                                      dtype=dtype))
         coeffs = tuple(
             ProjectionCoefficient("diffusion", b) for b in range(bx_n * by_n)
         )
@@ -117,16 +120,19 @@ class ThermalBlockFOM(StationaryFOM):
         load = np.zeros(n_nodes)
         np.add.at(load, el_nodes.ravel(), h * h / 4.0)
         rhs_vec = load[self.interior]
-        rhs = AffineOp((DenseOp(rhs_vec.reshape(-1, 1), device=device),), (ONE,))
+        rhs = AffineOp((DenseOp(rhs_vec.reshape(-1, 1), device=device, dtype=dtype),),
+                       (ONE,))
 
         # products
         K_full = _assemble(el_nodes, _K_EL, n_nodes)
         M_full = _assemble(el_nodes, h * h * _M_EL, n_nodes)
-        h1_0 = Product.from_sparse(restrict @ K_full @ restrict.T, device=device)
-        l2 = Product.from_sparse(restrict @ M_full @ restrict.T, device=device)
+        h1_0 = Product.from_sparse(restrict @ K_full @ restrict.T, device=device,
+                                   dtype=dtype)
+        l2 = Product.from_sparse(restrict @ M_full @ restrict.T, device=device,
+                                 dtype=dtype)
 
         # output: mean value of u  (integral via lumped load / area)
-        out = AffineDense(as_tensor(rhs_vec.reshape(1, 1, -1), device), (ONE,))
+        out = AffineDense(as_tensor(rhs_vec.reshape(1, 1, -1), device, dtype), (ONE,))
 
         space = ParameterSpace.make(
             {"diffusion": bx_n * by_n}, parameter_range[0], parameter_range[1]
@@ -139,6 +145,7 @@ class ThermalBlockFOM(StationaryFOM):
             parameter_space=space,
             name=f"thermal_block_{bx_n}x{by_n}_n{nx}",
             device=device,
+            dtype=dtype,
         )
         self.grid_shape = grid_shape
         self.num_intervals = nx

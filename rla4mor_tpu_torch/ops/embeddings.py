@@ -197,15 +197,19 @@ class IdentityEmbedding(Embedding):
 class SrhtEmbedding(Embedding):
     """Subsampled randomised Hadamard transform (semantics in ops/fwht.py).
 
-    ``apply_random`` keeps the JAX package's dispatch: for n >= 2^16
-    (``_ONEPASS_MIN_DIM``), and for pre-blocked ``(m, B, R)`` input, the
-    sketch is the one-pass SRHT of ``ops/srht_cuda.py`` — the hand-written
-    kernel on a CUDA tensor; below, the Kronecker FWHT of ``ops/fwht.py``.
+    ``apply_random`` dispatches as the JAX package does, at another size:
+    for n >= 2^15 (``_ONEPASS_MIN_DIM``), and for pre-blocked ``(m, B, R)``
+    input, the sketch is the one-pass SRHT of ``ops/srht_cuda.py`` — the
+    hand-written kernel on a CUDA tensor; below, the Kronecker FWHT of
+    ``ops/fwht.py``. The JAX package's 2^16 weighs the TPU kernel's compile
+    time; at (36,481, 250) on an H100 80GB HBM3 (700 W) the kernel took
+    0.087 ms and the FWHT route 1.06 ms (``chip_smoke.py``'s ``[estim]``
+    SRHT row, ``fwht_ms``).
     bfloat16 / float16 input keeps its dtype (the bf16 offline mode);
     ``out_dtype`` picks the result's.
     """
 
-    _ONEPASS_MIN_DIM = 1 << 16
+    _ONEPASS_MIN_DIM = 1 << 15
     emits_out_dtype = True
 
     def __init__(self, range_dim, source_dim, seed=0, sqrt_product=None,

@@ -36,6 +36,10 @@ from rla4mor_tpu_torch.models import ThermalBlockFOM
 from rla4mor_tpu_torch.mor import SketchedReductor, rb_greedy
 from rla4mor_tpu_torch.ops import srht_cuda
 
+# one intra-op thread: the tier-1 run has 6 pytest workers on 8 cores, and
+# torch's default thread pool in each of them oversubscribes the CPU
+torch.set_num_threads(1)
+
 BF16_EPS = 2.0 ** -7
 
 

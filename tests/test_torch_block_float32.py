@@ -48,6 +48,10 @@ from rla4mor_tpu_torch.core.orthonormalize import gram_schmidt  # noqa: E402
 from rla4mor_tpu_torch.models import ThermalBlockFOM  # noqa: E402
 from rla4mor_tpu_torch.mor import SketchedReductor  # noqa: E402
 
+# one intra-op thread: the tier-1 run has 6 pytest workers on 8 cores, and
+# torch's default thread pool in each of them oversubscribes the CPU
+torch.set_num_threads(1)
+
 GRID, K, SNAPSHOTS = 32, 256, 12
 RTOLS_F32 = (3e-4, 1e-3)  # the JAX package's float32 setting; the path's
 

@@ -9,6 +9,7 @@ import pytest
 import torch
 
 import rla4mor_tpu.core as jcore
+import rla4mor_tpu.core.parameters as jparams
 from rla4mor_tpu.models import ThermalBlockFOM as JaxFOM
 from rla4mor_tpu.models.stationary import StationaryROM as JaxROM
 
@@ -17,6 +18,10 @@ import rla4mor_tpu_torch.ops.embeddings as temb
 from rla4mor_tpu_torch.models import ThermalBlockFOM
 from rla4mor_tpu_torch.models.stationary import StationaryROM
 from rla4mor_tpu_torch.utils.config import resolve_device
+
+# one intra-op thread: the tier-1 run has 6 pytest workers on 8 cores, and
+# torch's default thread pool in each of them oversubscribes the CPU
+torch.set_num_threads(1)
 
 
 def rel(a, b):
@@ -284,3 +289,186 @@ def test_complex_sketched_reductor_matches_jax():
     u_rom = tred.rb.numpy() @ y.numpy()
     u_fom = tfom.solve(tmu).numpy()
     assert np.linalg.norm(u_rom - u_fom) / np.linalg.norm(u_fom) < 5e-2
+
+
+# ---------------------------------------------------------------------------
+# the rest of core/: parameters, operators, affine helpers, bounded least
+# squares and POD
+
+
+def test_mu_helpers_and_conjugate_coefficients():
+    """``mu_unstack`` / ``mu_flat`` give the JAX package's values, and
+    ``conj_coefficient`` simplifies as it does (projections and real
+    constants are their own conjugates, conj of conj unwraps)."""
+    rs = np.random.RandomState(7)
+    leaves = {"a": rs.normal(size=(3, 2)), "b": rs.normal(size=(3, 1))}
+    tmus = tcore.mu_unstack({k: torch.tensor(v) for k, v in leaves.items()})
+    jmus = jcore.mu_unstack({k: jnp.asarray(v) for k, v in leaves.items()})
+    assert len(tmus) == len(jmus) == 3
+    for tm, jm in zip(tmus, jmus):
+        for k in leaves:
+            assert np.array_equal(tm[k].numpy(), np.asarray(jm[k]))
+        assert np.array_equal(tcore.mu_flat(tm, ("b", "a")).numpy(),
+                              np.asarray(jparams.mu_flat(jm, ("b", "a"))))
+    tproj = tcore.ProjectionCoefficient("a", 1)
+    assert tcore.conj_coefficient(tproj) is tproj
+    assert tcore.conj_coefficient(tcore.ConstantCoefficient(2.0)) == tcore.ConstantCoefficient(2.0)
+    tconst = tcore.conj_coefficient(tcore.ConstantCoefficient(1 + 2j))
+    jconst = jparams.conj_coefficient(jcore.ConstantCoefficient(1 + 2j))
+    assert tconst.value == jconst.value == 1 - 2j
+    expr = tcore.ExpressionCoefficient(lambda mu: mu["a"][..., 0] * 1j, name="i a0")
+    conj = tcore.conj_coefficient(expr)
+    assert isinstance(conj, tcore.ConjugateCoefficient)
+    assert tcore.conj_coefficient(conj) is expr
+    prod = tcore.conj_coefficient(tproj * expr)
+    assert isinstance(prod, tcore.ProductCoefficient) and prod.factors[0] is tproj
+    jexpr = jcore.ExpressionCoefficient(lambda mu: mu["a"][0] * 1j, name="i a0")
+    assert complex(conj(tmus[1])) == complex(jparams.conj_coefficient(jexpr)(jmus[1]))
+
+
+def _ops(rs):
+    """The same small operators in both packages: diagonal, adjoint, scaled,
+    zero and a chain's adjoint."""
+    A = rs.normal(size=(6, 4))
+    d = rs.normal(size=6)
+    tA, jA = tcore.DenseOp(A, device="cpu"), jcore.DenseOp(jnp.asarray(A))
+    tD, jD = tcore.DiagonalOp(d, device="cpu"), jcore.DiagonalOp(jnp.asarray(d))
+    return {
+        "diagonal": (tD, jD),
+        "adjoint": (tcore.AdjointOp(tA), jcore.AdjointOp(jA)),
+        "scaled": (tcore.ScaledOp(tA, -2.5), jcore.ScaledOp(jA, -2.5)),
+        "zero": (tcore.ZeroOp(3, 6), jcore.ZeroOp(3, 6)),
+        "chain_adjoint": (tcore.ChainOp((tD, tA)).H, jcore.ChainOp((jD, jA)).H),
+    }
+
+
+@pytest.mark.parametrize("name", ["diagonal", "adjoint", "scaled", "zero", "chain_adjoint"])
+def test_new_operators_match_jax(name):
+    """apply / apply_adjoint on a vector and a block, ``.H`` and
+    ``to_matrix`` equal the JAX package's to 1e-12 relative."""
+    rs = np.random.RandomState(8)
+    top, jop = _ops(rs)[name]
+    for cols in (None, 3):
+        shape = (top.source_dim,) if cols is None else (top.source_dim, cols)
+        x = rs.normal(size=shape)
+        got, ref = top.apply(torch.tensor(x)), np.asarray(jop.apply(jnp.asarray(x)))
+        assert np.abs(got.numpy() - ref).max() <= 1e-12 * max(np.abs(ref).max(), 1.0)
+        shape = (top.range_dim,) if cols is None else (top.range_dim, cols)
+        y = rs.normal(size=shape)
+        got = top.apply_adjoint(torch.tensor(y))
+        ref = np.asarray(jop.apply_adjoint(jnp.asarray(y)))
+        assert np.abs(got.numpy() - ref).max() <= 1e-12 * max(np.abs(ref).max(), 1.0)
+    M, jM = tcore.to_matrix(top), np.asarray(jcore.to_matrix(jop))
+    assert np.abs(M.numpy() - jM).max() <= 1e-12 * max(np.abs(jM).max(), 1.0)
+    assert np.abs(tcore.to_matrix(top.H).numpy() - jM.T).max() <= 1e-12 * max(np.abs(jM).max(), 1.0)
+    assert tcore.to_matrix(M, torch.float32).dtype == torch.float32
+
+
+def test_sparse_cholesky_and_scipy_adapter(foms):
+    """``sparse_cholesky`` gives the JAX package's factor (Q^H Q = S), and
+    ``ScipyLinearOperator`` hands a port operator to scipy's GMRES as a
+    preconditioner: the same solution as with the JAX one, to 1e-12."""
+    import scipy.sparse.linalg as spla
+
+    jfom, tfom = foms
+    S = tfom.h1_0_product.op.S
+    Q, jQ = tcore.sparse_cholesky(S), jcore.sparse_cholesky(S)
+    assert abs(Q - jQ).max() == 0.0
+    assert abs(Q.T @ Q - S).max() < 1e-12 * abs(S).max()
+    b = np.random.RandomState(9).normal(size=S.shape[0])
+    tM = tcore.ScipyLinearOperator(tfom.h1_0_product.inv)
+    jM = jcore.ScipyLinearOperator(jfom.h1_0_product.inv)
+    x = tM.matvec(b)
+    assert rel(x, jM.matvec(b)) < 1e-12 and rel(tM.rmatvec(b), jM.rmatvec(b)) < 1e-12
+    A = tfom.assemble_sparse({"diffusion": torch.full((4,), 0.5)})
+    tx, info = spla.gmres(A, b, M=tM, rtol=1e-12, atol=0.0)
+    jx, jinfo = spla.gmres(A, b, M=jM, rtol=1e-12, atol=0.0)
+    assert info == jinfo == 0 and rel(tx, jx) < 1e-12
+
+
+@pytest.mark.parametrize("block", [None, 2], ids=["whole", "blocks_of_2"])
+def test_apply2_and_project_block_match_jax(foms, block):
+    """``apply2`` at one Mu and a batch, and ``project_block`` on the source
+    side and (through the adjoint) the range side, equal the JAX package's
+    to 1e-12 relative."""
+    jfom, tfom = foms
+    rs = np.random.RandomState(10)
+    V, W = rs.normal(size=(225, 3)), rs.normal(size=(225, 5))
+    P = rs.uniform(0.1, 1.0, size=(4, 4))
+    tP, jP = tfom.h1_0_product.op, jfom.h1_0_product.op
+    tb = tcore.apply2(tfom.operator, torch.tensor(V), torch.tensor(W),
+                      {"diffusion": torch.tensor(P)}, product=tP)
+    for i in range(4):
+        ref = jcore.apply2(jfom.operator, jnp.asarray(V), jnp.asarray(W),
+                           {"diffusion": jnp.asarray(P[i])}, product=jP)
+        assert rel(tb[i], ref) < 1e-12
+    for v, w in ((V, W), (V, None)):
+        tv, tw = torch.tensor(v), None if w is None else torch.tensor(w)
+        jv, jw = jnp.asarray(v), None if w is None else jnp.asarray(w)
+        got = tcore.project_block(tfom.operator, tv, tw, product=tP, max_block_size=block)
+        ref = jcore.project_block(jfom.operator, jv, jw, product=jP, max_block_size=block)
+        assert rel(got.stack, ref.stack) < 1e-12
+        assert got.coefficients == tuple(tcore.conj_coefficient(c) for c in got.coefficients)
+
+
+@pytest.fixture(scope="module")
+def bounded_problems():
+    """A (2, 3) batch of bound-constrained problems and the JAX package's
+    solution of each (300 steps), computed once."""
+    from rla4mor_tpu.core.solvers import bounded_lstsq as jax_bounded
+
+    rs = np.random.RandomState(11)
+    G = rs.normal(size=(2, 3, 12, 4))
+    g = rs.normal(size=(2, 3, 12)) * 3.0
+    lb, ub = np.full(4, -0.2), np.full(4, 0.3)
+    solve = jax.jit(jax.vmap(jax.vmap(lambda A, b: jax_bounded(
+        A, b, jnp.asarray(lb), jnp.asarray(ub), iters=300))))
+    return G, g, lb, ub, np.asarray(solve(jnp.asarray(G), jnp.asarray(g)))
+
+
+@pytest.mark.parametrize("batched", [False, True], ids=["single", "batched"])
+def test_bounded_lstsq_matches_jax(bounded_problems, batched):
+    """``bounded_lstsq`` (Nesterov projected gradient, 300 steps) equals the
+    JAX package's to 1e-12 relative, on problems whose minimiser has active
+    bounds; batched over leading dimensions it equals its single calls."""
+    G, g, lb, ub, refs = bounded_problems
+    assert ((refs == lb) | (refs == ub)).any()  # some bounds are active
+    if batched:
+        got = tcore.bounded_lstsq(torch.tensor(G), torch.tensor(g), torch.tensor(lb),
+                                  torch.tensor(ub), iters=300).numpy()
+    else:
+        got = np.stack([[tcore.bounded_lstsq(torch.tensor(G[i, j]), torch.tensor(g[i, j]),
+                                             lb, ub, iters=300).numpy()
+                         for j in range(3)] for i in range(2)])
+    assert np.abs(got - refs).max() <= 1e-12 * np.abs(refs).max()
+
+
+@pytest.mark.parametrize("product", [False, True], ids=["l2", "h1_0"])
+def test_pod_matches_jax(foms, product):
+    """``pod`` (method of snapshots): singular values to 1e-10 relative,
+    modes up to the sign of each column to 1e-8, at the default ``rtol``
+    and with ``rtol=None``."""
+    jfom, tfom = foms
+    rs = np.random.RandomState(12)
+    U = rs.normal(size=(225, 9)) * 0.5 ** np.arange(9)  # spectrum over 2.5 decades
+    tP = tfom.h1_0_product if product else None
+    jP = jfom.h1_0_product if product else None
+    for kw in ({}, {"modes": 6, "rtol": None}):
+        tm, ts = tcore.pod(torch.tensor(U), product=tP, **kw)
+        jm, js = jcore.pod(jnp.asarray(U), product=jP, **kw)
+        jm, js = np.asarray(jm), np.asarray(js)
+        assert ts.shape == js.shape and rel(ts, js) < 1e-10
+        signs = np.sign(np.sum(tm.numpy() * jm, axis=0))
+        assert np.abs(tm.numpy() * signs - jm).max() < 1e-8 * np.abs(jm).max()
+
+
+@pytest.mark.parametrize("package", ["core", "estim"])
+def test_exports_cover_the_jax_package(package):
+    """The port's ``core`` and ``estim`` export every name the JAX
+    package's do."""
+    import importlib
+
+    jax_pkg = importlib.import_module(f"rla4mor_tpu.{package}")
+    port = importlib.import_module(f"rla4mor_tpu_torch.{package}")
+    assert not set(jax_pkg.__all__) - set(port.__all__)
+    assert all(hasattr(port, name) for name in port.__all__)

@@ -18,6 +18,10 @@ from rla4mor_tpu_torch.ops import srht_cuda
 from rla4mor_tpu_torch.ops import embeddings as temb
 from rla4mor_tpu_torch.ops.fwht import _srht_plan
 
+# one intra-op thread: the tier-1 run has 6 pytest workers on 8 cores, and
+# torch's default thread pool in each of them oversubscribes the CPU
+torch.set_num_threads(1)
+
 pytestmark = pytest.mark.cuda
 
 TOL = {torch.float32: 1e-4, torch.float64: 1e-12}
@@ -618,3 +622,34 @@ def test_precond_demo_on_the_card_matches_the_cpu(cuda):
         [P.last_iters for P in host["directions"]]
     assert rel_err(card["us"].cpu(), host["us"]) < 1e-8
     assert rel_err(card["rnorms"].cpu(), host["rnorms"]) < 1e-8
+
+
+@pytest.mark.parametrize("m,K", [(14, 8), (10, 25)], ids=["K<m", "K>m"])
+def test_estim_lars_and_bounded_lstsq_on_the_card_match_the_cpu(cuda, m, K):
+    """The batched device LARS (``lars_weighted_path_jax`` with the OLS
+    debias, 4 columns) and a batch of ``bounded_lstsq`` problems, in float64
+    on the card, equal the CPU port's output to 1e-9 (K > m: while alpha
+    stays above 1e-9 of its first value, the tail being rounding noise)."""
+    from rla4mor_tpu_torch.core import bounded_lstsq
+    from rla4mor_tpu_torch.estim.lars import lars_weighted_path_jax
+
+    g = torch.Generator().manual_seed(m * K)
+    D = torch.randn((m, K), generator=g, dtype=torch.float64)
+    X = torch.randn((4, m), generator=g, dtype=torch.float64)
+    v, alphas, steps = lars_weighted_path_jax(D.to(cuda), X.to(cuda), max_steps=80)
+    cv, calphas, csteps = lars_weighted_path_jax(D, X, max_steps=80)
+    keep = calphas > 1e-9 * calphas[:, :1]
+    if K < m:
+        assert torch.equal(steps.cpu(), csteps)
+        keep = torch.ones_like(keep)
+    for i in range(4):
+        k = keep[i]
+        assert torch.equal(v[i].cpu()[:, k] != 0, cv[i][:, k] != 0)
+        assert rel_err(v[i].cpu()[:, k], cv[i][:, k]) < 1e-9
+        assert rel_err(alphas[i].cpu()[k], calphas[i][k]) < 1e-9
+    G = torch.randn((3, 5, 40, 9), generator=g, dtype=torch.float64)
+    rhs = 3.0 * torch.randn((3, 5, 40), generator=g, dtype=torch.float64)
+    lb, ub = torch.full((9,), -0.2, dtype=torch.float64), torch.full((9,), 0.3, dtype=torch.float64)
+    x = bounded_lstsq(G.to(cuda), rhs.to(cuda), lb.to(cuda), ub.to(cuda), iters=300)
+    cx = bounded_lstsq(G, rhs, lb, ub, iters=300)
+    assert rel_err(x.cpu(), cx) < 1e-9

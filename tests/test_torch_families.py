@@ -49,6 +49,10 @@ from rla4mor_tpu_torch.ops.embeddings import SrhtEmbedding  # noqa: E402
 from rla4mor_tpu_torch.parallel import make_sharded_greedy_step, state_to_rom  # noqa: E402
 from rla4mor_tpu_torch.serve import pad_batch, serve_batch  # noqa: E402
 
+# one intra-op thread: the tier-1 run has 6 pytest workers on 8 cores, and
+# torch's default thread pool in each of them oversubscribes the CPU
+torch.set_num_threads(1)
+
 K, R_MAX, STEPS = 32, 4, 3
 
 

@@ -42,6 +42,10 @@ from rla4mor_tpu_torch.mor import SketchedReductor, rb_greedy
 from rla4mor_tpu_torch.ops import gaussian_cuda as gcu
 from rla4mor_tpu_torch.ops import philox
 
+# one intra-op thread: the tier-1 run has 6 pytest workers on 8 cores, and
+# torch's default thread pool in each of them oversubscribes the CPU
+torch.set_num_threads(1)
+
 W = 256
 M32 = 0xFFFFFFFF
 ROOT = Path(__file__).resolve().parent.parent

@@ -21,6 +21,10 @@ from rla4mor_tpu_torch.models import StencilHelmholtz
 from rla4mor_tpu_torch.models.stencil import preconditioner
 from rla4mor_tpu_torch.models.stencil_helmholtz import _NEG_KSQ, HelmholtzTermOp
 
+# one intra-op thread: the tier-1 run has 6 pytest workers on 8 cores, and
+# torch's default thread pool in each of them oversubscribes the CPU
+torch.set_num_threads(1)
+
 
 def rel(a, b):
     a, b = np.asarray(a), np.asarray(b)

@@ -1,9 +1,16 @@
-"""Importing the PyTorch port pulls in no JAX and compiles nothing."""
+"""Importing the PyTorch port pulls in no JAX (nor the JAX package, nor
+scikit-learn) and compiles nothing."""
 
 import os
 import subprocess
 import sys
 from pathlib import Path
+
+import torch
+
+# one intra-op thread: the tier-1 run has 6 pytest workers on 8 cores, and
+# torch's default thread pool in each of them oversubscribes the CPU
+torch.set_num_threads(1)
 
 ROOT = Path(__file__).resolve().parent.parent
 
@@ -30,6 +37,7 @@ from rla4mor_tpu_torch.utils import nvcc
 
 assert "jax" not in sys.modules, sorted(m for m in sys.modules if "jax" in m)
 assert "rla4mor_tpu" not in sys.modules
+assert "sklearn" not in sys.modules, sorted(m for m in sys.modules if "sklearn" in m)
 assert before == after, (before, after)
 assert nvcc.loaded() == ()
 print(" ".join(names))
@@ -42,11 +50,16 @@ def test_port_imports_no_jax_and_builds_nothing():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     names = set(proc.stdout.split())
-    assert len(names) >= 18  # every module of the slices
+    assert len(names) >= 23  # every module of the slices
     assert {"rla4mor_tpu_torch.precond.preconditioned_reductor",
             "rla4mor_tpu_torch.precond.preconditioned_rom",
             "rla4mor_tpu_torch.core.image",
-            "rla4mor_tpu_torch.examples.preconditioned_large_demo"} <= names
+            "rla4mor_tpu_torch.core.rsvd",
+            "rla4mor_tpu_torch.estim.lars",
+            "rla4mor_tpu_torch.estim.manifold_distance",
+            "rla4mor_tpu_torch.estim.recovery_map",
+            "rla4mor_tpu_torch.examples.preconditioned_large_demo",
+            "rla4mor_tpu_torch.examples.inverse_problems_demo"} <= names
 
 
 def test_chip_smoke_imports_no_jax():

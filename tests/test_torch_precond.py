@@ -59,6 +59,10 @@ from rla4mor_tpu_torch.ops import (
 )
 from rla4mor_tpu_torch.precond import FactoredROM, PreconditionedReductor
 
+# one intra-op thread: the tier-1 run has 6 pytest workers on 8 cores, and
+# torch's default thread pool in each of them oversubscribes the CPU
+torch.set_num_threads(1)
+
 K = 10  # range of the HS-estimator embeddings, as in tests/test_precond.py
 
 

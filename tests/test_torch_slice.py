@@ -27,6 +27,10 @@ from rla4mor_tpu_torch.core import mu_stack
 from rla4mor_tpu_torch.models import ThermalBlockFOM
 from rla4mor_tpu_torch.mor import SketchedReductor, load_rom, rb_greedy, save_rom
 
+# one intra-op thread: the tier-1 run has 6 pytest workers on 8 cores, and
+# torch's default thread pool in each of them oversubscribes the CPU
+torch.set_num_threads(1)
+
 K = 60
 
 

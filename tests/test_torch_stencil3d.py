@@ -19,6 +19,10 @@ from rla4mor_tpu_torch.models import StencilThermalBlock3D
 from rla4mor_tpu_torch.models import stencil3d as t3
 from rla4mor_tpu_torch.parallel import make_sharded_greedy_step
 
+# one intra-op thread: the tier-1 run has 6 pytest workers on 8 cores, and
+# torch's default thread pool in each of them oversubscribes the CPU
+torch.set_num_threads(1)
+
 
 def rel(a, b):
     a, b = np.asarray(a), np.asarray(b)

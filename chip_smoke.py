@@ -166,15 +166,46 @@ Phases, each printing one line (any failed check raises and exits non-zero):
    (FOM solves, the sketch's host part and each embedding's, PBDW, the
    LARS paths, each embedding's selection and path study), the homotopy
    steps, the errors and the card's name and power limit;
-10. the kernels' JSON line (the bf16 instance a row of its own, with the
+10. the complex path: the SRHT kernel against its plain version at
+   ``[helmholtz srht]``'s sketch (a complex64 column of n = 65,025 as its
+   (n, 2) float32 real view, one launch, k = 220); ``[helmholtz srht]``:
+   the damped Helmholtz family at grid 256 in float32 (complex64 states),
+   the demo's weak greedy (``helmholtz_demo.weak_greedy``, 10 extensions
+   over 40 training wavenumbers) with a complex-dimension SRHT (k = 220)
+   over the h1_0 sqrt factor, an online Gaussian (k = 120) and the minres
+   reductor; checks: SRHT launches > 0 (counts set to 0 just before, read
+   just after), relative errors at most 5e-2 at 12 held-out wavenumbers,
+   the estimate within [0.3, 3] of the exact dual residual where that is
+   above 1e-4 of b's; ``[helmholtz]``: the entry point
+   ``rla4mor_tpu_torch.examples.helmholtz_demo.run`` at grid 48 (n = 2,209)
+   in complex128: the complex sketched minres greedy (10 extensions), the
+   SCM inf-sup fit (its dense eigensolves by cuSOLVER) and the certified
+   bound of the r <= 5 ROM at 41 wavenumbers, PBDW and dictionary recovery
+   of 9 complex states from 30 point observations (the complex group LARS
+   homotopy on the card); checks: the bound at least the true error
+   wherever it is finite and the error above the float64 floor (at least
+   30 points), the greedy's error falls, the recovery medians at most 2x
+   ``HELMHOLTZ_RECOVERY_REF``; the seconds of each part;
+   ``[embeddings]``: Rademacher (real, complex), sparse-sign, block and
+   streamed Gaussian on the card against the CPU at the same seed (1e-5
+   relative, float32) at (261,121, k = 256, m = 8), the block and streamed
+   sketches also against the Gaussian's, the streamed one alone at
+   (1,050,625, 256, 5); seconds and peak device memory beside the whole
+   Omega's bytes. ``[padded]`` also checkpoints its greedy: half the
+   extensions on a fresh reductor, ``save_padded_reductor``,
+   ``load_padded_reductor_state`` into another and the rest from there,
+   which must pick the uninterrupted run's parameters and match its ROM to
+   1e-6 relative;
+11. the kernels' JSON line (the bf16 instance a row of its own, with the
    ``[bf16]`` path's bf16-input launches; the SRHT at each stencil
    family's block a row, with that phase's launches; the tiled Gaussian branch a row
    of its own, with ``[hwprng block]``'s tiled launches at the bench m =
    128 shape; the Omega kernel at ``[precond hwprng]``'s shape with its
    launches, and at (256, 261,121) in pairs and Rademacher mode; its
    one-strip call at k = 200 and 256; the SRHT and the tiled Gaussian
-   branch at [estim]'s sketch with that path's launches), the run's wall
-   time, then the result line.
+   branch at [estim]'s sketch with that path's launches; the SRHT at
+   [helmholtz srht]'s complex column with that path's launches), the run's
+   wall time, then the result line.
 
 Times are CUDA-event means over back-to-back calls after a warm-up (the
 wrapper's host time included where it is longer than the kernel's); an
@@ -290,6 +321,25 @@ PRECOND_HW_SEED = 21
 # k = 256 through each embedding
 ESTIM_GRID, ESTIM_TEST = 192, 32
 ESTIM_N, ESTIM_COLS, ESTIM_K = (ESTIM_GRID - 1) ** 2, 250, 256
+# [helmholtz]: examples/helmholtz_demo.py's run() in complex128 at grid 48 (n
+# = 2,209): its SCM solves a dense n x n eigenproblem a box term and an
+# anchor (scm.py: "use moderate FOM dims"). [helmholtz srht]: the demo's
+# greedy with the SRHT at grid 256 (n = 65,025 >= _ONEPASS_MIN_DIM), float32
+HELMHOLTZ_GRID, HELMHOLTZ_EXTENSIONS = 48, 10
+HELMHOLTZ_SRHT_GRID, HELMHOLTZ_K = 256, 220
+# the median recovery errors that [helmholtz] is held to (at most 2x): the
+# JAX demo's flow at grid 9 (tests/test_torch_complex.py, whose port run with
+# the JAX operators carried in gives them to 1e-6), scaled to grid 48 by the
+# port's own medians there on the CPU in complex128 (python -m
+# rla4mor_tpu_torch.examples.helmholtz_demo --cpu --grid 48, with the port's
+# seeded operators, which the card draws alike)
+HELMHOLTZ_RECOVERY_JAX_GRID9 = {"pbdw": 7.134e-14, "dic": 5.810e-5}
+HELMHOLTZ_GRID_SCALE = {"pbdw": 6.575e-11 / 7.134e-14, "dic": 3.154e-4 / 5.810e-5}
+HELMHOLTZ_RECOVERY_REF = {key: HELMHOLTZ_RECOVERY_JAX_GRID9[key] * HELMHOLTZ_GRID_SCALE[key]
+                          for key in HELMHOLTZ_GRID_SCALE}
+# [embeddings]: the slice's n with k = 256 and 8 columns, and the streamed
+# embedding alone at the preconditioner's n = 1,050,625 with 5
+EMBED_SHAPE, EMBED_STREAMED_SHAPE, EMBED_SEED = (SLICE_N, 256, 8), (1_050_625, 256, 5), 17
 TOL = {torch.float64: 1e-12, torch.float32: 1e-4}
 TOL_NARROW = 8e-3  # 2-byte output against the float32 sums: one bf16 rounding
 HBM_BYTES_PER_S = 3.35e12
@@ -1003,13 +1053,17 @@ def padded_phase(fom, device, slice_mus, extensions: int = PADDED_EXTENSIONS,
     Ru = fom.h1_0_product
     theta = SrhtEmbedding.make(n, sqrt_product=Ru.sqrt, range_dim=SLICE_K, seed=0,
                                device=device)
-    reductor = PaddedSketchedReductor(fom, embedding_primal=theta, product=Ru,
+
+    def make():
+        return PaddedSketchedReductor(fom, embedding_primal=theta, product=Ru,
                                       r_max=extensions, log_level=30)
+
+    reductor = make()
     shapes = [tuple(t.shape) for t in reductor.state]
     train = fom.parameter_space.sample_randomly(training, seed=0, device=device)
     srht_cuda.srht_onepass.launches = 0
-    result, t_greedy, host_solve, _ = timed_greedy(fom, reductor, train, extensions,
-                                                   greedy=rb_greedy_no_retrace)
+    result, t_greedy, host_solve, snaps = timed_greedy(fom, reductor, train, extensions,
+                                                       greedy=rb_greedy_no_retrace)
     launches = srht_cuda.srht_onepass.launches
     check(launches > 0, "padded: the path launched no SRHT kernel")
     check([tuple(t.shape) for t in reductor.state] == shapes, "padded: a state shape changed")
@@ -1017,9 +1071,64 @@ def padded_phase(fom, device, slice_mus, extensions: int = PADDED_EXTENSIONS,
     checks = check_rom(fom, reductor, result, device, "padded")
     same = [m["diffusion"].tolist() for m in result.selected_mus] == \
         [m["diffusion"].tolist() for m in slice_mus[:extensions]]
+    resume = padded_resume(fom, make, train, extensions, result, snaps)
     return {"n": n, "r_max": extensions, **path_summary(result, t_greedy, host_solve),
             **checks, **serve_once(result.rom, fom, device, "padded"),
-            "srht_launches": launches, "selected_equal_slice_first": same}
+            "srht_launches": launches, "selected_equal_slice_first": same, **resume}
+
+
+def padded_resume(fom, make, train, extensions, whole, snaps) -> dict:
+    """A checkpoint mid-greedy: ``rb_greedy_no_retrace`` on a fresh padded
+    reductor for half the extensions, ``save_padded_reductor`` to a
+    temporary file, ``load_padded_reductor_state`` into another fresh
+    reductor, and the greedy resumed there to ``extensions``. It must pick
+    the uninterrupted run's parameters, and its ROM (lhs, rhs and
+    estimator stacks, float32) must match that run's to 1e-6 relative.
+    The host FOM solves of parameters the uninterrupted run solved are
+    taken from it (a solve is deterministic); any other is solved."""
+    import tempfile
+
+    from rla4mor_tpu_torch.mor import (
+        load_padded_reductor_state, rb_greedy_no_retrace, save_padded_reductor,
+    )
+    from rla4mor_tpu_torch.ops import srht_cuda
+
+    solved = {tuple(m["diffusion"].tolist()): u for m, u in zip(whole.selected_mus, snaps)}
+    solve = fom.solve
+
+    def cached_solve(mu):
+        key = tuple(mu["diffusion"].tolist())
+        return solved[key] if key in solved else solve(mu)
+
+    fom.solve = cached_solve
+    half = extensions // 2
+    before = srht_cuda.srht_onepass.launches
+    t0 = time.perf_counter()
+    try:
+        first = make()
+        rb_greedy_no_retrace(fom, first, train, max_extensions=half, log_level=30)
+        with tempfile.TemporaryDirectory() as tmp:
+            path = f"{tmp}/padded.npz"
+            save_padded_reductor(first, path)
+            resumed = make()
+            load_padded_reductor_state(resumed, path)
+        check(resumed.basis_size == half, f"padded resume: {resumed.basis_size} columns loaded")
+        rest = rb_greedy_no_retrace(fom, resumed, train, max_extensions=extensions,
+                                    log_level=30)
+        torch.cuda.synchronize()
+    finally:
+        fom.solve = solve
+    picks = [m["diffusion"].tolist() for m in rest.selected_mus]
+    check(picks == [m["diffusion"].tolist() for m in whole.selected_mus],
+          "padded resume: the resumed greedy picked other parameters")
+    rels = {}
+    for name, a, b in (("lhs", rest.rom.lhs, whole.rom.lhs), ("rhs", rest.rom.rhs, whole.rom.rhs),
+                       ("est_lhs", rest.rom.error_estimator.lhs, whole.rom.error_estimator.lhs),
+                       ("est_rhs", rest.rom.error_estimator.rhs, whole.rom.error_estimator.rhs)):
+        rels[name] = ((a.stack - b.stack).abs().max() / b.stack.abs().max()).item()
+        check(rels[name] <= 1e-6, f"padded resume: ROM {name} off by {rels[name]:.2e} > 1e-6")
+    return {"resume_at": half, "resume_s": time.perf_counter() - t0,
+            "resume_rom_rel": rels, "resume_srht_launches": srht_cuda.srht_onepass.launches - before}
 
 
 def strong_phase(fom, device, training: int = STRONG_TRAINING,
@@ -1653,6 +1762,213 @@ def estim_phase(device) -> dict:
     return summary
 
 
+def helmholtz_srht_row(device) -> dict:
+    """The SRHT kernel at [helmholtz srht]'s sketch: one complex64 column of
+    n = (HELMHOLTZ_SRHT_GRID - 1)^2 to k = HELMHOLTZ_K, which the wrapper
+    passes as its (n, 2) float32 real view in one launch; held to the plain
+    version of that view (1e-4 relative), the library call the complex
+    product with the explicit operator."""
+    from rla4mor_tpu_torch.ops.embeddings import SrhtEmbedding
+
+    n, k = (HELMHOLTZ_SRHT_GRID - 1) ** 2, HELMHOLTZ_K
+    gen = torch.Generator(device=device).manual_seed(n)
+    xc = torch.complex(torch.randn((n, 1), generator=gen, device=device),
+                       torch.randn((n, 1), generator=gen, device=device))
+    emb = SrhtEmbedding(k, n, seed=2, device=device, dtype=torch.float32, complex_dtype=True)
+    check(n >= emb._ONEPASS_MIN_DIM, "helmholtz srht: the embedding would not take the kernel")
+    signs, samp, _ = emb.plan
+    S = explicit_srht(signs, samp, n, k, torch.float32, device).to(torch.complex64)
+    row = compare(f"helmholtz n={n} m=1 complex64 k={k} real view", torch.view_as_real(xc)
+                  .reshape(n, 2), k, signs, samp, reps=20,
+                  kernel=lambda: torch.view_as_real(emb.apply_random(xc)).reshape(k, 2),
+                  library=lambda: torch.matmul(S, xc))
+    del S
+    torch.cuda.empty_cache()
+    return row
+
+
+def helmholtz_srht_phase(device) -> dict:
+    """[helmholtz srht]: the demo's complex sketched minres greedy at grid
+    HELMHOLTZ_SRHT_GRID (float32: complex64 states), composed from library
+    calls: ``helmholtz_fom``, ``SrhtEmbedding.make(complex_dtype=True)``
+    (k = HELMHOLTZ_K) over the h1_0 sqrt factor, an online Gaussian (k =
+    120), ``SketchedReductor(projection="minres")`` and the demo's
+    ``weak_greedy`` (10 extensions over its 40 training wavenumbers), SRHT
+    counts set to 0 just before and read just after. Then at its 12 test
+    wavenumbers the ROM's relative R-norm error (at most 5e-2) and its
+    estimate over the exact dual residual (host complex128), held to [0.3,
+    3] (the JAX package's bounds in ``tests/test_complex.py``) where that
+    residual is above 1e-4 of b's (below, a float32 estimate is floored)."""
+    from rla4mor_tpu_torch.core import mu_stack
+    from rla4mor_tpu_torch.examples import helmholtz_demo as hd
+    from rla4mor_tpu_torch.models import helmholtz_fom
+    from rla4mor_tpu_torch.mor import SketchedReductor
+    from rla4mor_tpu_torch.ops import GaussianEmbedding, SrhtEmbedding, srht_cuda
+    from rla4mor_tpu_torch.utils.config import as_tensor
+
+    t0 = time.perf_counter()
+    fom = helmholtz_fom(HELMHOLTZ_SRHT_GRID, hd.WAVENUMBERS, hd.DAMPING, device=device)
+    Ru = fom.h1_0_product
+    n = fom.solution_dim
+    theta = SrhtEmbedding.make(n, sqrt_product=Ru.sqrt, range_dim=HELMHOLTZ_K,
+                               seed=hd.SEED_PRIMAL, complex_dtype=True, device=device)
+    phi = GaussianEmbedding.make(HELMHOLTZ_K, range_dim=hd.K_ONLINE, seed=hd.SEED_ONLINE,
+                                 device=device)
+    red = SketchedReductor(fom, embedding_primal=theta, embedding_online=phi, product=Ru,
+                           projection="minres", log_level=30)
+    test = np.array([float(m["wavenumber"][0]) for m in fom.parameter_space.sample_randomly(
+        hd.N_TEST, seed=8, device="cpu")])
+    with ThreadPoolExecutor(8) as pool:  # host complex128 solves, made once
+        u_host = list(pool.map(lambda w: fom.solve_host(
+            {"wavenumber": torch.tensor([w], dtype=torch.float64)}), test))
+    u_test = as_tensor(np.stack(u_host, axis=1), device, fom.dtype)  # complex64
+    setup_s = time.perf_counter() - t0
+    srht_cuda.srht_onepass.launches = 0
+    t0 = time.perf_counter()
+    greedy = hd.weak_greedy(fom, red, np.linspace(*hd.WAVENUMBERS, hd.N_TRAIN), test,
+                            HELMHOLTZ_EXTENSIONS, u_test=u_test)
+    greedy_s = time.perf_counter() - t0
+    launches = srht_cuda.srht_onepass.launches
+    check(launches > 0, "helmholtz srht: the path launched no SRHT kernel")
+    check(red.srb.dtype == torch.complex64, f"helmholtz srht: srb is {red.srb.dtype}")
+
+    rom = red.reduce(seed=100 + HELMHOLTZ_EXTENSIONS + 1)
+    mus = mu_stack([{"wavenumber": torch.tensor([w], device=device)} for w in test])
+    y = rom.solve(mus)
+    est = rom.estimate_error(mus, y).double().cpu().numpy()
+    U = red.rb @ y.T.to(red.rb.dtype)
+    errs, ratios, checked = [], [], 0
+    for i, w in enumerate(test):
+        mu = {"wavenumber": torch.tensor([w], dtype=torch.float64)}
+        u_t = u_host[i]
+        u_r = U[:, i].cpu().numpy().astype(np.complex128)
+        d, q = u_t - u_r, Ru.op.S
+        errs.append(float(np.sqrt(np.real(np.vdot(d, q @ d)) / np.real(np.vdot(u_t, q @ u_t)))))
+        A, b = fom.assemble_sparse(mu), fom.assemble_rhs(mu)
+        r = A @ u_r - b
+        true = float(np.sqrt(np.real(np.vdot(r, Ru.inv.apply_host(r)))))
+        b_dual = float(np.sqrt(np.real(np.vdot(b, Ru.inv.apply_host(b)))))
+        ratios.append(est[i] / true)
+        if true > 1e-4 * b_dual:
+            checked += 1
+            check(0.3 <= ratios[-1] <= 3.0, f"helmholtz srht: estimate / exact dual residual "
+                  f"{ratios[-1]:.3f} at k={w:.3f} outside [0.3, 3]")
+    check(all(math.isfinite(e) and e <= 5e-2 for e in errs),
+          f"helmholtz srht: held-out relative errors {errs}")
+    return {"n": n, "k": HELMHOLTZ_K, "setup_s": setup_s, "greedy_s": greedy_s,
+            "r": red.basis_size, "median_test_err_by_iteration": greedy["err"],
+            "held_out_rel_err": errs, "est_over_exact": [round(float(q), 4) for q in ratios],
+            "estimates_checked": checked, "srht_launches": launches}
+
+
+def helmholtz_phase(device) -> dict:
+    """[helmholtz]: ``examples/helmholtz_demo.py``'s ``run()`` at grid
+    HELMHOLTZ_GRID in complex128 (float64 working dtype). Checks: the bound
+    is at least the true error at every sweep point where it is finite and
+    the error is above the float64 floor (``helmholtz_demo.certified``), at
+    least 30 of 41; the greedy's median test error falls; the PBDW and
+    dictionary recovery errors finite, their medians at most 2x
+    HELMHOLTZ_RECOVERY_REF."""
+    from rla4mor_tpu_torch.examples import helmholtz_demo as hd
+
+    def log(line):
+        print(f"[helmholtz] {line}", flush=True)
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = hd.run(HELMHOLTZ_GRID, HELMHOLTZ_EXTENSIONS, device=device, log=log)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    g, scm, sw, rec = out["greedy"], out["scm"], out["sweep"], out["recovery"]
+    held = hd.certified(sw)
+    over = sw["bound"][held] >= sw["err"][held]
+    check(held.sum() >= 30, f"helmholtz: {int(held.sum())} certified sweep points, not >= 30")
+    check(bool(over.all()), f"helmholtz: bound below the true error at "
+          f"{list(sw['wavenumbers'][held][~over])}")
+    check(all(math.isfinite(e) for e in g["err"]) and g["err"][-1] < g["err"][0],
+          f"helmholtz: greedy errors {g['err']}")
+    medians = {}
+    for key in ("pbdw", "dic"):
+        check(bool(np.isfinite(rec[key]).all()), f"helmholtz: {key} errors not finite")
+        medians[key] = float(np.median(rec[key]))
+        check(medians[key] <= 2 * HELMHOLTZ_RECOVERY_REF[key],
+              f"helmholtz: median {key} error {medians[key]:.3e} > 2 x "
+              f"{HELMHOLTZ_RECOVERY_REF[key]:.3e}")
+    return {"n": out["n"], "dtype": "complex128", "wall_s": wall_s, "greedy_s": g["seconds"],
+            "scm_s": scm["seconds"], "sweep_s": sw["seconds"], "recovery_s": rec["seconds"],
+            "r": g["r"][-1] + 1, "median_test_err": g["err"], "picks": g["picks"],
+            "scm_anchors": scm["n_anchors"], "scm_final_gap": scm["max_gap"][-1],
+            "sweep_r": sw["r"], "bound_checked": int(held.sum()),
+            "bound_finite": int(np.isfinite(sw["bound"]).sum()),
+            "err_over_bound_max": float((sw["err"][held] / sw["bound"][held]).max()),
+            "pbdw_err": rec["pbdw"].tolist(), "dic_err": rec["dic"].tolist(),
+            "median_recovery_err": medians}
+
+
+def embeddings_phase(device) -> dict:
+    """[embeddings]: each new embedding on the card against the same
+    embedding on the CPU at the same seed (the draws are device-independent),
+    float32, 1e-5 relative: Rademacher real and complex, sparse-sign (s = 8),
+    block (also against the Gaussian's sketch on the card: its rows) and
+    streamed Gaussian (also against the Gaussian's: its strips) at (n, k, m)
+    = EMBED_SHAPE, and the streamed one alone at EMBED_STREAMED_SHAPE. Each
+    row has the card's seconds of the first apply (the host draw included),
+    of a second where Omega is cached (the dense families: the product
+    alone; block and streamed draw again), and the peak device memory above
+    the input beside the bytes of the whole Omega."""
+    from rla4mor_tpu_torch.ops import embeddings as emb
+
+    rows, sketches = [], {}
+
+    def one(label, cls, shape, ref=None, **kw):
+        n, k, m = shape
+        x_cpu = torch.randn((n, m), generator=torch.Generator().manual_seed(n + m))
+        x = x_cpu.to(device)
+        e = cls.make(n, range_dim=k, seed=EMBED_SEED, device=device, **kw)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        y = e.apply(x)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() - base
+        second_s = None  # a second apply: a cached Omega's product alone
+        if e._omega is not None:
+            t0 = time.perf_counter()
+            e.apply(x)
+            torch.cuda.synchronize()
+            second_s = time.perf_counter() - t0
+        y_cpu = cls.make(n, range_dim=k, seed=EMBED_SEED, device="cpu", dtype=torch.float32,
+                         **kw).apply(x_cpu)
+        row = {"label": label, "n": n, "k": k, "m": m, "first_s": first_s,
+               "second_s": second_s, "peak_gb": peak / 1e9,
+               "omega_gb": k * n * (8 if e.complex_dtype else 4) / 1e9,
+               "vs_cpu_rel": rel_max(y.cpu(), y_cpu)}
+        check(row["vs_cpu_rel"] <= 1e-5, f"embeddings {label}: card vs CPU "
+              f"{row['vs_cpu_rel']:.2e} > 1e-5")
+        if ref is not None:
+            row["vs_gaussian_rel"] = rel_max(y, sketches[ref])
+            check(row["vs_gaussian_rel"] <= 1e-5, f"embeddings {label}: vs the Gaussian "
+                  f"{row['vs_gaussian_rel']:.2e} > 1e-5")
+        sketches[label] = y
+        phase("embeddings", **row)
+        rows.append(row)
+        del e, x
+        torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    one("rademacher", emb.RademacherEmbedding, EMBED_SHAPE)
+    one("rademacher complex", emb.RademacherEmbedding, EMBED_SHAPE, complex_dtype=True)
+    one("sparse_sign s=8", emb.SparseSignEmbedding, EMBED_SHAPE, s=8)
+    one("gaussian", emb.GaussianEmbedding, EMBED_SHAPE)
+    one("block", emb.BlockGaussianEmbedding, EMBED_SHAPE, ref="gaussian")
+    one("streamed", emb.StreamedGaussianEmbedding, EMBED_SHAPE, ref="gaussian")
+    one("streamed_large", emb.StreamedGaussianEmbedding, EMBED_STREAMED_SHAPE)
+    return {"rows": len(rows), "wall_s": time.perf_counter() - t0,
+            "streamed_peak_gb": rows[-1]["peak_gb"], "streamed_omega_gb": rows[-1]["omega_gb"]}
+
+
 def build_all(sources) -> dict:
     """nvcc of every source, all started together -> {source: seconds}."""
     from rla4mor_tpu_torch.utils import nvcc
@@ -1779,7 +2095,19 @@ def main(argv=None) -> int:
     phase("estim", **estim, card=smi)
     torch.cuda.empty_cache()
 
-    # 10. result
+    # 10. the complex path: the SRHT kernel at its complex column, the
+    # Helmholtz greedy it sketches at grid 256, the Helmholtz demo in
+    # complex128 at grid 48, then the embedding zoo against the CPU
+    helm_srht_row = helmholtz_srht_row(device)
+    helm_srht = helmholtz_srht_phase(device)
+    phase("helmholtz srht", **helm_srht)
+    helm = helmholtz_phase(device)
+    phase("helmholtz", **helm, card=smi)
+    embeddings = embeddings_phase(device)
+    phase("embeddings", **embeddings)
+    torch.cuda.empty_cache()
+
+    # 11. result
     main_row = next(r for r in rows if r["label"].startswith("slice")
                     and r["dtype"] == "float32" and "m=1 " in r["label"])
     gauss_row = next(r for r in gauss_rows if r["label"].startswith("path")
@@ -1793,8 +2121,9 @@ def main(argv=None) -> int:
     large_launches = large["srht_launches"] + small["srht_launches"]
     family_launches = sum(res["srht_launches"] for _, res in families.values())
     f32_launches = (summary["srht_launches"] + padded["srht_launches"]
-                    + strong["srht_launches"] + large_launches + family_launches
-                    + estim["srht_launches"])
+                    + padded["resume_srht_launches"] + strong["srht_launches"]
+                    + large_launches + family_launches + estim["srht_launches"]
+                    + helm_srht["srht_launches"])
     print(json.dumps({"kernels": [
         kernel_entry("srht_onepass", "rla4mor_tpu_torch/csrc/srht_onepass.cu",
                      "rla4mor_tpu/ops/srht_pallas.py:580", f32_launches, main_row),
@@ -1857,6 +2186,12 @@ def main(argv=None) -> int:
         kernel_entry("gaussian_sketch_tiled", "rla4mor_tpu_torch/csrc/gaussian_sketch.cu",
                      "rla4mor_tpu/ops/gaussian_pallas.py:116", estim["tiled_launches"],
                      estim_tiled_row, note="the [estim] path's tiled launches"),
+        # [helmholtz srht]: complex64 columns of n = 65,025 to k = 220, each
+        # sketched in one launch as its (n, 2) float32 real view
+        kernel_entry("srht_onepass", "rla4mor_tpu_torch/csrc/srht_onepass.cu",
+                     "rla4mor_tpu/ops/srht_pallas.py:580", helm_srht["srht_launches"],
+                     helm_srht_row, note="the [helmholtz srht] path's launches (complex "
+                     "columns as their real view), a subset of the first row's"),
     ]}), flush=True)
     phase("wall", s=time.perf_counter() - t_start)
     print(json.dumps({"ok": True, "device": {

@@ -36,8 +36,8 @@ from rla4mor_tpu_torch.utils.config import as_tensor, default_dtype, resolve_dev
 
 def to_numpy(U) -> np.ndarray:
     """Host float64 (or complex128) numpy copy of a tensor or array."""
-    if isinstance(U, torch.Tensor):
-        U = U.detach().cpu().numpy()
+    if isinstance(U, torch.Tensor):  # a lazily conjugated view is resolved
+        U = U.detach().cpu().resolve_conj().numpy()
     U = np.asarray(U)
     return U.astype(np.complex128 if np.iscomplexobj(U) else np.float64,
                     copy=False)

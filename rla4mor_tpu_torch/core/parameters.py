@@ -199,13 +199,20 @@ def eval_coefficients(coefficients: Sequence[Coefficient], mu: Mu | None,
     """Coefficient values as a (..., T) tensor: (T,) for one Mu, (B, T)
     for a batched Mu (constants broadcast over the batch). dtype/device
     default to those of the Mu leaves; without any, float64 on
-    :func:`~rla4mor_tpu_torch.utils.config.resolve_device` of ``device``."""
+    :func:`~rla4mor_tpu_torch.utils.config.resolve_device` of ``device``.
+    A complex value (the damped Helmholtz family's -k^2 + i c k) promotes a
+    real dtype to its complex counterpart, never dropping the imaginary
+    part."""
     leaf = None if not mu else torch.as_tensor(next(iter(mu.values())))
     if dtype is None:
         dtype = leaf.dtype if leaf is not None else torch.float64
     if device is None:
         device = leaf.device if leaf is not None else resolve_device(None)
     batch = () if leaf is None else leaf.shape[:-1]
-    vals = [torch.as_tensor(c(mu), dtype=dtype, device=device).expand(batch)
-            for c in coefficients]
+    raw = [c(mu) for c in coefficients]
+    if not dtype.is_complex and any(
+            v.is_complex() if isinstance(v, torch.Tensor) else isinstance(v, complex)
+            for v in raw):
+        dtype = torch.promote_types(dtype, torch.complex64)
+    vals = [torch.as_tensor(v, dtype=dtype, device=device).expand(batch) for v in raw]
     return torch.stack(vals, dim=-1)

@@ -69,8 +69,14 @@ class StationaryFOM:
         return self.rhs.assemble_dense(mu)[:, 0]
 
     def solve_host(self, mu: Mu) -> np.ndarray:
-        """Direct sparse solve on the host (float64 numpy)."""
-        return spla.splu(self.assemble_sparse(mu)).solve(self.assemble_rhs(mu))
+        """Direct sparse solve on the host (float64 / complex128 numpy).
+
+        SuperLU orders the columns by minimum degree on A^T + A: the
+        families' matrices have a symmetric sparsity pattern, on which this
+        ordering fills the LU factors less than COLAMD (the JAX package's
+        default) and factorises faster; the solutions agree to rounding."""
+        A = self.assemble_sparse(mu)
+        return spla.splu(A, permc_spec="MMD_AT_PLUS_A").solve(self.assemble_rhs(mu))
 
     def solve(self, mu: Mu) -> torch.Tensor:
         """Direct sparse solve on the host, returned on ``device``."""
@@ -140,6 +146,9 @@ class StationaryROM:
         """Reduced coefficients: (r,) for one Mu, (B, r) for a batch."""
         A = self.lhs.assemble(mu)
         b = self.rhs.assemble_vec(mu)
+        # a real rhs sketch (a real Omega on a real b) with a complex system
+        dt = torch.promote_types(A.dtype, b.dtype)
+        A, b = A.to(dt), b.to(dt)
         if self.ls:
             U, s, Vh = torch.linalg.svd(A, full_matrices=False)
             eps = torch.finfo(s.dtype).eps

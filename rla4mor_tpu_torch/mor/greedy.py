@@ -31,6 +31,20 @@ class GreedyResult:
     iterations: int = 0
 
 
+def _bootstrap(fom, reductor, mu0: Mu, result: GreedyResult) -> None:
+    """First column of an empty reductor: the FOM solution at the first
+    training parameter (all thetas are equal for a mu-independent rhs).
+    A reductor with a basis (a resumed run) keeps it; its basis parameters
+    head ``result.selected_mus``."""
+    if reductor.basis_size:
+        result.selected_mus.extend(reductor.mu_basis)
+        return
+    t0 = time.perf_counter()
+    reductor.extend_basis(fom.solve(mu0), mu=mu0)
+    result.extension_times.append(time.perf_counter() - t0)
+    result.selected_mus.append(mu0)
+
+
 def rb_greedy(
     fom,
     reductor: SketchedReductor,
@@ -41,22 +55,21 @@ def rb_greedy(
     online_seed: int = 0,
     log_level: int = 20,
 ) -> GreedyResult:
-    """Weak greedy: extend with the FOM solution at the worst-estimated mu."""
+    """Weak greedy: extend with the FOM solution at the worst-estimated mu.
+
+    A reductor that already holds a basis (e.g. restored by
+    ``load_reductor_state``) is resumed: no bootstrap, iteration ``it``
+    continues at its basis size with the seed ``online_seed + it``, so a run
+    stopped after r extensions and resumed makes the uninterrupted run's
+    choices (``rtol`` then measures from the resumed run's first estimate)."""
     logger = get_logger("mor.greedy", log_level)
     result = GreedyResult(rom=None)
     mus_batched = {k: v.to(reductor.device)
                    for k, v in mu_stack(list(training_set)).items()}
-
-    # bootstrap: all thetas are equal for a mu-independent rhs, so simply
-    # take the first sample
-    mu0 = training_set[0]
-    t0 = time.perf_counter()
-    reductor.extend_basis(fom.solve(mu0), mu=mu0)
-    result.extension_times.append(time.perf_counter() - t0)
-    result.selected_mus.append(mu0)
+    _bootstrap(fom, reductor, training_set[0], result)
 
     first_max = None
-    for it in range(1, max_extensions):
+    for it in range(reductor.basis_size, max_extensions):
         rom = reductor.reduce(seed=online_seed + it)
         _, estimates = rom.solve_and_estimate_batch(mus_batched)
         imax = int(torch.argmax(estimates))

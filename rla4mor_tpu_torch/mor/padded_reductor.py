@@ -233,8 +233,10 @@ def rb_greedy_no_retrace(
 ):
     """Weak greedy on the padded reductor: every extension and sweep at
     the same shapes. Same seed schedule and selection rule as
-    ``mor.greedy.rb_greedy``."""
-    from rla4mor_tpu_torch.mor.greedy import GreedyResult
+    ``mor.greedy.rb_greedy``, and as there a reductor that already holds a
+    basis (restored by ``load_padded_reductor_state``) is resumed at its
+    basis size."""
+    from rla4mor_tpu_torch.mor.greedy import GreedyResult, _bootstrap
 
     logger = get_logger("mor.greedy", log_level)
     result = GreedyResult(rom=None)
@@ -243,15 +245,10 @@ def rb_greedy_no_retrace(
     max_extensions = reductor.r_max if max_extensions is None else max_extensions
     if max_extensions > reductor.r_max:
         raise ValueError(f"max_extensions={max_extensions} > r_max={reductor.r_max}")
-
-    mu0 = training_set[0]
-    t0 = time.perf_counter()
-    reductor.extend_basis(fom.solve(mu0), mu=mu0)
-    result.extension_times.append(time.perf_counter() - t0)
-    result.selected_mus.append(mu0)
+    _bootstrap(fom, reductor, training_set[0], result)
 
     first_max = None
-    for it in range(1, max_extensions):
+    for it in range(reductor.basis_size, max_extensions):
         estimates = reductor.sweep(mus_batched, online_seed + it)
         imax = int(torch.argmax(estimates))
         emax = float(estimates[imax])

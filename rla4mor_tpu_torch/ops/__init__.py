@@ -10,11 +10,15 @@ from rla4mor_tpu_torch.ops.gaussian_cuda import (
     gaussian_strip_plain,
 )
 from rla4mor_tpu_torch.ops.embeddings import (
+    BlockGaussianEmbedding,
     Embedding,
     GaussianEmbedding,
     HwPrngGaussianEmbedding,
     IdentityEmbedding,
+    RademacherEmbedding,
+    SparseSignEmbedding,
     SrhtEmbedding,
+    StreamedGaussianEmbedding,
     VectorizedEmbedding,
     EmbeddingVectorized,
 )
@@ -28,5 +32,6 @@ __all__ = [
     "gaussian_strip_plain",
     "Embedding", "GaussianEmbedding", "HwPrngGaussianEmbedding",
     "IdentityEmbedding", "SrhtEmbedding", "VectorizedEmbedding",
-    "EmbeddingVectorized",
+    "EmbeddingVectorized", "RademacherEmbedding", "SparseSignEmbedding",
+    "BlockGaussianEmbedding", "StreamedGaussianEmbedding",
 ]

@@ -301,10 +301,12 @@ def srht_onepass(x: torch.Tensor, k: int, signs: torch.Tensor,
     use) and raises if it cannot; on a CPU tensor it runs
     :func:`srht_onepass_plain`. float32, float64, bfloat16 and float16; the
     sums run in ``promote_types(x.dtype, float32)`` and the result is
-    ``out_dtype`` (default: x's dtype). Complex input is sketched as its real
-    and imaginary parts (``view_as_real``), ``out_dtype`` then names their
-    dtype or the complex one. ``srht_onepass.launches`` counts kernel
-    launches, ``srht_onepass.launches_by_dtype`` the same by input dtype."""
+    ``out_dtype`` (default: x's dtype). Complex input (n, m) is sketched in
+    one call as its real view (n, 2m), real and imaginary parts side by side
+    (``view_as_real``), and the (k, 2m) result is read back as complex;
+    ``out_dtype`` then names the parts' dtype or the complex one.
+    ``srht_onepass.launches`` counts kernel launches,
+    ``srht_onepass.launches_by_dtype`` the same by input dtype."""
     if out_dtype is None:
         out_dtype = x.dtype
     if x.is_cuda and x.dtype in _KERNEL_DTYPES and x.dim() == 2:
@@ -312,10 +314,10 @@ def srht_onepass(x: torch.Tensor, k: int, signs: torch.Tensor,
     if x.dim() != 2:
         raise ValueError(f"srht_onepass expects (n, m), got {tuple(x.shape)}")
     if x.is_complex():
-        xr = torch.view_as_real(x)
+        n, m = x.shape
         part = out_dtype.to_real() if out_dtype.is_complex else out_dtype
-        return torch.complex(srht_onepass(xr[..., 0], k, signs, sampling, part),
-                             srht_onepass(xr[..., 1], k, signs, sampling, part))
+        out = srht_onepass(torch.view_as_real(x).reshape(n, 2 * m), k, signs, sampling, part)
+        return torch.view_as_complex(out.reshape(k, m, 2))
     if x.dtype not in _KERNEL_DTYPES:
         raise TypeError(f"srht_onepass: unsupported dtype {x.dtype}")
     if x.device.type == "cpu":

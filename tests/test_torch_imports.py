@@ -1,5 +1,6 @@
 """Importing the PyTorch port pulls in no JAX (nor the JAX package, nor
-scikit-learn) and compiles nothing."""
+scikit-learn) and compiles nothing: every module imports with ``jax`` and
+``rla4mor_tpu`` blocked (an import of either raises)."""
 
 import os
 import subprocess
@@ -18,6 +19,14 @@ _CHILD = r"""
 import importlib, os, pkgutil, subprocess, sys
 
 import numpy, numpy.testing, scipy.sparse.linalg, torch  # third-party first
+
+class Block:  # refuses jax and the JAX package: an import of either raises
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib", "rla4mor_tpu"):
+            raise ImportError(f"blocked: {name}")
+        return None
+
+sys.meta_path.insert(0, Block())
 
 def refuse(*args, **kwargs):
     raise AssertionError(f"importing started a process: {args!r}")
@@ -50,8 +59,12 @@ def test_port_imports_no_jax_and_builds_nothing():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     names = set(proc.stdout.split())
-    assert len(names) >= 23  # every module of the slices
-    assert {"rla4mor_tpu_torch.precond.preconditioned_reductor",
+    assert len(names) >= 27  # every module of the slices
+    assert {"rla4mor_tpu_torch.models.helmholtz",
+            "rla4mor_tpu_torch.mor.bounds",
+            "rla4mor_tpu_torch.mor.scm",
+            "rla4mor_tpu_torch.examples.helmholtz_demo",
+            "rla4mor_tpu_torch.precond.preconditioned_reductor",
             "rla4mor_tpu_torch.precond.preconditioned_rom",
             "rla4mor_tpu_torch.core.image",
             "rla4mor_tpu_torch.core.rsvd",

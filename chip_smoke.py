@@ -93,8 +93,7 @@ Phases, each printing one line (any failed check raises and exits non-zero):
    MG-CG (tol 1e-7, at most 300 iterations), SRHT k = 256 of the snapshot
    and its 4 residual terms (one (1 + T, n) row-wise block a step, the
    kernel's rows layout), ``LARGE_STEPS`` greedy steps over a batch of 8
-   candidates, ``state_to_rom`` and one batch padded to 256 served; then
-   once more at grid ``LARGE_SMALL_GRID`` (n = 263,169). First the SRHT
+   candidates, ``state_to_rom`` and one batch padded to 256 served. First the SRHT
    kernel against its plain version at that path's shapes (m = 1, the rhs;
    m = 5 in the rows layout, the step's block; 1e-4 relative). Each step
    prints its seconds (the first pays any build), CG iterations, recursive
@@ -123,7 +122,24 @@ Phases, each printing one line (any failed check raises and exits non-zero):
    that reached maxiter with a finite iterate (BiCGStab breakdowns), the
    held-out checks against the family's own float64 solve (MG-BiCGStab or
    Jacobi-CG, tol 1e-10; the ROM output error reported, not held: these
-   manifolds converge more slowly) and one profiled step;
+   manifolds converge more slowly) and one profiled step. ``[large
+   nonaffine]``: the Gaussian-bump family at grid 2048 made affine by the
+   EIM fit of the JAX demo (125 training bumps, tol 1e-3, 4 reserve
+   points), MG-CG on the surrogate, each step's block the snapshot and its
+   1 + M terms (one batched stencil apply); the fit's terms, floor, sup
+   error and seconds (fields, host-loop greedy; the device greedy timed on
+   the same fields, with the leading picks it shares with the host loop),
+   a two-grid fit (``NONAFFINE_TWO_GRID``), peak device memory of the fit
+   and of a step, the parameters screened out because the surrogate is not
+   elliptic there (``large_scale_demo.screen_elliptic``); checks: floor > 0,
+   4 reserve points, a positive margin and surrogate minimum at every
+   candidate and held-out parameter, MG-CG to 1e-7 within 300 iterations
+   each step, SRHT launches 1 of m = 1 and one of m = 1 + M a step; held
+   out, the ROM output against float64 MG-CG solves of the surrogate (the
+   float32 fit cast to float64, the same points) and of the exact bump
+   operator (reported), the estimate against the exact surrogate residual
+   in float64 (held to [0.5, 2] where that is > 1e-3 ||b||); then the
+   kernel at the step's block (m = 1 + M, known after the fit);
 8. the sketched preconditioner selector (``[precond]``), through the entry
    point ``rla4mor_tpu_torch.examples.preconditioned_large_demo.run`` at
    its defaults: ``StencilThermalBlock((2, 2), PRECOND_GRID)`` in float32
@@ -271,7 +287,7 @@ BENCH_REPS = 10
 GAUSS_K, GAUSS_W = 256, 2048
 HW_EXTENSIONS = 6  # the HwPrng greedy runs at full width
 GAUSS_BENCH_LOG2N, GAUSS_BENCH_MS = 23, (8, 9, 16, 32, 64, 128)
-LARGE_GRID, LARGE_SMALL_GRID = 2048, 512
+LARGE_GRID = 2048
 # 8 weak-greedy steps over the batch of 8 candidates: 4 random ones leave
 # the ROM's output 2-8% off at held-out parameters on an H100 at grid 512
 # (exact Galerkin on 4 such snapshots is 1.5-5.9% off on the CPU), above
@@ -285,11 +301,15 @@ LARGE_K, LARGE_STEPS = 256, 8
 # snapshots (the median estimate falls 100x over steps 0-3 and 1.5x over
 # 4-7, CPU float32 at grid 512), and past it a snapshot adds only rounding
 # noise, which the append refuses (the 8th there)
-FAMILY_PHASES = (  # (family, grid, steps, 1 + T)
+FAMILY_PHASES = (  # (family, grid, steps, 1 + T; None: known after the EIM fit)
     ("advection", LARGE_GRID, LARGE_STEPS, 4),
     ("helmholtz", LARGE_GRID, 4, 3),
     ("thermal3d", 255, 4, 9),
+    ("nonaffine", LARGE_GRID, LARGE_STEPS, None),
 )
+# [large nonaffine]: the two-grid EIM fit beside the direct one, its greedy
+# on a grid of this many intervals
+NONAFFINE_TWO_GRID = 256
 FAMILY_CG_MAXITER = 6000  # the 3-D float64 reference solve (Jacobi-CG)
 # the bf16 offline path: 6 greedy extensions; the padded path 6 (4 leave the
 # ROM 8.1e-2 off at a held-out parameter, CPU float64 at grid 128, above the
@@ -1274,10 +1294,17 @@ def large_kernel_rows(device, n: int, block: int, label: str = "large") -> list[
 
 
 def reference_solve(fom64, mu, family: str):
-    """The float64 solve the held-out checks compare with: MG-CG (thermal),
+    """The float64 solve the held-out checks compare with: MG-CG (thermal,
+    the nonaffine family's surrogate and its exact bump operator),
     MG-BiCGStab (advection, Helmholtz) or Jacobi-CG (3-D), tol 1e-10."""
     if family == "thermal":
         return fom64.solve_cg_result(mu, tol=1e-10, maxiter=300, precond="mg")
+    if family == "nonaffine":
+        from rla4mor_tpu_torch.core.solvers import cg
+        from rla4mor_tpu_torch.models.stencil import preconditioner
+
+        return cg(lambda v: fom64.apply(mu, v), fom64.rhs(), tol=1e-10, maxiter=300,
+                  precond=preconditioner(fom64, mu, "mg"))
     if family == "thermal3d":
         return fom64.solve_cg_result(mu, tol=1e-10, maxiter=FAMILY_CG_MAXITER)
     return fom64.solve_bicgstab_result(mu, tol=1e-10, maxiter=300, precond="mg")
@@ -1295,7 +1322,17 @@ def large_held_out(res: dict, device, label: str) -> list[dict]:
 
     state, rom, n, family = res["state"], res["rom"], res["n"], res["family"]
     r = int(state.ncols)
-    fom64 = make_fom(family, res["grid"], device, torch.float64)
+    if family == "nonaffine":
+        # the float32 fit cast to float64 (the same points and basis): a
+        # float64 refit would pick other points, another surrogate
+        from rla4mor_tpu_torch.models import EimStencilFOM, gaussian_bump_fom
+
+        fom = res["fom"]
+        exact64 = gaussian_bump_fom(res["grid"], dtype=torch.float64, device=device)
+        fom64 = EimStencilFOM(exact64, fom.interpolant.to(device, torch.float64),
+                              fom.kappa_floor)
+    else:
+        fom64 = make_fom(family, res["grid"], device, torch.float64)
     b64 = fom64.rhs()
     bnorm = float(torch.linalg.vector_norm(b64))
     snaps = torch.stack(res["snapshots"][:r]).reshape(r, n)      # (r, n) float32
@@ -1315,11 +1352,86 @@ def large_held_out(res: dict, device, label: str) -> list[dict]:
                      "est_over_exact": est / exact, "checked": exact > 1e-3 * bnorm,
                      "f64_iters": solve.iters,
                      "f64_rel_res": float(solve.residual_norm) / bnorm})
+        if family == "nonaffine":
+            # the same ROM against the exact (non-affine) bump operator, and
+            # the surrogate's ellipticity margin there
+            truth = reference_solve(exact64, mu, family)
+            s_exact = float(exact64.output(truth.x))
+            rows[-1].update(out_rel_err_exact_op=abs(s_rom - s_exact) / abs(s_exact),
+                            exact_op_iters=truth.iters,
+                            margin=float(fom.ellipticity_margin(mu)),
+                            kappa_min=float(fom.kappa_min(mu)))
+            del truth
         phase(f"{label} held-out", **rows[-1])
         del solve, u_rom
     del snaps, fom64
     torch.cuda.empty_cache()
     return rows
+
+
+def nonaffine_checks(res: dict, widths: dict, label: str) -> dict:
+    """``[large nonaffine]``'s readings and checks beyond the other families':
+    the fit (terms, reserve, floor, sup error, seconds), the margin and
+    the surrogate's minimum at the candidates and at each step's parameter
+    (the demo screened out those where the surrogate is not elliptic),
+    MG-CG to 1e-7 within 300
+    iterations a step, one SRHT launch of m = 1 and one of m = 1 + M a step;
+    then the device greedy on the same training fields (its seconds and the
+    leading picks it shares with the host loop: in float32 a late argmax may
+    flip, so this is reported) and the two-grid fit."""
+    from rla4mor_tpu_torch.core import mu_stack
+    from rla4mor_tpu_torch.examples import large_scale_demo as demo
+    from rla4mor_tpu_torch.models import EimStencilFOM
+    from rla4mor_tpu_torch.mor.eim import eim_greedy_device
+
+    fom, eim = res["fom"], dict(res["eim"])
+    M, steps = fom.n_terms, len(res["step_s"])
+    check(eim["kappa_floor"] > 0, f"{label}: EIM kappa floor {eim['kappa_floor']}")
+    check(eim["reserve"] == demo.EIM_RESERVE, f"{label}: {eim['reserve']} reserve points")
+    check(eim["margin_min"] > 0 and eim["kappa_min"] > 0,
+          f"{label}: ellipticity margin {eim['margin_min']}, surrogate minimum "
+          f"{eim['kappa_min']} over the candidates")
+    steps_mu = mu_stack(res["mus"])
+    eim["step_margin"] = fom.ellipticity_margin(steps_mu).tolist()
+    eim["step_kappa_min"] = fom.kappa_min(steps_mu).tolist()
+    for it, (iters, rr) in enumerate(zip(res["cg_iters"], res["rec_res"])):
+        check(iters < 300 and rr <= 1e-7, f"{label}: step {it}: MG-CG {iters} iterations, "
+              f"residual {rr:.3e}")
+    check(widths == {1: 1, 1 + M: steps}, f"{label}: SRHT launches by width {widths}, not "
+          f"1 of m = 1 and {steps} of m = {1 + M}")
+
+    exact = fom.exact
+    train = exact.parameter_space.sample_uniformly(demo.EIM_TRAIN_PER_DIM, device=exact.device,
+                                                   dtype=exact.dtype)
+    G = exact.kappa(mu_stack(train)).reshape(len(train), -1).T
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dev = eim_greedy_device(G, tol=demo.EIM_TOL, reserve=demo.EIM_RESERVE, inplace=True)
+    torch.cuda.synchronize()
+    eim["device_greedy_s"] = time.perf_counter() - t0
+    del G
+    host_ids, dev_ids = fom.interpolant.snapshot_ids, dev.snapshot_ids
+    shared = 0
+    while (shared < min(len(host_ids), len(dev_ids)) and host_ids[shared] == dev_ids[shared]
+           and int(fom.interpolant.points[shared]) == int(dev.points[shared])):
+        shared += 1
+    eim.update(device_greedy_terms=dev.n_terms, device_greedy_reserve=dev.n_reserve,
+               picks_shared_with_host_loop=shared, host_loop_picks=len(host_ids))
+    del dev
+    t0 = time.perf_counter()
+    two = EimStencilFOM.from_training(exact, train, tol=demo.EIM_TOL, reserve=demo.EIM_RESERVE,
+                                      training_intervals=NONAFFINE_TWO_GRID)
+    torch.cuda.synchronize()
+    hist = two.interpolant.sup_errors
+    eim.update(two_grid_intervals=NONAFFINE_TWO_GRID, two_grid_terms=two.n_terms,
+               two_grid_reserve=two.interpolant.n_reserve,
+               two_grid_fine_residual=hist[min(two.n_terms, len(hist) - 1)],
+               two_grid_kappa_floor=two.kappa_floor, two_grid_s=time.perf_counter() - t0,
+               two_grid_fit_s=two.fit_s)
+    del two
+    torch.cuda.empty_cache()
+    phase(f"{label} eim", **eim)
+    return eim
 
 
 def large_phase(device, grid: int, label: str, family: str = "thermal",
@@ -1332,15 +1444,28 @@ def large_phase(device, grid: int, label: str, family: str = "thermal",
     from rla4mor_tpu_torch.examples import large_scale_demo as demo
     from rla4mor_tpu_torch.ops import srht_cuda
 
+    t_phase = time.perf_counter()
     precond = "jacobi" if family == "thermal3d" else "mg"
+    peak_gb = {}
+
+    def log(line):
+        print(f"[{label}] {line}", flush=True)
+        if line.startswith("EIM offline"):  # the fit is done: its peak, then the steps'
+            peak_gb["fit"] = torch.cuda.max_memory_allocated(device) / 1e9
+            torch.cuda.reset_peak_memory_stats(device)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
     srht_cuda.srht_onepass.launches = 0
+    srht_cuda.srht_onepass.launches_by_width.clear()
     t0 = time.perf_counter()
     res = demo.run(grid=grid, steps=steps, k=LARGE_K, precond=precond, sketch="srht",
-                   device=device, select="greedy", family=family,
-                   log=lambda line: print(f"[{label}] {line}", flush=True))
+                   device=device, select="greedy", family=family, log=log)
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
     launches = srht_cuda.srht_onepass.launches
+    widths = dict(srht_cuda.srht_onepass.launches_by_width)
+    peak_gb["steps_rom_serving"] = torch.cuda.max_memory_allocated(device) / 1e9
 
     state = res["state"]
     for name in ("srb", "res_lhs", "res_rhs", "out"):
@@ -1359,6 +1484,9 @@ def large_phase(device, grid: int, label: str, family: str = "thermal",
     breakdowns = sum(it == res["cg_maxiter"] and bool(torch.isfinite(u).all())
                      for it, u in zip(res["cg_iters"], res["snapshots"]))
 
+    eim = None
+    if family == "nonaffine":
+        eim = nonaffine_checks(res, widths, label)
     rows = large_held_out(res, device, label)
     for row in rows:
         check(math.isfinite(row["out_rel_err"]), f"{label}: ROM output not finite")
@@ -1370,7 +1498,16 @@ def large_phase(device, grid: int, label: str, family: str = "thermal",
                   f"{label}: estimate / exact l2 residual {row['est_over_exact']:.3f} "
                   "outside [0.5, 2]")
 
+    if eim is not None:
+        margins = [row["margin"] for row in rows]
+        check(min(margins) > 0 and min(row["kappa_min"] for row in rows) > 0,
+              f"{label}: ellipticity margin {margins} at the held-out parameters")
+        eim["held_out_margin_min"] = min(margins)
+        eim["out_rel_err_exact_op"] = [row["out_rel_err_exact_op"] for row in rows]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
     prof = demo.profile_step(res["step"], state, res["mus"][-1], res["mu_batch"], top=10)
+    peak_gb["profiled_step"] = torch.cuda.max_memory_allocated(device) / 1e9
     phase(f"{label} profile", wall_s=prof["wall_s"], busy_s=prof["busy_s"],
           idle_share=prof["idle_share"], device_events=prof["device_events"])
     for row in prof["top"]:
@@ -1397,7 +1534,11 @@ def large_phase(device, grid: int, label: str, family: str = "thermal",
         # the profiled step's device time over an unprofiled step's wall time
         "idle_share_unprofiled": (None if prof["busy_s"] is None
                                   else 1.0 - prof["busy_s"] / after_first),
+        "srht_launches_by_width": widths, "peak_gb": peak_gb,
+        "phase_s": time.perf_counter() - t_phase,
     }
+    if eim is not None:
+        out["eim"] = eim
     del res, state
     torch.cuda.empty_cache()
     return out
@@ -2058,25 +2199,31 @@ def main(argv=None) -> int:
     phase("hwprng block", **block)
     del fom, U_strong
 
-    # 7. the large slice at full width, then at grid LARGE_SMALL_GRID
+    # 7. the large slice at full width
     large_rows = large_kernel_rows(device, (LARGE_GRID + 1) ** 2, 5)
     large = large_phase(device, LARGE_GRID, "large")
     phase("large", **large)
-    large_kernel_rows(device, (LARGE_SMALL_GRID + 1) ** 2, 5)
-    small = large_phase(device, LARGE_SMALL_GRID, "large 512")
-    phase("large 512", **small)
     torch.cuda.empty_cache()
 
-    # the advection, Helmholtz and 3-D families at full width: the kernel at
-    # each family's block against its plain version, then the path
+    # the advection, Helmholtz, 3-D and non-affine families at full width:
+    # the kernel at each family's block against its plain version, then the
+    # path (the non-affine block's width is 1 + the EIM fit's terms, so its
+    # kernel row comes after the path)
     families = {}
     for family, grid, steps, width in FAMILY_PHASES:
         label = f"large {family}"
         n = (grid + 1) ** (3 if family == "thermal3d" else 2)
-        kernel_row = next(r for r in large_kernel_rows(device, n, width, label)
-                          if f" m={width} " in r["label"])
-        families[family] = (kernel_row, large_phase(device, grid, label, family, steps))
-        phase(label, **families[family][1])
+
+        def kernel_row(m):
+            return next(r for r in large_kernel_rows(device, n, m, label)
+                        if f" m={m} " in r["label"])
+
+        row = None if width is None else kernel_row(width)
+        res = large_phase(device, grid, label, family, steps)
+        phase(label, **res)
+        if row is None:
+            row = kernel_row(1 + res["eim"]["terms"])
+        families[family] = (row, res)
 
     # 8. the sketched preconditioner selector at 1,050,625 DoF, then with
     # the HwPrng residual embedding (the Omega kernel's path)
@@ -2118,7 +2265,7 @@ def main(argv=None) -> int:
                     and "m=1 " in r["label"] and r["out"] == "float32")
     tiled_row = next(r for r in gauss_rows if r["label"] == f"bench n={1 << GAUSS_BENCH_LOG2N} "
                      f"m=128 k={GAUSS_K}" and r["dist"] == "normal")
-    large_launches = large["srht_launches"] + small["srht_launches"]
+    large_launches = large["srht_launches"]
     family_launches = sum(res["srht_launches"] for _, res in families.values())
     f32_launches = (summary["srht_launches"] + padded["srht_launches"]
                     + padded["resume_srht_launches"] + strong["srht_launches"]
@@ -2137,7 +2284,7 @@ def main(argv=None) -> int:
         # kernel's B rows a step; its sign packing was a traffic trick)
         kernel_entry("srht_onepass", "rla4mor_tpu_torch/csrc/srht_onepass.cu",
                      "rla4mor_tpu/ops/srht_pallas.py:487", large_launches, large_row,
-                     note="the large paths' launches, a subset of the first row's; "
+                     note="the large path's launches, a subset of the first row's; "
                      "the JAX large path computes this SRHT through its XLA twin "
                      "srht_sketch_sharded_flat (rla4mor_tpu/parallel/"
                      "sharded_sketch.py:195), not a Pallas kernel"),

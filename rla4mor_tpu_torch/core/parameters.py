@@ -13,6 +13,7 @@ from dataclasses import dataclass, field
 from functools import reduce
 from typing import Callable, Dict, Mapping, Sequence, Tuple, Union
 
+import numpy as np
 import torch
 
 from rla4mor_tpu_torch.ops.seeding import generator
@@ -71,6 +72,24 @@ class ParameterSpace:
             g = generator(seed, i)
             out.append({name: uniform(g, size, self.low, self.high, dev, dt)
                         for name, size in self.shapes})
+        return out
+
+    def sample_uniformly(self, counts_per_dim: int, device=None, dtype=None) -> list[Mu]:
+        """Tensor grid of ``counts_per_dim`` points an axis over every
+        parameter entry, in the JAX package's order (``indexing="ij"``: the
+        last entry fastest), on ``device`` in ``dtype``."""
+        dev = resolve_device(device)
+        dt = default_dtype(dev) if dtype is None else dtype
+        axes = [np.linspace(self.low, self.high, counts_per_dim)] * self.dim()
+        grid = np.stack(np.meshgrid(*axes, indexing="ij"), axis=-1).reshape(-1, len(axes))
+        rows = torch.as_tensor(grid).to(dev, dt)
+        out = []
+        for row in rows:
+            mu, off = {}, 0
+            for name, size in self.shapes:
+                mu[name] = row[off:off + size]
+                off += size
+            out.append(mu)
         return out
 
 

@@ -10,7 +10,16 @@ The port's counterpart of ``examples/large_scale_demo.py`` (BASELINE config
 * ``helmholtz``: ``StencilHelmholtz(N)``, indefinite K - ksq M (ksq between
   the first two resonances), BiCGStab, minres;
 * ``thermal3d``: ``StencilThermalBlock3D((2, 2, 2), N)``, trilinear 3-D
-  (grid 255: 256^3 = 16.8M DoF), Jacobi-CG (the V-cycle is 2-D).
+  (grid 255: 256^3 = 16.8M DoF), Jacobi-CG (the V-cycle is 2-D);
+* ``nonaffine``: the Gaussian-bump conductivity (``gaussian_bump_fom(N)``),
+  made affine by an offline EIM greedy over a 5^3 training grid (tol 1e-3,
+  4 reserve points; ``--eim-grid G`` trains on a G-interval grid and
+  rebuilds on the fine one, ``--eim-scan`` runs the greedy with the argmax
+  indices on the device), device CG on the surrogate. It prints the EIM
+  fit, and the kappa indicator and ellipticity margin over the batch
+  (parameters at which the surrogate is not elliptic are screened out and
+  listed: ``screen_elliptic``);
+  ``--score exact`` adds the EIM model-error bound to each estimate.
 
 Solves are preconditioned by Jacobi or the V-cycle (``--precond mg``, the
 2-D families: on the thermal block's field, on the advection family's
@@ -21,6 +30,7 @@ kernel), through the padded greedy step of ``parallel/driver.py``; then
 
     python -m rla4mor_tpu_torch.examples.large_scale_demo --precond mg --sketch srht
     python -m rla4mor_tpu_torch.examples.large_scale_demo --family thermal3d --grid 255 --sketch srht
+    python -m rla4mor_tpu_torch.examples.large_scale_demo --family nonaffine --precond mg --sketch srht
     python -m rla4mor_tpu_torch.examples.large_scale_demo --cpu --grid 16 --steps 2
 
 The defaults are the JAX demo's (thermal, Jacobi, Gaussian, k = 256, 4
@@ -41,12 +51,12 @@ import torch
 
 # the JAX demo's families that need modules the port does not have yet
 NOT_PORTED = {
-    "nonaffine": "EIM and const_arrays / bind in parallel/driver.py (ROADMAP.md queue 1, "
-                 "item 8)",
     "lossy": "its bounds-only flow through the matrix-free SCM (ROADMAP.md queue 1, "
              "item 10)",
 }
-FAMILIES = ("thermal", "advection", "helmholtz", "thermal3d", *NOT_PORTED)
+FAMILIES = ("thermal", "advection", "helmholtz", "thermal3d", "nonaffine", *NOT_PORTED)
+# the JAX demo's EIM fit: a 5^3 tensor grid of training bumps, tol 1e-3
+EIM_TRAIN_PER_DIM, EIM_TOL, EIM_RESERVE = 5, 1e-3, 4
 
 
 def _sync(device: torch.device) -> None:
@@ -61,8 +71,43 @@ def true_residual(fom, mu, u: torch.Tensor) -> float:
     return float(torch.linalg.vector_norm(r) / torch.linalg.vector_norm(b))
 
 
-def make_fom(family: str, num_intervals: int, device, dtype=None):
-    """The demo's FOM of ``family`` at ``num_intervals`` elements an axis."""
+def screen_elliptic(fom, count: int, seed: int):
+    """``count`` parameters of the EIM family's stream ``seed`` at which the
+    surrogate is elliptic, and the (draw index, margin, surrogate minimum)
+    of those screened out. The surrogate is held positive on its training
+    set only; elsewhere a narrow bump between training points can leave it
+    indefinite, and its solves and estimates describe another operator (CG
+    on it breaks down). A draw is kept where both the ellipticity margin
+    (the exact FOM's kappa_lower less the reserve-point indicator, an O(M)
+    estimate of how far the surrogate may dip below the exact field) and
+    the surrogate field's minimum over the elements are positive. Draw i of
+    a stream does not depend on the count, so the kept draws are the
+    stream's first elliptic ones."""
+    from rla4mor_tpu_torch.core import mu_stack
+
+    kept, screened, drawn = [], [], 0
+    while len(kept) < count:
+        more = 2 * (count - len(kept))
+        mus = fom.sample_parameters(drawn + more, seed)[drawn:]
+        batch = mu_stack(mus)
+        margins = fom.ellipticity_margin(batch).tolist()
+        minima = fom.kappa_min(batch).tolist()
+        for i, (mu, margin, low) in enumerate(zip(mus, margins, minima)):
+            if len(kept) == count:
+                break
+            if margin > 0 and low > 0:
+                kept.append(mu)
+            else:
+                screened.append((drawn + i, margin, low))
+        drawn += more
+    return kept, screened
+
+
+def make_fom(family: str, num_intervals: int, device, dtype=None, eim_grid=None,
+             eim_scan: bool = False):
+    """The demo's FOM of ``family`` at ``num_intervals`` elements an axis
+    (``nonaffine``: the EIM surrogate, fit here; ``eim_grid`` its two-grid
+    training grid, ``eim_scan`` the device greedy)."""
     from rla4mor_tpu_torch import models
 
     if family == "thermal":
@@ -74,13 +119,21 @@ def make_fom(family: str, num_intervals: int, device, dtype=None):
     if family == "thermal3d":
         return models.StencilThermalBlock3D((2, 2, 2), num_intervals, dtype=dtype,
                                             device=device)
+    if family == "nonaffine":
+        exact = models.gaussian_bump_fom(num_intervals, dtype=dtype, device=device)
+        train = exact.parameter_space.sample_uniformly(EIM_TRAIN_PER_DIM, device=exact.device,
+                                                       dtype=exact.dtype)
+        return models.EimStencilFOM.from_training(
+            exact, train, tol=EIM_TOL, reserve=EIM_RESERVE, training_intervals=eim_grid,
+            device_scan=eim_scan)
     raise ValueError(f"no FOM for family {family!r}")
 
 
 def run(grid: int = 2047, steps: int = 4, k: int = 256, precond: str = "jacobi",
         sketch: str = "gaussian", score: str = "sketched", device=None, dtype=None,
         batch: int = 8, requests: int = 200, serve_size: int = 256, seed: int = 0,
-        select: str = "random", family: str = "thermal", log=print) -> dict:
+        select: str = "random", family: str = "thermal", eim_grid=None,
+        eim_scan: bool = False, log=print) -> dict:
     """Build the FOM, run ``steps`` greedy steps, ship the ROM and serve one
     padded batch; returns what was built and measured.
 
@@ -89,7 +142,10 @@ def run(grid: int = 2047, steps: int = 4, k: int = 256, precond: str = "jacobi",
     first and then takes the batch candidate with the largest estimate of
     the step before among those not taken yet (the weak greedy; at most
     ``batch`` + 1 steps). ``precond="mg"`` applies to the 2-D
-    families only; the 3-D one runs Jacobi (with a note)."""
+    families only; the 3-D one runs Jacobi (with a note). ``eim_grid`` /
+    ``eim_scan``: the nonaffine family's EIM fit (``make_fom``); its
+    readings are ``out["eim"]``, and its parameters are screened by their
+    ellipticity margin (``screen_elliptic``)."""
     if family in NOT_PORTED:
         raise NotImplementedError(f"--family {family} needs {NOT_PORTED[family]}")
     if select not in ("random", "greedy"):
@@ -111,7 +167,25 @@ def run(grid: int = 2047, steps: int = 4, k: int = 256, precond: str = "jacobi",
     if use_mg:  # multigrid needs power-of-two element counts
         while N & (N - 1):
             N += 1
-    fom = make_fom(family, N, device, dtype)
+    t0 = time.perf_counter()
+    fom = make_fom(family, N, device, dtype, eim_grid=eim_grid, eim_scan=eim_scan)
+    _sync(device)
+    eim = None
+    if family == "nonaffine":
+        # direct: sup_errors[n_terms] is the training sup error of the M active
+        # terms; two-grid: the rebuild's history holds the selected snapshots'
+        # fine residuals only (the certified history is the coarse greedy's)
+        hist = fom.interpolant.sup_errors
+        eim = {"terms": fom.n_terms, "reserve": fom.interpolant.n_reserve,
+               "sup_err": hist[min(fom.n_terms, len(hist) - 1)],
+               "label": ("training sup err" if eim_grid is None
+                         else "selected-snapshot fine residual"),
+               "kappa_floor": fom.kappa_floor, "fit_s": time.perf_counter() - t0,
+               **{f"{part}_s": s for part, s in fom.fit_s.items()}}
+        log(f"EIM offline: {eim['terms']} terms / magic points (+{eim['reserve']} reserve) "
+            f"in {eim['fit_s']:.2f}s (fields {eim['fields_s']:.2f}s, greedy "
+            f"{eim['greedy_s']:.2f}s) ({eim['label']} {eim['sup_err']:.2e}, kappa floor "
+            f"{eim['kappa_floor']:.4f})")
     n = math.prod(fom.solution_shape)
     projection = "galerkin" if fom.is_spd else "minres"
     solver = "cg" if fom.is_spd else "bicgstab"
@@ -125,7 +199,11 @@ def run(grid: int = 2047, steps: int = 4, k: int = 256, precond: str = "jacobi",
     state, step = make_sharded_greedy_step(
         fom, seed=seed, k=k, r_max=steps, cg_tol=1e-7, cg_maxiter=cg_maxiter,
         cg_precond="mg" if use_mg else "jacobi", sketch=sketch, score=score,
-        projection=projection)
+        projection=projection,
+        # nonaffine with the exact score: each estimate adds the candidate's
+        # EIM model-error bound (the RB residual is against the surrogate)
+        model_error=(fom.model_error_bound if family == "nonaffine" and score == "exact"
+                     else None))
     _sync(device)
     setup_s = time.perf_counter() - t0
     if family == "thermal":
@@ -133,12 +211,29 @@ def run(grid: int = 2047, steps: int = 4, k: int = 256, precond: str = "jacobi",
 
         def sample(count, seed):
             return space.sample_randomly(count, seed=seed, device=device)
+    elif family == "nonaffine":
+        eim["screened"] = []
+
+        def sample(count, seed):
+            mus, screened = screen_elliptic(fom, count, seed)
+            eim["screened"] += [(seed, *row) for row in screened]
+            return mus
     else:
         sample = fom.sample_parameters
     mu_batch = mu_stack(sample(batch, 1))
     drawn = [sample(1, 10 + it)[0] for it in range(steps)]
 
-    out = {"fom": fom, "family": family, "n": n, "grid": N, "sample": sample,
+    if eim is not None:
+        # the sketched estimates measure the RB error against the surrogate;
+        # the kappa indicator estimates the EIM model error over the batch
+        eim["kappa_indicator_max"] = float(fom.kappa_error_indicator(mu_batch).max())
+        eim["margin_min"] = float(fom.ellipticity_margin(mu_batch).min())
+        eim["kappa_min"] = float(fom.kappa_min(mu_batch).min())
+        log(f"EIM kappa indicator over the mu batch: max {eim['kappa_indicator_max']:.2e} "
+            f"(ellipticity margin min {eim['margin_min']:.3f}, surrogate min "
+            f"{eim['kappa_min']:.3f}; draws screened out, (seed, draw, margin, surrogate "
+            f"min): {eim['screened']})")
+    out = {"fom": fom, "family": family, "n": n, "grid": N, "sample": sample, "eim": eim,
            "mu_batch": mu_batch, "projection": projection, "cg_maxiter": cg_maxiter,
            "mus": [], "setup_s": setup_s, "step_s": [], "cg_iters": [],
            "rec_res": [], "true_res": [], "median_est": [], "estimates": [],
@@ -253,16 +348,29 @@ def main(argv=None) -> int:
     ap.add_argument("--family", choices=FAMILIES, default="thermal",
                     help="advection: non-SPD, BiCGStab, minres; helmholtz: indefinite "
                     "K - ksq M, BiCGStab, minres; thermal3d: trilinear 3-D block, "
-                    "Jacobi-CG (nonaffine and lossy are not ported)")
+                    "Jacobi-CG; nonaffine: Gaussian-bump conductivity made affine by "
+                    "an offline EIM greedy (lossy is not ported)")
+    ap.add_argument("--eim-grid", type=int, default=None,
+                    help="nonaffine: two-grid EIM, the greedy on this interval count "
+                    "and the selected snapshots rebuilt on the fine grid")
+    ap.add_argument("--eim-scan", action="store_true",
+                    help="nonaffine: the EIM greedy with its argmax indices on the "
+                    "device, one host read a chunk")
     ap.add_argument("--bounds", action="store_true")
     ap.add_argument("--profile", action="store_true",
                     help="profile one more step and print its top device operations")
     args = ap.parse_args(argv)
+    if args.bounds and args.family == "nonaffine":
+        raise NotImplementedError(
+            "--bounds --family nonaffine: the total bound against the exact operator "
+            "needs the unit-stiffness enclosure of scm_matfree.l2_interior_scm, which is "
+            "not ported (ROADMAP.md queue 1, item 10)")
     if args.bounds:
         raise NotImplementedError(
             "--bounds: the matrix-free SCM is not ported (ROADMAP.md queue 1, item 10)")
     res = run(args.grid, args.steps, args.k, args.precond, args.sketch, args.score,
-              device="cpu" if args.cpu else None, select=args.select, family=args.family)
+              device="cpu" if args.cpu else None, select=args.select, family=args.family,
+              eim_grid=args.eim_grid, eim_scan=args.eim_scan)
     if args.profile:
         prof = profile_step(res["step"], res["state"], res["mus"][-1], res["mu_batch"])
         print(f"profiled step {prof['wall_s']:.4f}s, device busy {prof['busy_s']}s, "

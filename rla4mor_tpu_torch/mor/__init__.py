@@ -14,9 +14,13 @@ from rla4mor_tpu_torch.mor.padded_reductor import (
     rb_greedy_no_retrace,
 )
 from rla4mor_tpu_torch.mor.serialization import (
+    load_eim_interpolant,
+    load_mdeim_operator,
     load_padded_reductor_state,
     load_reductor_state,
     load_rom,
+    save_eim_interpolant,
+    save_mdeim_operator,
     save_padded_reductor,
     save_reductor,
     save_rom,
@@ -28,6 +32,18 @@ from rla4mor_tpu_torch.mor.bounds import (
     inf_sup_error_bound,
 )
 from rla4mor_tpu_torch.mor.scm import ScmCoercivity, ScmHermitian, ScmInfSup
+from rla4mor_tpu_torch.mor.eim import (
+    EimInterpolant,
+    MdeimOperator,
+    deim,
+    deim_points,
+    eim_greedy,
+    eim_greedy_device,
+    eim_greedy_scan,
+    eim_rebuild,
+    mdeim,
+    theta_coefficients,
+)
 
 __all__ = ["ClassicalReductor", "GramResidualEstimator", "SketchedReductor",
            "GreedyResult", "rb_greedy", "rb_greedy_padded", "rb_greedy_strong",
@@ -35,4 +51,7 @@ __all__ = ["ClassicalReductor", "GramResidualEstimator", "SketchedReductor",
            "save_reductor", "load_reductor_state", "save_padded_reductor",
            "load_padded_reductor_state", "MinThetaCoercivity", "InfSupLowerBound",
            "error_bound", "inf_sup_error_bound", "ScmHermitian", "ScmCoercivity",
-           "ScmInfSup"]
+           "ScmInfSup", "EimInterpolant", "eim_greedy", "eim_greedy_device",
+           "eim_greedy_scan", "eim_rebuild", "deim", "deim_points", "MdeimOperator", "mdeim",
+           "theta_coefficients", "save_eim_interpolant", "load_eim_interpolant",
+           "save_mdeim_operator", "load_mdeim_operator"]

@@ -25,6 +25,10 @@ the sketched reductors:
   projection. A coefficient the file format cannot name (an
   ``ExpressionCoefficient``, e.g. the Helmholtz family's) raises
   ``TypeError``, as in the JAX package.
+* ``save_eim_interpolant`` / ``load_eim_interpolant`` and
+  ``save_mdeim_operator`` / ``load_mdeim_operator``: the non-affine
+  surrogates' offline results, under the JAX package's keys, so either
+  package loads the other's files. They hold no seed and no tag.
 """
 
 from __future__ import annotations
@@ -276,3 +280,76 @@ def load_padded_reductor_state(reductor, path) -> None:
         mu_basis = _load_mu_basis(d, dev)
     if mu_basis:
         reductor.mu_basis = mu_basis
+
+
+# ---------------------------------------------------------------------------
+# EIM interpolants and MDEIM operators
+# ---------------------------------------------------------------------------
+
+
+def _eim_arrays(interp) -> dict:
+    """An ``EimInterpolant`` as the JAX package's ``.npz`` fields (one
+    site, shared by the MDEIM saver)."""
+    return dict(
+        basis=_numpy(interp.basis),
+        points=_numpy(interp.points).astype(np.int32),
+        interp_matrix=_numpy(interp.interp_matrix),
+        triangular=np.asarray(interp.triangular),
+        sup_errors=np.asarray(interp.sup_errors, np.float64),
+        n_reserve=np.asarray(interp.n_reserve),
+        snapshot_ids=np.asarray(interp.snapshot_ids, np.int64),
+    )
+
+
+def _eim_from(d, device, dtype):
+    from rla4mor_tpu_torch.mor.eim import EimInterpolant
+
+    def arr(name):
+        t = torch.as_tensor(d[name]).to(device)
+        return t if dtype is None else t.to(dtype)
+
+    # the basis column-major, as the greedies build it
+    basis = torch.as_tensor(np.ascontiguousarray(d["basis"].T)).to(device).T
+    return EimInterpolant(
+        basis=basis if dtype is None else basis.to(dtype),
+        points=torch.as_tensor(d["points"]).to(device=device, dtype=torch.int64),
+        interp_matrix=arr("interp_matrix"), triangular=bool(d["triangular"]),
+        sup_errors=tuple(d["sup_errors"].tolist()), n_reserve=int(d["n_reserve"]),
+        snapshot_ids=tuple(int(j) for j in d["snapshot_ids"]))
+
+
+def save_eim_interpolant(interp, path) -> None:
+    """An :class:`~rla4mor_tpu_torch.mor.eim.EimInterpolant` as ``.npz``,
+    in the JAX package's format (either package loads the other's files).
+    An interpolant holds no seed, so the file carries no derivation tag."""
+    np.savez(Path(path), eim_version=np.asarray(1), **_eim_arrays(interp))
+
+
+def load_eim_interpolant(path, device=None, dtype=None):
+    """Load an interpolant written by either package, on ``device``, in the
+    file's dtype unless ``dtype`` is given."""
+    dev = resolve_device(device)
+    with np.load(Path(path), allow_pickle=False) as d:
+        if int(d["eim_version"]) != 1:
+            raise ValueError("unknown EIM checkpoint version")
+        return _eim_from(d, dev, dtype)
+
+
+def save_mdeim_operator(op, path) -> None:
+    """An :class:`~rla4mor_tpu_torch.mor.eim.MdeimOperator` (its
+    interpolant and the shared CSR pattern) as ``.npz``, the JAX package's
+    format."""
+    np.savez(Path(path), mdeim_version=np.asarray(1), indices=op.indices, indptr=op.indptr,
+             shape=np.asarray(op.shape), **_eim_arrays(op.interpolant))
+
+
+def load_mdeim_operator(path):
+    """Load an MDEIM operator written by either package (a host object:
+    its interpolant on the CPU, in the file's dtype)."""
+    from rla4mor_tpu_torch.mor.eim import MdeimOperator
+
+    with np.load(Path(path), allow_pickle=False) as d:
+        if int(d["mdeim_version"]) != 1:
+            raise ValueError("unknown MDEIM checkpoint version")
+        return MdeimOperator(_eim_from(d, torch.device("cpu"), None), d["indices"],
+                             d["indptr"], tuple(int(s) for s in d["shape"]))

@@ -290,6 +290,7 @@ def _launch(x: torch.Tensor, k: int, signs: torch.Tensor, sampling: torch.Tensor
                                   stream), "srht_onepass kernel launch")
     srht_onepass.launches += 1
     srht_onepass.launches_by_dtype[x.dtype] += 1
+    srht_onepass.launches_by_width[m] += 1
     return out if out.dtype == out_dtype else out.to(out_dtype)
 
 
@@ -306,7 +307,8 @@ def srht_onepass(x: torch.Tensor, k: int, signs: torch.Tensor,
     (``view_as_real``), and the (k, 2m) result is read back as complex;
     ``out_dtype`` then names the parts' dtype or the complex one.
     ``srht_onepass.launches`` counts kernel launches,
-    ``srht_onepass.launches_by_dtype`` the same by input dtype."""
+    ``srht_onepass.launches_by_dtype`` the same by input dtype and
+    ``srht_onepass.launches_by_width`` by the number m of columns."""
     if out_dtype is None:
         out_dtype = x.dtype
     if x.is_cuda and x.dtype in _KERNEL_DTYPES and x.dim() == 2:
@@ -329,3 +331,4 @@ def srht_onepass(x: torch.Tensor, k: int, signs: torch.Tensor,
 
 srht_onepass.launches = 0
 srht_onepass.launches_by_dtype = collections.Counter()
+srht_onepass.launches_by_width = collections.Counter()

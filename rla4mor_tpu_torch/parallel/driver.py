@@ -39,15 +39,13 @@ class GreedyState(NamedTuple):
     # (r_max, *grid) basis grids, kept only for score="exact"
     # (invariant: srb[:, j] == sketch(U[j]))
     U: Optional[torch.Tensor] = None
-    # constant FOM arrays of the non-affine families (not ported yet)
-    aux: Optional[dict] = None
     # (n_out, r_max) reduced output columns out[:, j] = l(U[j]), tracked
     # through the same Gram-Schmidt combination as srb (l is linear)
     out: Optional[torch.Tensor] = None
 
 
 def init_state(k: int, r_max: int, n_terms: int, res_rhs: torch.Tensor,
-               U0=None, aux=None, out0=None) -> GreedyState:
+               U0=None, out0=None) -> GreedyState:
     dt, dev = res_rhs.dtype, res_rhs.device
     return GreedyState(
         srb=torch.zeros((k, r_max), dtype=dt, device=dev),
@@ -55,7 +53,6 @@ def init_state(k: int, r_max: int, n_terms: int, res_rhs: torch.Tensor,
         res_rhs=res_rhs,
         ncols=torch.zeros((), dtype=torch.int32, device=dev),
         U=U0,
-        aux=aux,
         out=out0,
     )
 
@@ -88,8 +85,12 @@ def make_sharded_greedy_step(
     ``theta_vector(mu)``, ``apply(mu, u)``, ``apply_term(t, u)``,
     ``rhs(dtype=None)``, ``jacobi_diag(mu)``, ``is_spd`` (``False``:
     BiCGStab); ``kappa(mu)``, a 2-D element field, for ``cg_precond="mg"``;
-    ``output(u)`` for the ROM's output columns. ``solution_shape`` may have
-    rank 2 or 3 (``models/stencil3d.py``).
+    ``output(u)`` for the ROM's output columns; ``apply_terms(u)``, all T
+    terms in one batched apply, where the FOM has it. ``solution_shape`` may
+    have rank 2 or 3 (``models/stencil3d.py``). The non-affine
+    ``EimStencilFOM`` runs as it is: the step closes over its basis fields
+    on the device (the JAX package threads them through the state, because
+    its compiler would embed them in the program).
 
     ``sketch``: ``"gaussian"`` (the canonical Omega of ``seed``, generated in
     column chunks) or ``"srht"`` (``SrhtEmbedding(k, n, seed)``, the one-pass
@@ -126,10 +127,6 @@ def make_sharded_greedy_step(
                          "which only score='exact' keeps")
     if score not in ("sketched", "exact"):
         raise ValueError(f"unknown score mode {score!r}")
-    if hasattr(fom, "const_arrays"):
-        raise NotImplementedError(
-            "FOMs with constant array leaves (const_arrays / bind: the non-affine "
-            "EIM families) are not ported yet: ROADMAP.md queue 1, item 8")
     n = math.prod(fom.solution_shape)
     T = fom.n_terms
 

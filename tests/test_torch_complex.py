@@ -15,6 +15,7 @@ at the float64 floor (PBDW's 8 background states resolve the grid-9
 manifold to 1e-15-1e-10).
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -64,8 +65,11 @@ def _jax_demo_flow(grid, extensions):
         rom = red.reduce(seed=100 + it)
         if red.basis_size <= 5:
             rom_mid, rb_mid = rom, np.asarray(red.rb).copy()
-        ests = np.asarray(rom.solve_and_estimate_batch(train_b)[1])
-        y_t, est_t = rom.solve_and_estimate_batch(test_b)
+        # one compiled program a basis size (eagerly, each of the batched
+        # solve's primitives compiles anew at each size)
+        batched = jax.jit(rom.solve_and_estimate_batch)
+        ests = np.asarray(batched(train_b)[1])
+        y_t, est_t = batched(test_b)
         rel = np.asarray(Ru.norm(jnp.asarray(u_test - np.asarray(red.rb) @ np.asarray(y_t).T)))
         hist["r"].append(red.basis_size)
         hist["err"].append(float(np.median(rel / nrm_test)))

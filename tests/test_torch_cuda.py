@@ -720,3 +720,55 @@ def test_helmholtz_demo_on_the_card_matches_the_cpu(cuda):
     for key in ("pbdw", "dic"):
         a, b = gpu["recovery"][key], cpu["recovery"][key]
         assert np.all(np.abs(a - b) <= 1e-6 * b + 1e-9), (key, a, b)
+
+
+def _bump_training_fields(grid: int):
+    """The Gaussian-bump family's 5^3 training fields at ``grid`` on the CPU
+    in float64, as the (n, 125) column-major block of ``from_training``."""
+    from rla4mor_tpu_torch.core import mu_stack
+    from rla4mor_tpu_torch.models import gaussian_bump_fom
+
+    exact = gaussian_bump_fom(grid, dtype=torch.float64, device="cpu")
+    train = exact.parameter_space.sample_uniformly(5, device="cpu", dtype=torch.float64)
+    return exact, train, exact.kappa(mu_stack(train)).reshape(len(train), -1).T
+
+
+def test_eim_greedy_on_the_card_matches_the_cpu(cuda):
+    """The EIM host loop and the device greedy (chunks 5 and 32) on the
+    card pick the CPU host loop's points and snapshots from the same
+    float64 training fields (grid 32), basis and history to 1e-12: the
+    residual update rounds its product before subtracting on both."""
+    from rla4mor_tpu_torch.mor.eim import eim_greedy, eim_greedy_device
+
+    _, _, G = _bump_training_fields(32)
+    cpu = eim_greedy(G, tol=1e-3, reserve=4)
+    for card in (eim_greedy(G.to(cuda), tol=1e-3, reserve=4),
+                 eim_greedy_device(G.to(cuda), tol=1e-3, reserve=4, chunk=5),
+                 eim_greedy_device(G.to(cuda), tol=1e-3, reserve=4, chunk=32)):
+        assert card.snapshot_ids == cpu.snapshot_ids and card.n_reserve == cpu.n_reserve == 4
+        assert torch.equal(card.points.cpu(), cpu.points)
+        assert rel_err(card.basis.cpu(), cpu.basis) < 1e-12
+        assert max(abs(a - b) for a, b in zip(card.sup_errors, cpu.sup_errors)) < 1e-12
+
+
+def test_eim_apply_terms_on_the_card_matches_the_cpu(cuda):
+    """The surrogate of a CPU fit (grid 32) moved to the card: its batched
+    term apply, theta over a batch, kappa and apply equal the CPU's to
+    1e-12 in float64."""
+    from rla4mor_tpu_torch.core import mu_stack
+    from rla4mor_tpu_torch.models import EimStencilFOM, gaussian_bump_fom
+
+    exact, train, _ = _bump_training_fields(32)
+    cpu = EimStencilFOM.from_training(exact, train, tol=1e-3)
+    card = EimStencilFOM(gaussian_bump_fom(32, dtype=torch.float64, device=cuda),
+                         cpu.interpolant.to(cuda), cpu.kappa_floor)
+    g = torch.Generator().manual_seed(5)
+    u = torch.randn(cpu.solution_shape, generator=g, dtype=torch.float64)
+    assert rel_err(card.apply_terms(u.to(cuda)).cpu(), cpu.apply_terms(u)) < 1e-12
+    mus = [{"bump": torch.rand(3, generator=g, dtype=torch.float64)} for _ in range(3)]
+    batch = mu_stack(mus)
+    assert rel_err(card.theta_vector({"bump": batch["bump"].to(cuda)}).cpu(),
+                   cpu.theta_vector(batch)) < 1e-12
+    mu = {"bump": mus[0]["bump"].to(cuda)}
+    assert rel_err(card.kappa(mu).cpu(), cpu.kappa(mus[0])) < 1e-12
+    assert rel_err(card.apply(mu, u.to(cuda)).cpu(), cpu.apply(mus[0], u)) < 1e-12

@@ -41,6 +41,7 @@ from rla4mor_tpu import models as jmodels  # noqa: E402
 from rla4mor_tpu.ops.fwht import _srht_plan as jax_srht_plan  # noqa: E402
 from rla4mor_tpu.parallel import make_sharded_greedy_step as jax_make_step  # noqa: E402
 from rla4mor_tpu.parallel import state_to_rom as jax_state_to_rom  # noqa: E402
+from rla4mor_tpu.parallel import driver as jax_driver, sharded_sketch as jax_sharded_sketch  # noqa: E402
 
 from rla4mor_tpu_torch import models as tmodels  # noqa: E402
 from rla4mor_tpu_torch.core import mu_stack  # noqa: E402
@@ -54,6 +55,22 @@ from rla4mor_tpu_torch.serve import pad_batch, serve_batch  # noqa: E402
 torch.set_num_threads(1)
 
 K, R_MAX, STEPS = 32, 4, 3
+
+
+@pytest.fixture(scope="module", autouse=True)
+def jitted_jax_rhs_sketch():
+    """The JAX step sketches the rhs while it is built, through an eager
+    shard_map whose primitives compile one by one (3-9 s a build): the same
+    functions jitted here, compiled once a shape. Their values are the
+    eager ones up to rounding."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jax_sharded_sketch, "srht_sketch_sharded_flat", jax.jit(
+            jax_sharded_sketch.srht_sketch_sharded_flat,
+            static_argnames=("k", "mesh", "axis", "block", "n")))
+        mp.setattr(jax_driver, "gaussian_sketch_sharded", jax.jit(
+            jax_sharded_sketch.gaussian_sketch_sharded,
+            static_argnames=("k", "mesh", "axis", "max_omega_elems")))
+        yield
 
 
 def rel(a, b):

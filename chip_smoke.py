@@ -212,7 +212,39 @@ Phases, each printing one line (any failed check raises and exits non-zero):
    ``load_padded_reductor_state`` into another and the rest from there,
    which must pick the uninterrupted run's parameters and match its ROM to
    1e-6 relative;
-11. the kernels' JSON line (the bf16 instance a row of its own, with the
+11. the parabolic tier: the SRHT kernel against its plain version at
+   ``[parabolic]``'s widest block ((1,050,625, 26) columns, k = 128, 1e-4;
+   its library call the product with the explicit operator), then
+   ``[parabolic]``: the entry point
+   ``rla4mor_tpu_torch.examples.large_scale_parabolic_demo.run`` at the JAX
+   demo's full width, ``InstationaryStencilFOM`` over
+   ``StencilThermalBlock((2, 2), PARABOLIC_GRID)`` in float32 (n =
+   1,050,625), nt = 50 implicit-Euler steps solved by warm-started MG-CG
+   (the mass-shifted V-cycle, tol 1e-6, at most 60 iterations; every 5th
+   step a snapshot), 12 training parameters, 5 POD-greedy extensions
+   (pad_to 5), SRHT k = 128 (one launch a ``reduce()``: the block [M V |
+   A_1 V .. A_4 V | b]), the held-out trajectory, one batch of 200 requests
+   padded to 256 served and the first ``PARABOLIC_PROFILE_STEPS`` steps of
+   the held-out trajectory once more under ``torch.profiler``.
+   It prints the seconds of each extension and trajectory, the CG
+   iterations of the implicit steps (first / median / max), the SRHT
+   launches by width, the max estimates, the held-out error at the stored
+   steps, the estimate against the exact l2 space-time residual
+   sqrt(dt sum_k ||M (u_k - u_{k-1}) / dt + A u_k - b||^2) of the
+   reconstructed trajectory (float64, on the card), the profiled steps'
+   idle share, the seconds of each stage and the peak memory. Checks: SRHT launches equal
+   to the reduce() calls and > 0 (counts set to 0 just before, read just
+   after), every implicit step converged (0 breakdowns), the last max
+   estimate below the first, held-out error <= 0.1, estimate / exact in
+   [0.5, 2], served equal to per-parameter ``rom.solve`` (1e-4);
+   ``[instationary]``: the entry point
+   ``rla4mor_tpu_torch.examples.instationary_demo.run`` at its defaults
+   (grid 16, nt 30, 8 extensions, Gaussian k = 100): host ``splu``
+   trajectories, the reductor, ROMs, bounds and the output greedy on the
+   card in float32; checks: held-out error < 0.2, each certified
+   final-time bound at least the measured final-time M-norm error, the
+   corrected output's error at most the plain one's;
+12. the kernels' JSON line (the bf16 instance a row of its own, with the
    ``[bf16]`` path's bf16-input launches; the SRHT at each stencil
    family's block a row, with that phase's launches; the tiled Gaussian branch a row
    of its own, with ``[hwprng block]``'s tiled launches at the bench m =
@@ -220,8 +252,9 @@ Phases, each printing one line (any failed check raises and exits non-zero):
    launches, and at (256, 261,121) in pairs and Rademacher mode; its
    one-strip call at k = 200 and 256; the SRHT and the tiled Gaussian
    branch at [estim]'s sketch with that path's launches; the SRHT at
-   [helmholtz srht]'s complex column with that path's launches), the run's
-   wall time, then the result line.
+   [helmholtz srht]'s complex column with that path's launches; the SRHT at
+   [parabolic]'s widest block with that path's launches), the run's wall
+   time, then the result line.
 
 Times are CUDA-event means over back-to-back calls after a warm-up (the
 wrapper's host time included where it is longer than the kernel's); an
@@ -360,6 +393,17 @@ HELMHOLTZ_RECOVERY_REF = {key: HELMHOLTZ_RECOVERY_JAX_GRID9[key] * HELMHOLTZ_GRI
 # [embeddings]: the slice's n with k = 256 and 8 columns, and the streamed
 # embedding alone at the preconditioner's n = 1,050,625 with 5
 EMBED_SHAPE, EMBED_STREAMED_SHAPE, EMBED_SEED = (SLICE_N, 256, 8), (1_050_625, 256, 5), 17
+# [parabolic]: examples/large_scale_parabolic_demo.py's run() at the JAX demo's
+# full width: grid 1024 (n = 1,050,625 nodes), nt = 50 implicit-Euler steps
+# (every 5th a snapshot), MG-CG tol 1e-6 / maxiter 60, 12 training
+# parameters, 5 extensions (pad_to 5), SRHT k = 128. Its widest sketch is the
+# last reduce's block [M V | A_1 V .. A_4 V | b] of 5 r + 1 = 26 columns
+PARABOLIC_GRID, PARABOLIC_NT, PARABOLIC_EXT, PARABOLIC_K = 1024, 50, 5, 128
+PARABOLIC_N = (PARABOLIC_GRID + 1) ** 2
+PARABOLIC_BLOCK = 5 * PARABOLIC_EXT + 1
+# the held-out trajectory's first steps under torch.profiler: a whole
+# trajectory is ~800k device events, whose processing took ~100 s
+PARABOLIC_PROFILE_STEPS = 5
 TOL = {torch.float64: 1e-12, torch.float32: 1e-4}
 TOL_NARROW = 8e-3  # 2-byte output against the float32 sums: one bf16 rounding
 HBM_BYTES_PER_S = 3.35e12
@@ -2110,6 +2154,125 @@ def embeddings_phase(device) -> dict:
             "streamed_peak_gb": rows[-1]["peak_gb"], "streamed_omega_gb": rows[-1]["omega_gb"]}
 
 
+def parabolic_kernel_row(device) -> dict:
+    """The SRHT kernel against its plain version at [parabolic]'s widest
+    block: (n, m) = (1,050,625, 26) column blocks, k = 128, through the
+    path's embedding (seed 0); the library yardstick is one product with the
+    explicit (128, n) operator."""
+    from rla4mor_tpu_torch.ops.embeddings import SrhtEmbedding
+
+    n, m, k = PARABOLIC_N, PARABOLIC_BLOCK, PARABOLIC_K
+    emb = SrhtEmbedding(k, n, seed=0, device=device, dtype=torch.float32)
+    signs, samp, _ = emb.plan
+    S = explicit_srht(signs, samp, n, k, torch.float32, device)
+    x = torch.randn((n, m), generator=torch.Generator(device=device).manual_seed(n + m),
+                    device=device)
+    row = compare(f"parabolic n={n} m={m} k={k} cols", x, k, signs, samp, reps=50,
+                  kernel=lambda: emb.apply_random(x), library=lambda: torch.matmul(S, x))
+    del S, x
+    torch.cuda.empty_cache()
+    return row
+
+
+def parabolic_phase(device) -> dict:
+    """[parabolic]: ``large_scale_parabolic_demo.run`` at full width with
+    the SRHT kernel as its embedding, and its checks: SRHT launches equal
+    to the reduce() calls (> 0), every implicit MG-CG step converged to
+    1e-6 within 60 iterations (0 breakdowns), the last max estimate below
+    the first, the held-out trajectory relative error at the stored steps
+    at most 0.1, the sketched space-time estimate within [0.5, 2] of the
+    exact l2 one (float64 stencil residual of the reconstructed
+    trajectory), ``serve_batch`` equal to per-parameter solves (1e-4)."""
+    from rla4mor_tpu_torch.examples import large_scale_parabolic_demo as demo
+    from rla4mor_tpu_torch.ops import srht_cuda
+    from rla4mor_tpu_torch.ops.embeddings import SrhtEmbedding
+
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    srht_cuda.srht_onepass.launches = 0
+    srht_cuda.srht_onepass.launches_by_width.clear()
+    res = demo.run(grid=PARABOLIC_GRID, nt=PARABOLIC_NT, ext=PARABOLIC_EXT, k=PARABOLIC_K,
+                   precond="mg", device=device, profile_steps=PARABOLIC_PROFILE_STEPS,
+                   embedding=lambda n, k: SrhtEmbedding(k, n, seed=0, device=device),
+                   log=lambda line: print(f"[parabolic] {line}", flush=True))
+    torch.cuda.synchronize()
+    launches = srht_cuda.srht_onepass.launches
+    widths = dict(srht_cuda.srht_onepass.launches_by_width)
+    peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
+    held, solver, prof = res["held_out"][0], res["solver"], res["profile"]
+    est = res["max_estimates"]
+    check(all(math.isfinite(e) for e in est), f"parabolic: max estimates {est}")
+    for key, v in res["served"].items():
+        check(bool(torch.isfinite(v).all()), f"parabolic: served {key} not finite")
+    check(launches == res["reduce_calls"] > 0,
+          f"parabolic: {launches} SRHT launches for {res['reduce_calls']} reduce() calls")
+    check(solver["breakdowns"] == 0 and solver["iters_max"] <= res["maxiter"],
+          f"parabolic: {solver['breakdowns']} implicit steps above tol "
+          f"(max rel res {solver['rel_res_max']:.3e})")
+    check(est[-1] < est[0], f"parabolic: max estimate did not drop: {est}")
+    check(held["rel_err"] <= 0.1, f"parabolic: held-out error {held['rel_err']:.3e} > 0.1")
+    check(0.5 <= held["est_over_exact"] <= 2.0,
+          f"parabolic: estimate / exact {held['est_over_exact']:.3f} outside [0.5, 2]")
+    check(res["serve_dev"] <= 1e-4, f"parabolic: serve_batch vs solve {res['serve_dev']:.3e}")
+    for row in prof["top"]:
+        phase("parabolic profile top", ms=row["ms"], calls=row["calls"],
+              name=row["name"].replace(" ", "_"))
+    ext_s = res["extension_s"]
+    out = {
+        "n": res["n"], "nt": res["nt"], "k": res["k"], "store_every": res["store_every"],
+        "precond": res["precond"], "tol": res["tol"], "maxiter": res["maxiter"],
+        "basis": res["basis"], "greedy_s": res["greedy_s"], "extension_s": ext_s,
+        "s_per_extension": sum(ext_s) / len(ext_s), "fom_s": res["fom_s"],
+        "s_per_trajectory": sum(res["fom_s"]) / len(res["fom_s"]),
+        "cg_steps": solver["steps"], "cg_iters_first": solver["iters_first"],
+        "cg_iters_median": solver["iters_median"], "cg_iters_max": solver["iters_max"],
+        "cg_rel_res_max": solver["rel_res_max"], "breakdowns": solver["breakdowns"],
+        "srht_launches": launches, "reduce_calls": res["reduce_calls"],
+        "srht_launches_by_width": widths, "max_estimates": est,
+        "held_out_rel_err": held["rel_err"], "estimate": held["estimate"],
+        "exact_residual": held["exact_residual"], "est_over_exact": held["est_over_exact"],
+        "serve_ms": res["serve_s"] * 1e3, "requests": res["n_valid"],
+        "serve_vs_solve": res["serve_dev"], "stage_s": res["stage_s"],
+        "profile_steps": PARABOLIC_PROFILE_STEPS, "profile_wall_s": prof["wall_s"],
+        "profile_busy_s": prof["busy_s"], "profile_idle_share": prof["idle_share"],
+        "profile_device_events": prof["device_events"], "peak_gb": peak_gb,
+        "phase_s": time.perf_counter() - t_phase,
+    }
+    del res
+    torch.cuda.empty_cache()
+    return out
+
+
+def instationary_phase(device) -> dict:
+    """[instationary]: ``instationary_demo.run`` at its defaults on the card
+    (host ``splu`` trajectories; reductor, ROMs, sketches, bounds and the
+    output greedy on the card in float32), and its checks: held-out error
+    below 0.2 (the demo's own), each certified final-time bound at least
+    the measured final-time M-norm error, the corrected output's error at
+    most the plain one's."""
+    from rla4mor_tpu_torch.examples import instationary_demo as demo
+
+    t0 = time.perf_counter()
+    res = demo.run(device=device, log=lambda line: print(f"[instationary] {line}",
+                                                         flush=True))
+    torch.cuda.synchronize()
+    check(max(res["rel_errors"]) < 0.2, f"instationary: errors {res['rel_errors']}")
+    check(all(e <= b for e, b in zip(res["final_errors"], res["bounds"])),
+          f"instationary: bounds {res['bounds']} below errors {res['final_errors']}")
+    check(res["err_corrected"] <= res["err_plain"],
+          f"instationary: corrected {res['err_corrected']:.3e} > plain "
+          f"{res['err_plain']:.3e}")
+    return {"n": res["n"], "nt": res["nt"], "basis": res["basis"],
+            "greedy_s": res["greedy_s"], "max_estimates": res["max_estimates"],
+            "rel_errors": res["rel_errors"], "estimates": res["estimates"],
+            "bounds": res["bounds"], "final_errors": res["final_errors"],
+            "pd_bases": res["pd_bases"], "pd_s": res["pd_s"],
+            "max_indicators": res["max_indicators"], "s_true": res["s_true"],
+            "err_plain": res["err_plain"], "err_corrected": res["err_corrected"],
+            "indicator": res["indicator"], "wall_s": time.perf_counter() - t0}
+
+
 def build_all(sources) -> dict:
     """nvcc of every source, all started together -> {source: seconds}."""
     from rla4mor_tpu_torch.utils import nvcc
@@ -2254,7 +2417,15 @@ def main(argv=None) -> int:
     phase("embeddings", **embeddings)
     torch.cuda.empty_cache()
 
-    # 11. result
+    # 11. the parabolic tier: the SRHT kernel at [parabolic]'s widest block,
+    # the big-n POD-greedy at 1,050,625 DoF, then the host-LU instationary demo
+    para_row = parabolic_kernel_row(device)
+    para = parabolic_phase(device)
+    phase("parabolic", **para, card=smi)
+    inst = instationary_phase(device)
+    phase("instationary", **inst, card=smi)
+
+    # 12. result
     main_row = next(r for r in rows if r["label"].startswith("slice")
                     and r["dtype"] == "float32" and "m=1 " in r["label"])
     gauss_row = next(r for r in gauss_rows if r["label"].startswith("path")
@@ -2270,7 +2441,7 @@ def main(argv=None) -> int:
     f32_launches = (summary["srht_launches"] + padded["srht_launches"]
                     + padded["resume_srht_launches"] + strong["srht_launches"]
                     + large_launches + family_launches + estim["srht_launches"]
-                    + helm_srht["srht_launches"])
+                    + helm_srht["srht_launches"] + para["srht_launches"])
     print(json.dumps({"kernels": [
         kernel_entry("srht_onepass", "rla4mor_tpu_torch/csrc/srht_onepass.cu",
                      "rla4mor_tpu/ops/srht_pallas.py:580", f32_launches, main_row),
@@ -2339,6 +2510,12 @@ def main(argv=None) -> int:
                      "rla4mor_tpu/ops/srht_pallas.py:580", helm_srht["srht_launches"],
                      helm_srht_row, note="the [helmholtz srht] path's launches (complex "
                      "columns as their real view), a subset of the first row's"),
+        # [parabolic]: one launch a reduce(), the (n, 5 r + 1) block of the
+        # mass, the 4 stiffness terms and the rhs; the row at the widest one
+        kernel_entry("srht_onepass", "rla4mor_tpu_torch/csrc/srht_onepass.cu",
+                     "rla4mor_tpu/ops/srht_pallas.py:580", para["srht_launches"], para_row,
+                     note="the [parabolic] path's launches (one a reduce(), blocks of "
+                     "5 r + 1 columns), a subset of the first row's"),
     ]}), flush=True)
     phase("wall", s=time.perf_counter() - t_start)
     print(json.dumps({"ok": True, "device": {

@@ -39,7 +39,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from rla4mor_tpu_torch.utils.config import as_tensor
+from rla4mor_tpu_torch.utils.config import as_tensor, sync
 
 K_PRIMAL, K_ONLINE, K_DIC = 220, 120, 96
 SEED_PRIMAL, SEED_ONLINE, SEED_DIC = 2, 33, 11
@@ -49,11 +49,6 @@ N_TRAIN, N_TEST, N_BACKGROUND, N_DIC, M_OBS = 40, 12, 8, 24, 30
 SWEEP = np.linspace(2.0, 8.0, 41)
 RECOVERY = np.linspace(2.2, 7.8, 9)
 R_MID = 5  # the bound panel's ROM: the last with r <= R_MID
-
-
-def _sync(device: torch.device) -> None:
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
 
 
 def _mu(w: float, device, dtype) -> dict:
@@ -107,7 +102,7 @@ def weak_greedy(fom, reductor, train_w, test_w, extensions: int, u_test=None) ->
                 out["picks"].append(int(j))
                 reductor.extend_basis(fom.solve(_mu(train_w[j], "cpu", torch.float64)))
                 break
-    _sync(dev)
+    sync(dev)
     return out
 
 
@@ -198,7 +193,7 @@ def run(grid: int = 48, extensions: int = 10, device=None, dtype=torch.float64,
         mu = _mu(w, dev, dtype)
         sweep_bnd.append(float(inf_sup_error_bound(rom_mid, mu, scm, u_r=y[i])))
         beta_lb.append(scm.lower(mu))
-    _sync(dev)
+    sync(dev)
     sweep_s = time.perf_counter() - t0
 
     # -- 3. complex state estimation from pointwise observations ----------
@@ -223,7 +218,7 @@ def run(grid: int = 48, extensions: int = 10, device=None, dtype=torch.float64,
     nt = Ru.norm(u_t)
     rel_pbdw = (Ru.norm(u_t - pbdw.solve(obs)) / nt).cpu().numpy()
     rel_dic = (Ru.norm(u_t - dic.solve(obs)) / nt).cpu().numpy()
-    _sync(dev)
+    sync(dev)
     recovery_s = time.perf_counter() - t0
     log(f"recovery: median rel err PBDW {np.median(rel_pbdw):.2e}, dictionary "
         f"{np.median(rel_dic):.2e} ({recovery_s:.1f} s)")

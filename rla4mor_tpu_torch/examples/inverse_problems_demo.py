@@ -52,13 +52,10 @@ from typing import Callable, Mapping, Optional
 import numpy as np
 import torch
 
+from rla4mor_tpu_torch.utils.config import sync
+
 M_OBS, N_TRAIN, N_MODES, K_SKETCH, SEED_SKETCH, PG_ITERS = 50, 200, 20, 256, 3, 500
 RECOVERY_DTYPE = torch.float64
-
-
-def _sync(device: torch.device) -> None:
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
 
 
 def _pool() -> ThreadPoolExecutor:
@@ -170,7 +167,7 @@ def prepare(fom, train: np.ndarray, test: np.ndarray, m: int = M_OBS,
     rm = DicRecoveryMap(V, W, product=Ru, log_level=30)
     t0 = time.perf_counter()
     paths, steps = rm.lars_paths(obs, max_steps=max_steps)
-    _sync(dev)
+    sync(dev)
     lars_s = time.perf_counter() - t0
     log(f"LARS paths of {obs.shape[1]} columns: {lars_s:.2f} s, homotopy steps "
         f"{int(steps.min())}-{int(steps.max())} of {rm._resolve_max_steps(max_steps)}")
@@ -238,7 +235,7 @@ def run(grid: int = 192, embeddings: Optional[Mapping[str, Callable]] = None,
         ui = rm_pbdw.project_background(torch.arange(i, device=dev)).solve(obs)
         pbdw.append((i, float(Ru.norm(ui - u_test).mean())))
     pbdw_u = rm_pbdw.solve(obs)
-    _sync(dev)
+    sync(dev)
     pbdw_s = time.perf_counter() - t0
     log(f"{dt}: POD svals (normalised): "
         + " ".join(f"{float(s / svals[0]):.1e}" for s in svals[:10]))
@@ -254,7 +251,7 @@ def run(grid: int = 192, embeddings: Optional[Mapping[str, Callable]] = None,
         t0 = time.perf_counter()
         S = make(n, sqrt_product=Ru.sqrt, range_dim=k, seed=SEED_SKETCH, device=dev, dtype=dt)
         lhs, rhs = sketched_system(S, *rec.residual, fom)
-        _sync(dev)
+        sync(dev)
         sketch_s = time.perf_counter() - t0
         mdist = ResidualDistanceAffine(lhs.astype(rdt), rhs.astype(rdt), ([lo] * p, [hi] * p),
                                        pg_iters=pg_iters)
@@ -266,14 +263,14 @@ def run(grid: int = 192, embeddings: Optional[Mapping[str, Callable]] = None,
         v = rm.select(rec.obs, rec.paths)
         u_rec = rec.V @ v + rec.W @ rm.compute_correction(rec.obs, v)
         rel = Ru_r.norm(u_rec - rec.u_test_r) / test_norms
-        _sync(dev)
+        sync(dev)
         select_s = time.perf_counter() - t0
 
         t0 = time.perf_counter()
         worst = int(rel.argmax())
         u_path, dist = rm.solve_path(rec.obs[:, worst], path=rec.paths[worst])
         errs = Ru_r.norm(u_path - rec.u_test_r[:, worst:worst + 1])
-        _sync(dev)
+        sync(dev)
         path_s = time.perf_counter() - t0
         res = {"sketch": S, "mdist": mdist, "v": v, "rel": rel, "worst": worst,
                "dist": np.asarray(dist), "errs": errs, "coefs": rm.last_path_coefs,

@@ -49,6 +49,8 @@ import time
 
 import torch
 
+from rla4mor_tpu_torch.utils.config import sync
+
 # the JAX demo's families that need modules the port does not have yet
 NOT_PORTED = {
     "lossy": "its bounds-only flow through the matrix-free SCM (ROADMAP.md queue 1, "
@@ -57,11 +59,6 @@ NOT_PORTED = {
 FAMILIES = ("thermal", "advection", "helmholtz", "thermal3d", "nonaffine", *NOT_PORTED)
 # the JAX demo's EIM fit: a 5^3 tensor grid of training bumps, tol 1e-3
 EIM_TRAIN_PER_DIM, EIM_TOL, EIM_RESERVE = 5, 1e-3, 4
-
-
-def _sync(device: torch.device) -> None:
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
 
 
 def true_residual(fom, mu, u: torch.Tensor) -> float:
@@ -169,7 +166,7 @@ def run(grid: int = 2047, steps: int = 4, k: int = 256, precond: str = "jacobi",
             N += 1
     t0 = time.perf_counter()
     fom = make_fom(family, N, device, dtype, eim_grid=eim_grid, eim_scan=eim_scan)
-    _sync(device)
+    sync(device)
     eim = None
     if family == "nonaffine":
         # direct: sup_errors[n_terms] is the training sup error of the M active
@@ -204,7 +201,7 @@ def run(grid: int = 2047, steps: int = 4, k: int = 256, precond: str = "jacobi",
         # EIM model-error bound (the RB residual is against the surrogate)
         model_error=(fom.model_error_bound if family == "nonaffine" and score == "exact"
                      else None))
-    _sync(device)
+    sync(device)
     setup_s = time.perf_counter() - t0
     if family == "thermal":
         space = ParameterSpace.make({"diffusion": 4}, 0.1, 1.0)
@@ -274,11 +271,11 @@ def run(grid: int = 2047, steps: int = 4, k: int = 256, precond: str = "jacobi",
     pool = mu_stack(sample(requests, 2))
     padded, valid = pad_batch(pool, serve_size)
     serve_batch(rom, padded)  # warm-up
-    _sync(device)
+    sync(device)
     rom_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     served = serve_batch(rom, padded)
-    _sync(device)
+    sync(device)
     serve_s = time.perf_counter() - t0
     served = {key: v[:valid] for key, v in served.items()}
     out.update(rom=rom, rom_s=rom_s, served=served, requests=valid, serve_s=serve_s,
@@ -289,23 +286,28 @@ def run(grid: int = 2047, steps: int = 4, k: int = 256, precond: str = "jacobi",
 
 
 def profile_step(step, state, mu, mu_batch, top: int = 8) -> dict:
-    """One more step under ``torch.profiler``: its wall time, the device's
+    """One more step under ``torch.profiler`` (:func:`profile_call`)."""
+    return profile_call(lambda: step(state, mu, mu_batch)[1].cpu(), state.srb.device, top)
+
+
+def profile_call(fn, device, top: int = 8) -> dict:
+    """``fn()`` once under ``torch.profiler``: its wall time, the device's
     busy time (the union of its kernels, copies and sets), its idle share
-    over the step, and the ``top`` operators by the device time of the
+    over the call, and the ``top`` operators by the device time of the
     kernels each launched. Without device events (the CPU) busy time and
     idle share are None and ``top`` ranks operators by host self time."""
     from torch.profiler import ProfilerActivity, profile
 
-    device = state.srb.device
     activities = [ProfilerActivity.CPU]
     if device.type == "cuda":
         activities.append(ProfilerActivity.CUDA)
-    _sync(device)
+    sync(device)
     with profile(activities=activities) as prof:
         t0 = time.perf_counter()
-        est = step(state, mu, mu_batch)[1].cpu()
+        out = fn()
+        sync(device)
         wall_s = time.perf_counter() - t0
-    del est
+    del out
     kernels = [e for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     res = {"wall_s": wall_s, "device_events": len(kernels), "busy_s": None,

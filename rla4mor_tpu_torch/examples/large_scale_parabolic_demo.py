@@ -1,0 +1,249 @@
+"""Big-n parabolic MOR on one device: POD-greedy over the matrix-free
+implicit-Euler stencil FOM, no host factorisation anywhere.
+
+The port's counterpart of ``examples/large_scale_parabolic_demo.py``:
+``InstationaryStencilFOM`` over the thermal block (``--family thermal``,
+grid 1024: n = 1,050,625 nodes; MG-CG when the element count is a power of
+two, else Jacobi-CG) or its 3-D form (``thermal3d``, Jacobi-CG), nt = 50
+implicit-Euler steps (every ``store_every``-th kept as a snapshot), the
+sketched space-time residual estimator, 5 POD-greedy extensions over 12
+training parameters with ``pad_to`` = 5, then the held-out trajectory and
+one served request batch padded to 256.
+
+The sketch is the JAX demo's ``StreamedGaussianEmbedding`` (its strips are
+drawn on the host: seconds an apply at a million DoF), or, with
+``--sketch srht`` / ``run(embedding=...)``, the one-pass SRHT kernel: one
+launch a ``reduce()``, which sketches [M V | A_1 V ... A_4 V | b] as one
+block.
+
+    python -m rla4mor_tpu_torch.examples.large_scale_parabolic_demo --sketch srht
+    python -m rla4mor_tpu_torch.examples.large_scale_parabolic_demo --cpu --grid 16 --nt 10
+
+It prints the seconds of each extension and FOM trajectory, the CG
+iterations of the implicit steps, the max estimates, the held-out
+trajectory error at the stored steps, the estimate against the exact l2
+space-time residual of the reconstructed trajectory (float64), and the
+served batch against per-parameter solves.
+"""
+
+from __future__ import annotations
+
+import argparse
+import statistics
+import time
+
+import torch
+
+FAMILIES = ("thermal", "thermal3d")
+# the JAX demo's training set; the served batch: 200 requests padded to 256
+N_TRAIN, REQUESTS, SERVE_SIZE = 12, 200, 256
+
+
+def spacetime_residual(fom, mu, U: torch.Tensor) -> float:
+    """sqrt(dt sum_k ||M (u_k - u_{k-1}) / dt + A u_th,k - b||_2^2) of a
+    full trajectory U (n, nt+1) of an ``InstationaryStencilFOM``, in float64
+    with the stencil (u_th,k = theta u_k + (1 - theta) u_{k-1}): the exact
+    l2 residual that the sketched estimate approximates."""
+    shape = tuple(fom.solution_shape)
+    A, _ = fom._make_stiff(mu)  # the stencils apply the field at their input's dtype
+    b = fom.stencil.rhs(dtype=torch.float64)
+    th, dt = fom.time_theta, fom.dt
+    total = 0.0
+    prev = U[:, 0].to(torch.float64).reshape(shape)
+    for j in range(1, U.shape[1]):
+        cur = U[:, j].to(torch.float64).reshape(shape)
+        r = fom._mass_apply(cur - prev) / dt + A(th * cur + (1.0 - th) * prev) - b
+        total += float(torch.linalg.vector_norm(r)) ** 2
+        prev = cur
+    return (dt * total) ** 0.5
+
+
+def solver_stats(fom, tol: float) -> dict:
+    """CG readings over every implicit step of every trajectory the FOM
+    solved: iterations of the first step (the cold one) and over all steps,
+    and the steps that did not reach ``tol`` (or are not finite)."""
+    iters = [it for log in fom.solve_log for it in log["iters"]]
+    first = [log["iters"][0] for log in fom.solve_log]
+    rel = [r for log in fom.solve_log for r in log["rel_res"]]
+    bad = sum(not (r <= tol * (1 + 1e-5)) for r in rel)
+    return {"steps": len(iters), "iters_first": first, "iters_median": statistics.median(iters),
+            "iters_max": max(iters), "rel_res_max": max(rel), "breakdowns": bad}
+
+
+def run(grid: int = 1024, nt: int = 50, ext: int = 5, k: int = 128, family: str = "thermal",
+        precond: str = "auto", embedding=None, train=None, test=None, device=None,
+        bounds: bool = False, profile_steps: int = 0, log=print) -> dict:
+    """Build the FOM, run POD-greedy, check the held-out trajectory, serve
+    one padded batch; returns what was built and measured.
+
+    ``embedding``: None (the streamed Gaussian at seed 0) or a factory
+    ``(n, k) -> Embedding``. ``train`` / ``test``: lists of Mu (default: 12
+    training draws of seed 1, one held-out draw of seed 5). The device's
+    working dtype throughout (float32 on the card, float64 on the CPU).
+    ``profile_steps`` > 0 runs the first that many implicit steps of the
+    held-out trajectory once more under ``torch.profiler`` (a whole
+    trajectory is about 800k device events at grid 1024, whose processing
+    takes minutes). ``bounds`` (the JAX demo's ``--bounds``) needs the
+    matrix-free SCM. ``out["stage_s"]`` holds the seconds of each stage."""
+    if bounds:
+        raise NotImplementedError(
+            "--bounds needs scm_matfree.l2_interior_scm, not ported yet (ROADMAP.md "
+            "queue 1, item 10)")
+    if family not in FAMILIES:
+        raise ValueError(f"unknown family {family!r}")
+    from rla4mor_tpu_torch import models
+    from rla4mor_tpu_torch.core import mu_stack
+    from rla4mor_tpu_torch.ops.embeddings import StreamedGaussianEmbedding
+    from rla4mor_tpu_torch.serve import pad_batch, serve_batch
+    from rla4mor_tpu_torch.utils.config import default_dtype, resolve_device, sync
+
+    device = resolve_device(device)
+    dtype = default_dtype(device)
+    t_setup = time.perf_counter()
+    if family == "thermal3d":
+        if precond == "mg":
+            raise ValueError("precond 'mg' is 2-D only; thermal3d uses jacobi")
+        precond = "jacobi"
+        st = models.StencilThermalBlock3D((2, 2, 2), grid, dtype=dtype, device=device)
+        desc = f"grid {grid}^3 elements"
+    else:
+        if precond == "auto":  # the V-cycle needs power-of-two element counts
+            precond = "mg" if grid & (grid - 1) == 0 else "jacobi"
+        st = models.StencilThermalBlock((2, 2), grid, dtype=dtype, device=device)
+        desc = f"grid {grid}x{grid} elements"
+    fom = models.InstationaryStencilFOM(st, T=1.0, nt=nt)
+    n = st.n_nodes ** len(st.solution_shape)
+    store_every = max(1, nt // 10)
+    while nt % store_every:
+        store_every -= 1
+    # the V-cycle is mesh-independent; Jacobi-CG's cold first step needs
+    # O(sqrt(cond)) iterations (later steps are warm-started)
+    tol, maxiter = 1e-6, (60 if precond == "mg" else 1500)
+    log(f"{desc}, n = {n:,} nodes, nt = {nt}, sketch k = {k}, {dtype}, {device}")
+    log(f"FOM solver: {precond}-CG, tol {tol:g}, maxiter {maxiter}, store_every {store_every}")
+    view = fom.as_reductor_fom(tol=tol, maxiter=maxiter, precond=precond,
+                               store_every=store_every)
+    theta = (embedding(n, k) if embedding is not None
+             else StreamedGaussianEmbedding.make(n, range_dim=k, seed=0, device=device,
+                                                 dtype=dtype))
+    red = models.InstationaryReductor(view, embedding=theta, log_level=30)
+    space = view.parameter_space
+    if train is None:
+        train = space.sample_randomly(N_TRAIN, seed=1, device=device, dtype=dtype)
+    if test is None:
+        test = space.sample_randomly(1, seed=5, device=device, dtype=dtype)
+    stage_s = {"setup": time.perf_counter() - t_setup}
+
+    t0 = time.perf_counter()
+    rom, hist = models.pod_greedy(view, red, train, max_extensions=ext, pad_to=ext,
+                                  log_level=30)
+    greedy_s = stage_s["greedy"] = time.perf_counter() - t0
+    log(f"POD-greedy: basis {red.basis_size} in {greedy_s:.1f}s, "
+        f"{red.reduce_calls} reduce() calls")
+    log("seconds per extension: " + " ".join(f"{s:.2f}" for s in hist["extension_s"]))
+    log("seconds per FOM trajectory: " + " ".join(f"{s:.2f}" for s in hist["fom_s"]))
+    log("max estimates: " + " ".join(f"{e:.3e}" for e in hist["max_estimates"]))
+
+    t0 = time.perf_counter()
+    mus_t = mu_stack(test)
+    traj_r, eta = rom.solve(mus_t, return_estimate=True)
+    held = []
+    for i, mu in enumerate(test):
+        truth = view.solve(mu)
+        full = red.reconstruct(traj_r[i])
+        rec = full[:, ::store_every]  # the ROM steps every step: compare at the stored ones
+        rel = float(torch.linalg.vector_norm((rec - truth).to(torch.float64))
+                    / torch.linalg.vector_norm(truth.to(torch.float64)))
+        exact = spacetime_residual(fom, mu, full)
+        held.append({"rel_err": rel, "estimate": float(eta[i]), "exact_residual": exact,
+                     "est_over_exact": float(eta[i]) / max(exact, 1e-300),
+                     "fom_s": fom.solve_log[-1]["seconds"]})
+        log(f"held-out {i}: trajectory rel error {rel:.3e}, space-time estimate "
+            f"{float(eta[i]):.3e}, exact l2 residual {exact:.3e} (ratio "
+            f"{float(eta[i]) / max(exact, 1e-300):.3f})")
+        del truth, full, rec
+    stage_s["held_out"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    reqs = space.sample_randomly(REQUESTS, seed=7, device=device, dtype=dtype)
+    batch, n_valid = pad_batch(mu_stack(reqs), SERVE_SIZE)
+    rom_solve = lambda: serve_batch(rom, batch)  # noqa: E731
+    rom_solve()  # warm-up
+    sync(device)
+    t0 = time.perf_counter()
+    served = rom_solve()
+    sync(device)
+    serve_s = time.perf_counter() - t0
+    one = [rom.solve(m, return_estimate=True) for m in reqs[:8]]
+    serve_dev = max(
+        max(float((served["u"][i] - u).abs().max() / u.abs().max().clamp(min=1e-30)),
+            float((served["estimate"][i] - e).abs() / e.abs().clamp(min=1e-30)))
+        for i, (u, e) in enumerate(one))
+    log(f"served {n_valid} requests padded to {SERVE_SIZE} in {serve_s * 1e3:.1f} ms; "
+        f"vs per-parameter solve {serve_dev:.2e}")
+    stage_s["serving"] = time.perf_counter() - t0
+
+    prof = None
+    if profile_steps:
+        from rla4mor_tpu_torch.examples.large_scale_demo import profile_call
+
+        t0 = time.perf_counter()
+        head = models.InstationaryStencilFOM(st, T=fom.dt * profile_steps, nt=profile_steps)
+        prof = profile_call(lambda: head.solve(test[0], tol=tol, maxiter=maxiter,
+                                               precond=precond), device)
+        stage_s["profile"] = time.perf_counter() - t0
+        log(f"profiled {profile_steps} implicit steps: wall {prof['wall_s']:.3f}s, busy "
+            f"{prof['busy_s']}, idle share {prof['idle_share']}")
+    stats = solver_stats(fom, tol)
+    log(f"CG iterations per implicit step: first {stats['iters_first']}, median "
+        f"{stats['iters_median']}, max {stats['iters_max']}; breakdowns "
+        f"{stats['breakdowns']} of {stats['steps']} steps")
+    log("seconds by stage: " + " ".join(f"{k}={v:.2f}" for k, v in stage_s.items()))
+    return {
+        "family": family, "grid": grid, "n": n, "nt": nt, "k": k, "dtype": str(dtype),
+        "precond": precond, "tol": tol, "maxiter": maxiter, "store_every": store_every,
+        "basis": red.basis_size, "reduce_calls": red.reduce_calls, "stage_s": stage_s,
+        "greedy_s": greedy_s, "extension_s": hist["extension_s"], "fom_s": hist["fom_s"],
+        "max_estimates": hist["max_estimates"], "selected_mus": hist["selected_mus"],
+        "held_out": held, "served": served, "n_valid": n_valid, "serve_s": serve_s,
+        "serve_dev": serve_dev, "solver": stats, "profile": prof, "rom": rom,
+        "reductor": red, "view": view, "fom": fom, "train": train, "test": test,
+    }
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--cpu", action="store_true", help="run on the CPU (float64)")
+    ap.add_argument("--grid", type=int, default=None,
+                    help="elements an axis (default 1024 for thermal, 255 for thermal3d)")
+    ap.add_argument("--precond", choices=["auto", "jacobi", "mg"], default="auto")
+    ap.add_argument("--nt", type=int, default=50)
+    ap.add_argument("--ext", type=int, default=5)
+    ap.add_argument("--k", type=int, default=128)
+    ap.add_argument("--family", choices=FAMILIES, default="thermal")
+    ap.add_argument("--sketch", choices=["streamed", "srht"], default="streamed",
+                    help="the JAX demo's streamed Gaussian, or the one-pass SRHT kernel")
+    ap.add_argument("--profile-steps", type=int, default=0,
+                    help="the first N implicit steps of the held-out trajectory once "
+                    "more under torch.profiler")
+    ap.add_argument("--bounds", action="store_true",
+                    help="certified final-time bound (needs the matrix-free SCM: not "
+                    "ported yet)")
+    args = ap.parse_args(argv)
+    grid = args.grid if args.grid is not None else (255 if args.family == "thermal3d" else 1024)
+    device = "cpu" if args.cpu else None
+    embedding = None
+    if args.sketch == "srht":
+        from rla4mor_tpu_torch.ops.embeddings import SrhtEmbedding
+
+        def embedding(n, k):
+            return SrhtEmbedding(k, n, seed=0, device=device)
+    run(grid=grid, nt=args.nt, ext=args.ext, k=args.k, family=args.family,
+        precond=args.precond, embedding=embedding, device=device, bounds=args.bounds,
+        profile_steps=args.profile_steps)
+    print("done")
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -31,11 +31,7 @@ import time
 import torch
 
 from rla4mor_tpu_torch.core.linops import LinOp
-
-
-def _sync(device: torch.device) -> None:
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
+from rla4mor_tpu_torch.utils.config import sync
 
 
 def timed_ms(fn, device: torch.device) -> float:
@@ -174,10 +170,10 @@ def run(grid: int = 1024, nrb: int = 5, ndir: int = 3, nmu: int = 64, k_res: int
         return st.solve_cg_result(mu, tol=1e-7, maxiter=400, precond=precond).x.reshape(-1)
 
     out = {"st": st, "fom": fom, "n": n, "space": space, "mus": mus}
-    _sync(device)
+    sync(device)
     t0 = time.perf_counter()
     U = gram_schmidt(torch.stack([solve_fom(m) for m in mus["rb"]], dim=1))
-    _sync(device)
+    sync(device)
     out["snapshot_s"] = time.perf_counter() - t0
     r = U.shape[1]
     log(f"{r} MG-CG snapshots + Gram-Schmidt: {out['snapshot_s']:.3f} s")
@@ -192,7 +188,7 @@ def run(grid: int = 1024, nrb: int = 5, ndir: int = 3, nmu: int = 64, k_res: int
         range_embeddings={"ur_ur": emb["omega"]},
         vec_embeddings={"ur_ur": emb["vec"]},
         residual_embedding=emb["residual"], stable_galerkin=True, log_level=30)
-    _sync(device)
+    sync(device)
     out["reductor_s"] = time.perf_counter() - t0
     log(f"reductor (residual rows {tuple(red.prom._res_cols.shape)}): "
         f"{out['reductor_s']:.3f} s")
@@ -202,7 +198,7 @@ def run(grid: int = 1024, nrb: int = 5, ndir: int = 3, nmu: int = 64, k_res: int
         P = direction(st, mu_i, precond)
         t0 = time.perf_counter()
         red.add_preconditioner(P, mu_i)
-        _sync(device)
+        sync(device)
         out["add_s"].append(time.perf_counter() - t0)
         out["directions"].append(P)
         log(f"direction {i}: added in {out['add_s'][-1]:.3f} s, {P.solves} RecycledCG "

@@ -18,8 +18,26 @@ from rla4mor_tpu_torch.models.stencil_nonaffine import (
     gaussian_bump_fom3d,
 )
 
+from rla4mor_tpu_torch.models.instationary import (
+    InstationaryFOM,
+    InstationaryReductor,
+    InstationaryROM,
+    instationary_thermal_block,
+    pod_greedy,
+)
+from rla4mor_tpu_torch.models.instationary_stencil import InstationaryStencilFOM
+from rla4mor_tpu_torch.models.instationary_primal_dual import (
+    InstationaryCorrectedOutputROM,
+    InstationaryPrimalDualReductor,
+    output_pod_greedy,
+    solve_dual,
+)
+
 __all__ = ["StationaryFOM", "StationaryROM", "ResidualErrorEstimator",
            "StencilThermalBlock", "StencilThermalBlock3D", "StencilAdvectionDiffusion",
            "StencilHelmholtz", "AdvectionDiffusionFOM", "ThermalBlockFOM",
            "helmholtz_fom", "NonAffineStencilFOM", "NonAffineStencilFOM3D", "EimStencilFOM",
-           "gaussian_bump_fom", "gaussian_bump_fom3d"]
+           "gaussian_bump_fom", "gaussian_bump_fom3d", "InstationaryFOM",
+           "InstationaryROM", "InstationaryReductor", "instationary_thermal_block",
+           "pod_greedy", "InstationaryStencilFOM", "InstationaryCorrectedOutputROM",
+           "InstationaryPrimalDualReductor", "output_pod_greedy", "solve_dual"]

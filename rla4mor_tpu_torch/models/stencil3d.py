@@ -227,7 +227,7 @@ class StencilThermalBlock3D:
         dimensions."""
         return u.sum(dim=(-3, -2, -1)) * self.h ** 3
 
-    # hooks of the time-dependent stencil FOMs (not ported yet)
+    # hooks of the time-dependent stencil FOM (models/instationary_stencil.py)
     def mass_apply_grid(self, u: torch.Tensor) -> torch.Tensor:
         return lumped_mass3_apply(u, self.h)
 

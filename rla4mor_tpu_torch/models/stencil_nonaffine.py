@@ -42,12 +42,7 @@ from rla4mor_tpu_torch.models.stencil import (
     stencil_apply,
     stiffness_diag_raw,
 )
-from rla4mor_tpu_torch.utils.config import default_dtype, resolve_device
-
-
-def _sync(device: torch.device) -> None:
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
+from rla4mor_tpu_torch.utils.config import default_dtype, resolve_device, sync
 
 
 class NonAffineStencilFOM:
@@ -272,13 +267,13 @@ class EimStencilFOM:
         fit_s = {}
         t0 = time.perf_counter()
         G = trainer.kappa(batch).reshape(len(training_mus), -1).T  # (n, m) column-major
-        _sync(dev)
+        sync(dev)
         fit_s["fields"] = time.perf_counter() - t0
         t0 = time.perf_counter()
         greedy = eim_greedy_device if device_scan else eim_greedy
         interp = greedy(G, tol=tol, max_terms=max_terms, reserve=reserve, inplace=True)
         del G
-        _sync(dev)
+        sync(dev)
         fit_s["greedy"] = time.perf_counter() - t0
         if interp.n_reserve < reserve:
             warnings.warn(f"EIM greedy exhausted the training set: n_reserve="
@@ -297,7 +292,7 @@ class EimStencilFOM:
             # training set was only ever built coarse)
             floor = float(interp.interpolate(G_sel).min())
             del fine, G_sel
-            _sync(dev)
+            sync(dev)
             fit_s["rebuild"] = time.perf_counter() - t0
         fom = cls(exact, interp, kappa_floor=float("nan"))
         if not two_grid:

@@ -15,13 +15,17 @@ from rla4mor_tpu_torch.mor.padded_reductor import (
 )
 from rla4mor_tpu_torch.mor.serialization import (
     load_eim_interpolant,
+    load_instationary_reductor_state,
     load_mdeim_operator,
     load_padded_reductor_state,
+    load_primal_dual_reductor_state,
     load_reductor_state,
     load_rom,
     save_eim_interpolant,
+    save_instationary_reductor,
     save_mdeim_operator,
     save_padded_reductor,
+    save_primal_dual_reductor,
     save_reductor,
     save_rom,
 )
@@ -30,6 +34,14 @@ from rla4mor_tpu_torch.mor.bounds import (
     MinThetaCoercivity,
     error_bound,
     inf_sup_error_bound,
+    parabolic_error_bound,
+    parabolic_output_error_bound,
+)
+from rla4mor_tpu_torch.mor.primal_dual import (
+    CorrectedOutputROM,
+    PrimalDualReductor,
+    dual_fom,
+    output_greedy,
 )
 from rla4mor_tpu_torch.mor.scm import ScmCoercivity, ScmHermitian, ScmInfSup
 from rla4mor_tpu_torch.mor.eim import (
@@ -54,4 +66,8 @@ __all__ = ["ClassicalReductor", "GramResidualEstimator", "SketchedReductor",
            "ScmInfSup", "EimInterpolant", "eim_greedy", "eim_greedy_device",
            "eim_greedy_scan", "eim_rebuild", "deim", "deim_points", "MdeimOperator", "mdeim",
            "theta_coefficients", "save_eim_interpolant", "load_eim_interpolant",
-           "save_mdeim_operator", "load_mdeim_operator"]
+           "save_mdeim_operator", "load_mdeim_operator", "parabolic_error_bound",
+           "parabolic_output_error_bound", "CorrectedOutputROM", "PrimalDualReductor",
+           "dual_fom", "output_greedy", "save_instationary_reductor",
+           "load_instationary_reductor_state", "save_primal_dual_reductor",
+           "load_primal_dual_reductor_state"]

@@ -3,13 +3,18 @@
 Counterpart of ``rla4mor_tpu/mor/serialization.py`` for stationary ROMs and
 the sketched reductors:
 
-* ``save_rom`` / ``load_rom``: a standalone :class:`StationaryROM` in the
-  JAX package's format. The file is one ``.npz``: ``kind = "stationary"``,
-  ``aux = [ls, ls_rcond]``, and for each affine block (``lhs``, ``rhs``,
-  ``out``, ``est_lhs``, ``est_rhs``) its term stack ``<name>__stack`` and
-  coefficient specs ``<name>__coeffs`` as JSON. It reads with numpy and json
-  only, so either package loads the other's files. A ROM file holds no
-  seeds; ``seed_derivation`` is written as the JAX package expects it.
+* ``save_rom`` / ``load_rom``: a standalone ROM in the JAX package's
+  format: :class:`StationaryROM` (``kind = "stationary"``, ``aux = [ls,
+  ls_rcond]``), ``InstationaryROM`` (``"instationary"``, ``aux = [dt, nt,
+  theta]`` and the arrays ``mass_r``, ``u0_r``, ``est_mass``) and the
+  corrected-output composites (``"corrected_output"``,
+  ``"instationary_corrected_output"``: their parts nested under ``pr__`` /
+  ``du__``). The file is one ``.npz``; each affine block (``lhs``, ``rhs``,
+  ``out``, ``est_lhs``, ``est_rhs``, ...) is its term stack
+  ``<name>__stack`` and its coefficient specs ``<name>__coeffs`` as JSON. It
+  reads with numpy and json only, so either package loads the other's
+  files. A ROM file holds no seeds; ``seed_derivation`` is written as the
+  JAX package expects it.
 * ``save_reductor`` / ``load_reductor_state`` (:class:`SketchedReductor`)
   and ``save_padded_reductor`` / ``load_padded_reductor_state``
   (:class:`PaddedSketchedReductor`): the sketched state (sketched basis,
@@ -25,6 +30,11 @@ the sketched reductors:
   projection. A coefficient the file format cannot name (an
   ``ExpressionCoefficient``, e.g. the Helmholtz family's) raises
   ``TypeError``, as in the JAX package.
+* ``save_instationary_reductor`` / ``load_instationary_reductor_state``
+  and ``save_primal_dual_reductor`` / ``load_primal_dual_reductor_state``:
+  the time-dependent reductors' bases (``reduce()`` rebuilds the rest from
+  the FOM), with the port's tag and the embeddings' seeds and fingerprints
+  (and the output kind), so a POD-greedy run can resume;
 * ``save_eim_interpolant`` / ``load_eim_interpolant`` and
   ``save_mdeim_operator`` / ``load_mdeim_operator``: the non-affine
   surrogates' offline results, under the JAX package's keys, so either
@@ -94,28 +104,84 @@ def _load_affine(d, prefix: str, device, dtype) -> Optional[AffineDense]:
     return AffineDense(stack, tuple(coeffs))
 
 
-def save_rom(rom: StationaryROM, path) -> None:
-    """Persist a :class:`StationaryROM` standalone (no FOM, no basis)."""
-    if not isinstance(rom, StationaryROM):
+def save_rom(rom, path) -> None:
+    """Persist a :class:`StationaryROM`, an ``InstationaryROM`` or a
+    corrected-output composite (``CorrectedOutputROM``,
+    ``InstationaryCorrectedOutputROM``) standalone: no FOM, no basis."""
+    np.savez_compressed(path, seed_derivation=SEED_DERIVATION, **_rom_fields(rom))
+
+
+def _rom_fields(rom) -> dict:
+    """A ROM as the JAX package's flat ``.npz`` fields (a composite's parts
+    nested under the key prefixes ``pr__`` / ``du__``)."""
+    from rla4mor_tpu_torch.models.instationary import InstationaryROM
+    from rla4mor_tpu_torch.models.instationary_primal_dual import (
+        InstationaryCorrectedOutputROM,
+    )
+    from rla4mor_tpu_torch.mor.primal_dual import CorrectedOutputROM
+
+    d: dict = {}
+
+    def arr(key, x):
+        if x is not None:
+            d[key] = _numpy(x)
+
+    if isinstance(rom, StationaryROM):
+        d["kind"] = "stationary"
+        d["aux"] = np.asarray([rom.ls, rom.ls_rcond], np.float64)
+        _save_affine(d, "lhs", rom.lhs)
+        _save_affine(d, "rhs", rom.rhs)
+        _save_affine(d, "out", rom.output_functional)
+        if rom.error_estimator is not None:
+            _save_affine(d, "est_lhs", rom.error_estimator.lhs)
+            _save_affine(d, "est_rhs", rom.error_estimator.rhs)
+    elif isinstance(rom, InstationaryROM):
+        d["kind"] = "instationary"
+        d["aux"] = np.asarray([rom.dt, rom.nt, rom.time_theta], np.float64)
+        arr("mass_r", rom.mass_r)
+        arr("u0_r", rom.u0_r)
+        arr("est_mass", rom.est_mass)
+        _save_affine(d, "lhs", rom.lhs)
+        _save_affine(d, "rhs", rom.rhs_r)
+        _save_affine(d, "est_lhs", rom.est_lhs)
+        _save_affine(d, "est_rhs", rom.est_rhs)
+        _save_affine(d, "out", rom.output_functional)
+    elif isinstance(rom, CorrectedOutputROM):
+        d["kind"] = "corrected_output"
+        d["aux"] = np.asarray([], np.float64)
+        _nest(d, "pr", rom.rom_pr)
+        _nest(d, "du", rom.rom_du)
+        _save_affine(d, "rhs_z", rom.rhs_z)
+        _save_affine(d, "op_zv", rom.op_zv)
+    elif isinstance(rom, InstationaryCorrectedOutputROM):
+        d["kind"] = "instationary_corrected_output"
+        d["aux"] = np.asarray([], np.float64)
+        d["output_kind"] = rom.output_kind
+        _nest(d, "pr", rom.rom_pr)
+        arr("mass_zz", rom.mass_zz)
+        arr("mass_zv", rom.mass_zv)
+        arr("est_mass_z", rom.est_mass_z)
+        _save_affine(d, "lhs_zz", rom.lhs_zz)
+        _save_affine(d, "l_z", rom.l_z)
+        _save_affine(d, "rhs_z", rom.rhs_z)
+        _save_affine(d, "op_zv", rom.op_zv)
+        _save_affine(d, "est_lhs_z", rom.est_lhs_z)
+        _save_affine(d, "est_l", rom.est_l)
+    else:
         raise TypeError(f"save_rom: unsupported ROM type {type(rom)!r}")
-    d: dict = {
-        "seed_derivation": SEED_DERIVATION,
-        "kind": "stationary",
-        "aux": np.asarray([rom.ls, rom.ls_rcond], np.float64),
-    }
-    _save_affine(d, "lhs", rom.lhs)
-    _save_affine(d, "rhs", rom.rhs)
-    _save_affine(d, "out", rom.output_functional)
-    if rom.error_estimator is not None:
-        _save_affine(d, "est_lhs", rom.error_estimator.lhs)
-        _save_affine(d, "est_rhs", rom.error_estimator.rhs)
-    np.savez_compressed(path, **d)
+    return d
 
 
-def load_rom(path, device=None, dtype=None) -> StationaryROM:
-    """Load a stationary ROM written by either package's ``save_rom``.
+def _nest(d: dict, prefix: str, rom) -> None:
+    for key, value in _rom_fields(rom).items():
+        d[f"{prefix}__{key}"] = value
 
-    Stacks go to ``device``, in the file's dtype unless ``dtype`` is given."""
+
+def load_rom(path, device=None, dtype=None):
+    """Load a ROM written by either package's ``save_rom``: stationary,
+    instationary, and the two corrected-output kinds (the wave and
+    semilinear kinds are not ported). Tensors go to ``device``, in the
+    file's dtype unless ``dtype`` is given."""
     dev = resolve_device(device)
     src = path if hasattr(path, "read") else Path(path)
     with np.load(src, allow_pickle=False) as d:
@@ -123,19 +189,56 @@ def load_rom(path, device=None, dtype=None) -> StationaryROM:
         if stored != SEED_DERIVATION:
             raise ValueError(f"ROM file written under seed derivation {stored!r}, "
                              f"expected {SEED_DERIVATION!r}")
-        kind = str(d["kind"])
-        if kind != "stationary":
-            raise ValueError(f"load_rom: ROM kind {kind!r} is not ported yet")
+        return _rom_from_fields({key: d[key] for key in d.files}, dev, dtype)
+
+
+def _rom_from_fields(d: dict, dev, dtype):
+    from rla4mor_tpu_torch.models.instationary import InstationaryROM
+    from rla4mor_tpu_torch.models.instationary_primal_dual import (
+        InstationaryCorrectedOutputROM,
+    )
+    from rla4mor_tpu_torch.mor.primal_dual import CorrectedOutputROM
+
+    kind = str(d["kind"])
+
+    def arr(key):
+        if key not in d:
+            return None
+        t = torch.as_tensor(d[key]).to(dev)
+        return t if dtype is None else t.to(dtype)
+
+    def affine(prefix):
+        return _load_affine(d, prefix, dev, dtype)
+
+    def nested(prefix):
+        head = prefix + "__"
+        return _rom_from_fields({k[len(head):]: v for k, v in d.items()
+                                 if k.startswith(head)}, dev, dtype)
+
+    if kind == "stationary":
         est = None
-        est_lhs = _load_affine(d, "est_lhs", dev, dtype)
-        if est_lhs is not None:
-            est = ResidualErrorEstimator(est_lhs, _load_affine(d, "est_rhs", dev, dtype))
+        if "est_lhs__stack" in d:
+            est = ResidualErrorEstimator(affine("est_lhs"), affine("est_rhs"))
         ls, ls_rcond = d["aux"]
-        return StationaryROM(
-            _load_affine(d, "lhs", dev, dtype), _load_affine(d, "rhs", dev, dtype),
-            output_functional=_load_affine(d, "out", dev, dtype),
-            error_estimator=est, ls=bool(ls), ls_rcond=float(ls_rcond),
-        )
+        return StationaryROM(affine("lhs"), affine("rhs"), output_functional=affine("out"),
+                             error_estimator=est, ls=bool(ls), ls_rcond=float(ls_rcond))
+    if kind == "instationary":
+        dt, nt, th = d["aux"]
+        return InstationaryROM(arr("mass_r"), affine("lhs"), affine("rhs"), arr("u0_r"),
+                               float(dt), int(nt), est_mass=arr("est_mass"),
+                               est_lhs=affine("est_lhs"), est_rhs=affine("est_rhs"),
+                               output_functional=affine("out"), time_theta=float(th))
+    if kind == "corrected_output":
+        return CorrectedOutputROM(nested("pr"), nested("du"), affine("rhs_z"),
+                                  affine("op_zv"))
+    if kind == "instationary_corrected_output":
+        return InstationaryCorrectedOutputROM(
+            nested("pr"), arr("mass_zz"), affine("lhs_zz"), affine("l_z"),
+            affine("rhs_z"), arr("mass_zv"), affine("op_zv"),
+            est_mass_z=arr("est_mass_z"), est_lhs_z=affine("est_lhs_z"),
+            est_l=affine("est_l"),
+            output_kind=str(d["output_kind"]) if "output_kind" in d else "final")
+    raise ValueError(f"load_rom: ROM kind {kind!r} is not ported")
 
 
 # ---------------------------------------------------------------------------
@@ -178,14 +281,18 @@ def _load_mu_basis(d, device) -> list:
 
 def _header(reductor) -> dict:
     """Derivation tag, seeds, fingerprints and projection of a checkpoint."""
-    return {
-        "seed_derivation": SEED_DERIVATION_CHECKPOINT,
-        "seed_primal": reductor.embedding_primal.seed,
-        "seed_online": reductor.embedding_online.seed,
-        "fingerprint_primal": _embedding_fingerprint(reductor.embedding_primal),
-        "fingerprint_online": _embedding_fingerprint(reductor.embedding_online),
-        "projection": reductor.projection,
-    }
+    d = {"seed_derivation": SEED_DERIVATION_CHECKPOINT, "projection": reductor.projection}
+    _embedding_header(d, "primal", reductor.embedding_primal)
+    _embedding_header(d, "online", reductor.embedding_online)
+    return d
+
+
+def _embedding_header(d: dict, name: str, emb) -> None:
+    """The seed and fingerprint of a checkpointed embedding (none kept:
+    nothing written)."""
+    if emb is not None:
+        d[f"seed_{name}"] = emb.seed
+        d[f"fingerprint_{name}"] = _embedding_fingerprint(emb)
 
 
 def _check_seed_derivation(d) -> None:
@@ -198,20 +305,27 @@ def _check_seed_derivation(d) -> None:
             "sketches; re-run the offline stage")
 
 
+def _check_embedding(d, name: str, emb) -> None:
+    """Seed and fingerprint guard of one checkpointed embedding (none kept:
+    nothing to check)."""
+    if emb is None:
+        return
+    if f"seed_{name}" in d and int(d[f"seed_{name}"]) != emb.seed:
+        raise ValueError(
+            f"checkpoint seed_{name}={int(d[f'seed_{name}'])} != reductor's "
+            f"{emb.seed}: the stored sketches came from another embedding")
+    key = f"fingerprint_{name}"
+    if key in d and str(d[key]) != _embedding_fingerprint(emb):
+        raise ValueError(
+            f"checkpoint {name} embedding {str(d[key])} does not match the "
+            f"reductor's {_embedding_fingerprint(emb)}: same-seed operators "
+            "with other fields are other operators")
+
+
 def _check_embeddings(d, reductor) -> None:
-    """Seed and fingerprint guards shared by both loaders."""
-    for name, emb in (("primal", reductor.embedding_primal),
-                      ("online", reductor.embedding_online)):
-        if f"seed_{name}" in d and int(d[f"seed_{name}"]) != emb.seed:
-            raise ValueError(
-                f"checkpoint seed_{name}={int(d[f'seed_{name}'])} != reductor's "
-                f"{emb.seed}: the stored sketches came from another embedding")
-        key = f"fingerprint_{name}"
-        if key in d and str(d[key]) != _embedding_fingerprint(emb):
-            raise ValueError(
-                f"checkpoint {name} embedding {str(d[key])} does not match the "
-                f"reductor's {_embedding_fingerprint(emb)}: same-seed operators "
-                "with other fields are other operators")
+    """The guards of the sketched reductors' two embeddings."""
+    _check_embedding(d, "primal", reductor.embedding_primal)
+    _check_embedding(d, "online", reductor.embedding_online)
 
 
 def _check_projection(d, reductor) -> None:
@@ -280,6 +394,52 @@ def load_padded_reductor_state(reductor, path) -> None:
         mu_basis = _load_mu_basis(d, dev)
     if mu_basis:
         reductor.mu_basis = mu_basis
+
+
+def save_instationary_reductor(reductor, path) -> None:
+    """Persist an ``InstationaryReductor``: its resumable state is the
+    R-orthonormal basis (``reduce()`` rebuilds the rest from the FOM), with
+    the embedding's seed and fingerprint, so a POD-greedy run can resume."""
+    d = {"seed_derivation": SEED_DERIVATION_CHECKPOINT, "rb": _numpy(reductor.rb)}
+    _embedding_header(d, "embedding", reductor.embedding)
+    np.savez_compressed(path, **d)
+
+
+def load_instationary_reductor_state(reductor, path) -> None:
+    """Restore :func:`save_instationary_reductor`'s state into a freshly
+    made reductor over the same FOM and embedding (on its device)."""
+    with np.load(Path(path), allow_pickle=False) as d:
+        _check_seed_derivation(d)
+        _check_embedding(d, "embedding", reductor.embedding)
+        reductor.rb = torch.as_tensor(d["rb"]).to(reductor.rb.device)
+
+
+def save_primal_dual_reductor(reductor, path) -> None:
+    """Persist an ``InstationaryPrimalDualReductor``: both bases, the output
+    kind and both embeddings' seeds and fingerprints."""
+    d = {"seed_derivation": SEED_DERIVATION_CHECKPOINT, "rb": _numpy(reductor.primal.rb),
+         "rb_dual": _numpy(reductor.rb_dual), "output_kind": reductor.output_kind}
+    _embedding_header(d, "embedding", reductor.primal.embedding)
+    _embedding_header(d, "embedding_dual", reductor.embedding_dual)
+    np.savez_compressed(path, **d)
+
+
+def load_primal_dual_reductor_state(reductor, path) -> None:
+    """Restore :func:`save_primal_dual_reductor`'s state into a freshly made
+    reductor over the same FOM, embeddings and output kind."""
+    with np.load(Path(path), allow_pickle=False) as d:
+        _check_seed_derivation(d)
+        stored = str(d["output_kind"]) if "output_kind" in d else "final"
+        if stored != reductor.output_kind:
+            raise ValueError(
+                f"checkpoint was written under output_kind={stored!r} but the reductor "
+                f"uses {reductor.output_kind!r}: rb_dual holds POD modes of another "
+                "adjoint problem")
+        _check_embedding(d, "embedding", reductor.primal.embedding)
+        _check_embedding(d, "embedding_dual", reductor.embedding_dual)
+        dev = reductor.rb_dual.device
+        reductor.primal.rb = torch.as_tensor(d["rb"]).to(dev)
+        reductor.rb_dual = torch.as_tensor(d["rb_dual"]).to(dev)
 
 
 # ---------------------------------------------------------------------------

@@ -1,9 +1,11 @@
-"""Batched online serving of shipped stationary ROMs.
+"""Batched online serving of shipped ROMs.
 
 Counterpart of ``evaluate``, ``evaluate_batch``, ``serve_batch`` and
 ``pad_batch`` in ``rla4mor_tpu/serve.py``. A request batch is a batched Mu
 (leading batch axis on every leaf); the ROM solves, estimates and outputs
-for all rows at once (batched ``torch.linalg.solve``). The ROM is an
+for all rows at once: a batched ``torch.linalg.solve`` for a stationary ROM,
+one time loop of batched LU solves for an instationary one, the primal and
+the backward dual loop for a corrected-output composite. The ROM is an
 argument, so a refreshed ROM of the same reduced dimensions is served by the
 same code path.
 
@@ -23,8 +25,28 @@ import torch
 
 
 def evaluate(rom, mu) -> dict:
-    """Online stage of a stationary ROM -> ``{"u"}`` plus ``"estimate"`` /
-    ``"output"`` when the ROM has them. ``mu`` may be one Mu or a batch."""
+    """Online stage of a shippable ROM -> dict; ``mu`` may be one Mu or a
+    batch. Dispatch on the ROM's kind, as the JAX package's:
+
+    * corrected-output composites -> ``{"output", "estimate"}`` from
+      ``output_corrected`` (their primal trajectory stays internal);
+    * time-dependent ROMs (an ``est_lhs`` slot) -> ``{"u"}`` (the reduced
+      trajectory) plus ``"estimate"`` when reduced with an embedding and
+      ``"output"`` when the family defines one;
+    * stationary ROMs -> ``{"u"}`` plus ``"estimate"`` / ``"output"`` when
+      the ROM has them."""
+    if hasattr(rom, "output_corrected"):
+        s, eta = rom.output_corrected(mu)
+        return {"output": s, "estimate": eta}
+    if hasattr(rom, "est_lhs"):
+        if rom.est_lhs is not None:
+            u, eta = rom.solve(mu, return_estimate=True)
+            res = {"u": u, "estimate": eta}
+        else:
+            res = {"u": rom.solve(mu)}
+        if rom.output_functional is not None:
+            res["output"] = rom.output(res["u"], mu)
+        return res
     u = rom.solve(mu)
     res = {"u": u}
     if getattr(rom, "error_estimator", None) is not None:

@@ -57,6 +57,13 @@ def as_tensor(x, device=None, dtype=None) -> torch.Tensor:
     return t.to(device=dev, dtype=dt)
 
 
+def sync(device: torch.device) -> None:
+    """Wait for ``device``'s queued work (a no-op off CUDA): wall-clock
+    readings of the card end with it."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
 @functools.cache
 def sm_count(dev_index: int) -> int:
     """Streaming multiprocessors of CUDA device ``dev_index``, queried once."""

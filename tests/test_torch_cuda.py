@@ -772,3 +772,60 @@ def test_eim_apply_terms_on_the_card_matches_the_cpu(cuda):
     mu = {"bump": mus[0]["bump"].to(cuda)}
     assert rel_err(card.kappa(mu).cpu(), cpu.kappa(mus[0])) < 1e-12
     assert rel_err(card.apply(mu, u.to(cuda)).cpu(), cpu.apply(mus[0], u)) < 1e-12
+
+
+def test_instationary_rom_loop_on_the_card_matches_the_cpu(cuda, tmp_path):
+    """The batched ROM time loop (one LU of M_r + dt A_r for the whole batch,
+    nt batched solves, the sketched space-time estimate) and the corrected
+    output's backward loop on the card in float32 equal the CPU's float64
+    to 1e-5: the ROMs of a CPU reduction, moved by ``save_rom`` /
+    ``load_rom(device, dtype)``."""
+    from rla4mor_tpu_torch.core import ONE, AffineDense, mu_stack
+    from rla4mor_tpu_torch.models import (
+        InstationaryPrimalDualReductor,
+        instationary_thermal_block,
+    )
+    from rla4mor_tpu_torch.mor import load_rom, save_rom
+
+    fom = instationary_thermal_block((2, 2), 12, T=0.5, nt=20, device="cpu")
+    w = torch.zeros((11, 11), dtype=torch.float64)
+    w[:4, :4] = 1.0
+    fom.output_functional = AffineDense((w / w.sum()).reshape(1, 1, -1), (ONE,))
+    Ru = fom.products["h1_0"]
+    emb = temb.GaussianEmbedding.make(fom.solution_dim, sqrt_product=Ru.sqrt, range_dim=80,
+                                      seed=5, device="cpu")
+    red = InstationaryPrimalDualReductor(fom, embedding=emb, product=Ru, log_level=30)
+    train = fom.parameter_space.sample_randomly(3, seed=1, device="cpu")
+    for mu in train:
+        red.extend(mu, modes_per_extension=2)
+    mus = mu_stack(fom.parameter_space.sample_randomly(16, seed=2, device="cpu"))
+    card_mus = {k: v.to(cuda, torch.float32) for k, v in mus.items()}
+    rom_pd = red.reduce()
+    for rom, run in ((rom_pd.rom_pr, lambda r, m: r.solve(m, return_estimate=True)),
+                     (rom_pd, lambda r, m: r.output_corrected(m))):
+        save_rom(rom, tmp_path / "rom.npz")
+        card = load_rom(tmp_path / "rom.npz", device=cuda, dtype=torch.float32)
+        for got, want in zip(run(card, card_mus), run(rom, mus)):
+            assert got.device.type == "cuda" and got.dtype == torch.float32
+            assert rel_err(got.double().cpu(), want) < 1e-5
+
+
+def test_graphed_vcycle_matches_the_eager_one(cuda):
+    """The mass-shifted V-cycle replayed from a CUDA graph (``core/graphs.py``)
+    equals the eager cycle on the card (the same kernels in the same order),
+    call after call with other inputs; on a CPU tensor ``graphed`` returns
+    the function itself."""
+    from rla4mor_tpu_torch.core.graphs import graphed
+    from rla4mor_tpu_torch.models.multigrid import make_vcycle
+    from rla4mor_tpu_torch.models.stencil import StencilThermalBlock
+
+    st = StencilThermalBlock((2, 2), 256, device=cuda)
+    cycle = make_vcycle(st.kappa({"diffusion": torch.tensor([0.3, 0.9, 0.5, 0.7])}),
+                        mass_dt=0.02)
+    b = st.rhs()
+    fast = graphed(cycle, b)
+    g = torch.Generator(device=cuda).manual_seed(3)
+    for _ in range(3):
+        x = torch.randn(b.shape, generator=g, device=cuda)
+        assert torch.equal(fast(x), cycle(x))
+    assert graphed(abs, torch.zeros(2)) is abs

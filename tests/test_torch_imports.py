@@ -59,8 +59,15 @@ def test_port_imports_no_jax_and_builds_nothing():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     names = set(proc.stdout.split())
-    assert len(names) >= 61  # every module of the slices
-    assert {"rla4mor_tpu_torch.models.helmholtz",
+    assert len(names) >= 68  # every module of the slices
+    assert {"rla4mor_tpu_torch.core.graphs",
+            "rla4mor_tpu_torch.models.instationary",
+            "rla4mor_tpu_torch.models.instationary_stencil",
+            "rla4mor_tpu_torch.models.instationary_primal_dual",
+            "rla4mor_tpu_torch.mor.primal_dual",
+            "rla4mor_tpu_torch.examples.large_scale_parabolic_demo",
+            "rla4mor_tpu_torch.examples.instationary_demo",
+            "rla4mor_tpu_torch.models.helmholtz",
             "rla4mor_tpu_torch.models.stencil_nonaffine",
             "rla4mor_tpu_torch.models.bump_host",
             "rla4mor_tpu_torch.mor.eim",

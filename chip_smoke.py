@@ -120,9 +120,10 @@ Phases, each printing one line (any failed check raises and exits non-zero):
    at 2^24, built and freed), the path, SRHT launches equal to 1 (the rhs)
    plus 1 a step, solver iterations and residuals a step and the solves
    that reached maxiter with a finite iterate (BiCGStab breakdowns), the
-   held-out checks against the family's own float64 solve (MG-BiCGStab or
-   Jacobi-CG, tol 1e-10; the ROM output error reported, not held: these
-   manifolds converge more slowly) and one profiled step. ``[large
+   held-out checks at 4 parameters (2 for the 3-D block since PR 16)
+   against the family's own float64 solve (MG-BiCGStab or Jacobi-CG, tol
+   1e-10; the ROM output error reported, not held: these manifolds
+   converge more slowly) and one profiled step. ``[large
    nonaffine]``: the Gaussian-bump family at grid 2048 made affine by the
    EIM fit of the JAX demo (125 training bumps, tol 1e-3, 4 reserve
    points), MG-CG on the surrogate, each step's block the snapshot and its
@@ -144,8 +145,10 @@ Phases, each printing one line (any failed check raises and exits non-zero):
    point ``rla4mor_tpu_torch.examples.preconditioned_large_demo.run`` at
    its defaults: ``StencilThermalBlock((2, 2), PRECOND_GRID)`` in float32
    (n = 1,050,625), 5 MG-CG snapshots, the ``ur_ur`` HS key, SRHT residual
-   rows (k = ``PRECOND_K_RES``), 3 ``RecycledCGInverseOp`` directions, the
-   batched online stage over ``PRECOND_NMU`` parameters beside a loop over
+   rows (k = ``PRECOND_K_RES``), ``PRECOND_DIRECTIONS`` = 2
+   ``RecycledCGInverseOp`` directions (the demo's 3 cut to keep the script
+   in its time limit), the batched online stage over ``PRECOND_NMU``
+   parameters beside a loop over
    8, the ROM against MG-CG at 3 of them. Checks: ``solve_batch`` equals
    the per-parameter ``solve`` (1e-4 relative), and at each direction's
    own parameter the HS residual is at most 1e-3 of ||h||. Then
@@ -244,7 +247,39 @@ Phases, each printing one line (any failed check raises and exits non-zero):
    card in float32; checks: held-out error < 0.2, each certified
    final-time bound at least the measured final-time M-norm error, the
    corrected output's error at most the plain one's;
-12. the kernels' JSON line (the bf16 instance a row of its own, with the
+12. the wave and nonlinear tiers: the SRHT kernel against its plain version
+   at ``[wave]``'s widest block ((1,050,625, 5 r + 1 = 151) columns, k = 120,
+   1e-4), then ``[wave]``: the entry point
+   ``rla4mor_tpu_torch.examples.wave_demo.run(stencil=True)``,
+   ``WaveStencilFOM`` over ``StencilThermalBlock((2, 2), WAVE_GRID)`` in
+   float32 (n = 1,050,625), nt = 60 Newmark steps whose acceleration
+   solves run warm-started MG-CG (the V-cycle shifted by beta dt^2, tol
+   ``WAVE_TOL`` = 1e-6 within ``WAVE_MAXITER`` = 60), 12 training draws,
+   ``WAVE_EXT`` = 10 extensions of 3 modes (the demo's 6 leave the max
+   estimate short of halving), SRHT k = 120 (one launch a ``reduce()``),
+   3 held-out draws, 200 requests served, the first ``WAVE_PROFILE_STEPS``
+   steps of a held-out trajectory profiled; checks: every acceleration
+   and mass solve within 60 iterations, 0 breakdowns, SRHT launches =
+   reduce() calls > 0, the last max estimate below half the first, the
+   estimate within [0.5, 2] of the exact l2 space-time residual of the
+   reconstructed trajectory and accelerations (float64) at each held-out
+   draw, served = solved (1e-4); ``[semilinear]``: the entry point
+   ``rla4mor_tpu_torch.examples.semilinear_demo.scale`` at the widths of
+   the JAX package's semilinear benchmark: ``SemilinearStencilFOM((2, 2),
+   2048)`` in float32 (4,198,401 DoF, cubic, reaction scale 100), 6 numpy
+   parameters solved by MG-CG Newton (tol 1e-6, CG 1e-6 / 200; each stop
+   and its relative residual re-evaluated in float64), the POD-DEIM fit of
+   4 snapshots with the SRHT k = 256 (one launch: [f | A_1 V .. A_4 V | M_L
+   U S]), the held-out errors at the other 2, one batched online solve of
+   4096 parameters; checks: each Newton stop ``converged`` or
+   ``stagnated`` with a finite iterate, one SRHT launch, sketched /
+   exact-Gram (float64, the same basis and interpolant) in [0.5, 2], the
+   batch = a per-parameter loop over 8 (1e-4); then the kernel at that
+   residual block; ``[semilinear demo]``: the entry point
+   ``semilinear_demo.run`` at its defaults with the IMEX composition, in
+   float64 on the card; check: every true error within its certified
+   bound (0 violations);
+13. the kernels' JSON line (the bf16 instance a row of its own, with the
    ``[bf16]`` path's bf16-input launches; the SRHT at each stencil
    family's block a row, with that phase's launches; the tiled Gaussian branch a row
    of its own, with ``[hwprng block]``'s tiled launches at the bench m =
@@ -253,8 +288,8 @@ Phases, each printing one line (any failed check raises and exits non-zero):
    one-strip call at k = 200 and 256; the SRHT and the tiled Gaussian
    branch at [estim]'s sketch with that path's launches; the SRHT at
    [helmholtz srht]'s complex column with that path's launches; the SRHT at
-   [parabolic]'s widest block with that path's launches), the run's wall
-   time, then the result line.
+   [parabolic]'s, [wave]'s and [semilinear]'s widest blocks with those
+   paths' launches), the run's wall time, then the result line.
 
 Times are CUDA-event means over back-to-back calls after a warm-up (the
 wrapper's host time included where it is longer than the kernel's); an
@@ -343,6 +378,10 @@ FAMILY_PHASES = (  # (family, grid, steps, 1 + T; None: known after the EIM fit)
 # [large nonaffine]: the two-grid EIM fit beside the direct one, its greedy
 # on a grid of this many intervals
 NONAFFINE_TWO_GRID = 256
+# held-out parameters of a family's checks; the 3-D block's float64 Jacobi-CG
+# reference solve takes about 17 s at 256^3 (820 iterations on an H100), so 2
+# of them since PR 16, to keep the script in its time limit
+FAMILY_HELD_OUT = {"thermal3d": 2}
 FAMILY_CG_MAXITER = 6000  # the 3-D float64 reference solve (Jacobi-CG)
 # the bf16 offline path: 6 greedy extensions; the padded path 6 (4 leave the
 # ROM 8.1e-2 off at a held-out parameter, CPU float64 at grid 128, above the
@@ -367,6 +406,10 @@ BF16_FLOOR = 4 * 2.0 ** -7
 # [precond]: examples/preconditioned_large_demo.py's defaults
 PRECOND_GRID, PRECOND_K_RES, PRECOND_NMU = 1024, 200, 64
 PRECOND_N = (PRECOND_GRID + 1) ** 2  # 1,050,625 stencil unknowns
+# 2 RecycledCG directions, not the demo's 3: the third took about 65 s of the
+# script's 1,200 s limit, which [wave] and [semilinear] need (a run with 2
+# took 993.3 s of the 1,067.5 s before them)
+PRECOND_DIRECTIONS = 2
 PRECOND_HW_SEED = 21
 # [estim]: examples/inverse_problems_demo.py's run() on ThermalBlockFOM((3, 3),
 # 192), n = 191^2 = 36,481: 200 training and 32 test states, m = 50
@@ -402,8 +445,25 @@ PARABOLIC_GRID, PARABOLIC_NT, PARABOLIC_EXT, PARABOLIC_K = 1024, 50, 5, 128
 PARABOLIC_N = (PARABOLIC_GRID + 1) ** 2
 PARABOLIC_BLOCK = 5 * PARABOLIC_EXT + 1
 # the held-out trajectory's first steps under torch.profiler: a whole
-# trajectory is ~800k device events, whose processing took ~100 s
-PARABOLIC_PROFILE_STEPS = 5
+# trajectory is ~800k device events, whose processing took ~100 s; 1 step,
+# not PR 15's 5 (21.3 s of the phase; 2 steps took 13.4 s), to keep the
+# script in its time limit
+PARABOLIC_PROFILE_STEPS = 1
+# [wave]: examples/wave_demo.py's run(stencil=True) at grid 1024 (n =
+# 1,050,625 nodes), nt = 60 Newmark steps (the demo's), MG-CG tol 1e-6 (what
+# [parabolic] reaches in float32 at this size; the demo's 1e-7 is for grid
+# 16) within 60 iterations, 12 training draws, 3 modes an extension, SRHT k
+# = 120 (the demo's range_dim), 3 held-out draws. WAVE_EXT = 10 extensions,
+# not the demo's 6: with 6 the max estimate of this forced membrane stays
+# within 25% of the first (CPU float64 at grids 16 and 64), short of the
+# halving the JAX test asks for. The widest sketch is the last reduce's
+# block [M V | A_1 V .. A_4 V | b] of 5 r + 1 columns
+WAVE_GRID, WAVE_NT, WAVE_EXT, WAVE_MODES, WAVE_K = 1024, 60, 10, 3, 120
+# 1 profiled Newmark step: 5 were 110,872 device events, whose processing
+# took 36 s on an H100 (2 steps: 49,420 events, 14.9 s)
+WAVE_TOL, WAVE_MAXITER, WAVE_PROFILE_STEPS = 1e-6, 60, 1
+WAVE_N = (WAVE_GRID + 1) ** 2
+WAVE_BLOCK = 5 * WAVE_EXT * WAVE_MODES + 1
 TOL = {torch.float64: 1e-12, torch.float32: 1e-4}
 TOL_NARROW = 8e-3  # 2-byte output against the float32 sums: one bf16 rounding
 HBM_BYTES_PER_S = 3.35e12
@@ -1355,7 +1415,8 @@ def reference_solve(fom64, mu, family: str):
 
 
 def large_held_out(res: dict, device, label: str) -> list[dict]:
-    """At 4 held-out parameters of the family's own sampler, the ROM of
+    """At 4 held-out parameters of the family's own sampler (2 for the 3-D
+    block, ``FAMILY_HELD_OUT``), the ROM of
     ``large_scale_demo.run``'s result: its output against a float64 solve
     (``reference_solve``), and its sketched estimate against the exact l2
     residual of U y in float64, where U is the snapshots Gram-Schmidt-combined
@@ -1382,7 +1443,7 @@ def large_held_out(res: dict, device, label: str) -> list[dict]:
     snaps = torch.stack(res["snapshots"][:r]).reshape(r, n)      # (r, n) float32
     emb = SrhtEmbedding(LARGE_K, n, seed=0, device=device, dtype=torch.float32)
     comb = lstsq_dense(emb.apply_random(snaps.T).double(), state.srb[:, :r].double())
-    held, rows = res["sample"](4, 3), []
+    held, rows = res["sample"](FAMILY_HELD_OUT.get(family, 4), 3), []
     for mu in held:
         solve = reference_solve(fom64, mu, family)
         s_fom = float(fom64.output(solve.x))
@@ -1714,13 +1775,15 @@ def rel_max(a: torch.Tensor, b: torch.Tensor) -> float:
 
 def precond_phase(device) -> dict:
     """[precond]: ``examples/preconditioned_large_demo.py``'s ``run()`` at its
-    defaults (grid 1024, float32), and its checks: the batched online stage
-    equals the per-parameter one (1e-4 relative), and at each direction's
-    own parameter the HS residual is at most 1e-3 of ||h||."""
+    defaults (grid 1024, float32) but ``PRECOND_DIRECTIONS`` directions, and
+    its checks: the batched online stage equals the per-parameter one (1e-4
+    relative), and at each direction's own parameter the HS residual is at
+    most 1e-3 of ||h||."""
     from rla4mor_tpu_torch.examples import preconditioned_large_demo as demo
 
     t0 = time.perf_counter()
-    res = demo.run(grid=PRECOND_GRID, k_res=PRECOND_K_RES, nmu=PRECOND_NMU, device=device,
+    res = demo.run(grid=PRECOND_GRID, k_res=PRECOND_K_RES, nmu=PRECOND_NMU,
+                   ndir=PRECOND_DIRECTIONS, device=device,
                    log=lambda line: print(f"[precond] {line}", flush=True))
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
@@ -2154,20 +2217,21 @@ def embeddings_phase(device) -> dict:
             "streamed_peak_gb": rows[-1]["peak_gb"], "streamed_omega_gb": rows[-1]["omega_gb"]}
 
 
-def parabolic_kernel_row(device) -> dict:
-    """The SRHT kernel against its plain version at [parabolic]'s widest
-    block: (n, m) = (1,050,625, 26) column blocks, k = 128, through the
-    path's embedding (seed 0); the library yardstick is one product with the
-    explicit (128, n) operator."""
+def path_block_row(device, label: str, n: int, m: int, k: int, seed: int,
+                   reps: int = 50) -> dict:
+    """The SRHT kernel against its plain version at a path's widest block:
+    (n, m) float32 columns, k rows, through the path's embedding (its
+    seed); the library yardstick is one product with the explicit (k, n)
+    operator. [parabolic]: (1,050,625, 26), k = 128; [wave]: (1,050,625,
+    151), k = 120; [semilinear]: (4,198,401, 1 + 4 r + m_deim), k = 256."""
     from rla4mor_tpu_torch.ops.embeddings import SrhtEmbedding
 
-    n, m, k = PARABOLIC_N, PARABOLIC_BLOCK, PARABOLIC_K
-    emb = SrhtEmbedding(k, n, seed=0, device=device, dtype=torch.float32)
+    emb = SrhtEmbedding(k, n, seed=seed, device=device, dtype=torch.float32)
     signs, samp, _ = emb.plan
     S = explicit_srht(signs, samp, n, k, torch.float32, device)
     x = torch.randn((n, m), generator=torch.Generator(device=device).manual_seed(n + m),
                     device=device)
-    row = compare(f"parabolic n={n} m={m} k={k} cols", x, k, signs, samp, reps=50,
+    row = compare(f"{label} n={n} m={m} k={k} cols", x, k, signs, samp, reps=reps,
                   kernel=lambda: emb.apply_random(x), library=lambda: torch.matmul(S, x))
     del S, x
     torch.cuda.empty_cache()
@@ -2271,6 +2335,163 @@ def instationary_phase(device) -> dict:
             "max_indicators": res["max_indicators"], "s_true": res["s_true"],
             "err_plain": res["err_plain"], "err_corrected": res["err_corrected"],
             "indicator": res["indicator"], "wall_s": time.perf_counter() - t0}
+
+
+def wave_phase(device) -> dict:
+    """[wave]: ``wave_demo.run(stencil=True)`` at full width with the SRHT
+    kernel as its embedding, and its checks: every Newmark acceleration
+    solve converged (MG-CG to ``WAVE_TOL`` within ``WAVE_MAXITER``, 0
+    breakdowns) and every mass solve within ``WAVE_MAXITER``, SRHT launches
+    equal to the reduce() calls (> 0), the last max estimate below half the
+    first (``tests/test_wave.py:120``'s rule), at each held-out draw the
+    sketched space-time estimate within [0.5, 2] of the exact l2 residual
+    (float64 stencil residual of the reconstructed trajectory and
+    accelerations), ``serve_batch`` equal to per-parameter solves (1e-4)."""
+    from rla4mor_tpu_torch.examples import wave_demo as demo
+    from rla4mor_tpu_torch.ops import srht_cuda
+    from rla4mor_tpu_torch.ops.embeddings import SrhtEmbedding
+
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    srht_cuda.srht_onepass.launches = 0
+    srht_cuda.srht_onepass.launches_by_width.clear()
+    res = demo.run(grid=WAVE_GRID, nt=WAVE_NT, extensions=WAVE_EXT, k=WAVE_K, stencil=True,
+                   precond="mg", tol=WAVE_TOL, maxiter=WAVE_MAXITER, device=device,
+                   profile_steps=WAVE_PROFILE_STEPS,
+                   embedding=lambda n, k: SrhtEmbedding(k, n, seed=0, device=device),
+                   log=lambda line: print(f"[wave] {line}", flush=True))
+    torch.cuda.synchronize()
+    launches = srht_cuda.srht_onepass.launches
+    widths = dict(srht_cuda.srht_onepass.launches_by_width)
+    peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
+    solver, prof, est = res["solver"], res["profile"], res["max_estimates"]
+    check(all(math.isfinite(e) for e in est), f"wave: max estimates {est}")
+    for key, v in res["served"].items():
+        check(bool(torch.isfinite(v).all()), f"wave: served {key} not finite")
+    check(launches == res["reduce_calls"] > 0,
+          f"wave: {launches} SRHT launches for {res['reduce_calls']} reduce() calls")
+    check(solver["breakdowns"] == 0 and solver["iters_max"] <= WAVE_MAXITER,
+          f"wave: {solver['breakdowns']} acceleration solves above tol (max rel res "
+          f"{solver['rel_res_max']:.3e})")
+    check(max(solver["mass_iters"]) < WAVE_MAXITER,
+          f"wave: mass solves took {solver['mass_iters']} iterations")
+    check(est[-1] < 0.5 * est[0], f"wave: max estimate did not halve: {est}")
+    ratios = [h["est_over_exact"] for h in res["held_out"]]
+    check(all(0.5 <= r <= 2.0 for r in ratios),
+          f"wave: estimate / exact {ratios} outside [0.5, 2]")
+    check(res["serve_dev"] <= 1e-4, f"wave: serve_batch vs solve {res['serve_dev']:.3e}")
+    for row in prof["top"]:
+        phase("wave profile top", ms=row["ms"], calls=row["calls"],
+              name=row["name"].replace(" ", "_"))
+    out = {
+        "n": res["n"], "nt": res["nt"], "k": res["k"], "precond": res["precond"],
+        "tol": res["tol"], "maxiter": res["maxiter"], "basis": res["basis"],
+        "greedy_s": res["greedy_s"], "fom_s": res["fom_s"],
+        "s_per_trajectory": sum(res["fom_s"]) / len(res["fom_s"]),
+        "cg_steps": solver["steps"], "cg_iters_first": solver["iters_first"],
+        "cg_iters_median": solver["iters_median"], "cg_iters_max": solver["iters_max"],
+        "cg_rel_res_max": solver["rel_res_max"], "breakdowns": solver["breakdowns"],
+        "mass_iters": solver["mass_iters"], "srht_launches": launches,
+        "reduce_calls": res["reduce_calls"], "srht_launches_by_width": widths,
+        "max_estimates": est, "held_out_rel_err": [h["rel_err"] for h in res["held_out"]],
+        "estimates": [h["estimate"] for h in res["held_out"]],
+        "exact_residuals": [h["exact_residual"] for h in res["held_out"]],
+        "est_over_exact": ratios, "serve_ms": res["serve_s"] * 1e3,
+        "requests": res["n_valid"], "serve_vs_solve": res["serve_dev"],
+        "stage_s": res["stage_s"], "profile_steps": WAVE_PROFILE_STEPS,
+        "profile_wall_s": prof["wall_s"], "profile_busy_s": prof["busy_s"],
+        "profile_idle_share": prof["idle_share"],
+        "profile_device_events": prof["device_events"], "peak_gb": peak_gb,
+        "phase_s": time.perf_counter() - t_phase,
+    }
+    del res
+    torch.cuda.empty_cache()
+    return out
+
+
+def semilinear_phase(device) -> dict:
+    """[semilinear]: ``semilinear_demo.scale`` at the widths of the JAX
+    package's ``benchmarks/semilinear_tpu.py`` (2049^2 = 4,198,401 DoF,
+    float32, cubic, reaction scale 100, MG-CG Newton to 1e-6, 6 numpy
+    parameters, 4 snapshots, SRHT k = 256, a batch of 4096), and its checks:
+    every Newton solve stops ``converged`` or ``stagnated`` before
+    ``max_newton`` with a finite iterate, one SRHT launch (the fit's
+    residual block; counts set to 0 just before, read just after), at the 2
+    held-out parameters the sketched estimate within [0.5, 2] of the
+    exact-Gram one of the same basis and interpolant in float64, the batch
+    equal to a per-parameter loop over 8 (1e-4), finite estimates."""
+    from rla4mor_tpu_torch.examples import semilinear_demo as demo
+    from rla4mor_tpu_torch.ops import srht_cuda
+
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    srht_cuda.srht_onepass.launches = 0
+    srht_cuda.srht_onepass.launches_by_width.clear()
+    res = demo.scale(device=device, log=lambda line: print(f"[semilinear] {line}",
+                                                          flush=True))
+    torch.cuda.synchronize()
+    launches = srht_cuda.srht_onepass.launches
+    peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
+    solves = res["solves"]
+    for i, info in enumerate(solves):
+        check(info["reason"] in ("converged", "stagnated") and info["finite"],
+              f"semilinear: Newton {i} stopped {info['reason']} (finite {info['finite']})")
+    check(launches == 1, f"semilinear: {launches} SRHT launches for one fit")
+    ratios = [h["sketched_over_exact"] for h in res["held_out"]]
+    check(all(0.5 <= r <= 2.0 for r in ratios),
+          f"semilinear: sketched / exact-Gram estimates {ratios} outside [0.5, 2]")
+    check(res["batch_vs_loop"] <= 1e-4,
+          f"semilinear: batch vs per-parameter {res['batch_vs_loop']:.3e}")
+    check(res["eta_finite"], "semilinear: batch estimates not finite")
+    out = {
+        "n": res["n"], "dtype": res["dtype"],
+        "newton_reasons": [s["reason"] for s in solves],
+        "newton_iters": [s["iters"] for s in solves],
+        "newton_s": [s["seconds"] for s in solves],
+        "cg_iters": [s["cg_iters"] for s in solves],
+        "rel_res": [s["rel_res"] for s in solves],
+        "rel_res_f64": [s["rel_res_f64"] for s in solves],
+        "fit_s": res["fit_s"], "r": res["r"], "m_deim": res["m_deim"], "block": res["block"],
+        "k": res["k"], "srht_launches": launches,
+        "held_out_rel_err": [h["rel_err"] for h in res["held_out"]],
+        "sketched_over_exact": ratios, "batch": res["batch"],
+        "online_ms": res["online_s"] * 1e3, "samples_per_s": res["samples_per_s"],
+        "batch_vs_loop": res["batch_vs_loop"], "peak_gb": peak_gb,
+        "phase_s": time.perf_counter() - t_phase,
+    }
+    del res
+    torch.cuda.empty_cache()
+    return out
+
+
+def semilinear_demo_phase(device) -> dict:
+    """[semilinear demo]: ``semilinear_demo.run`` at its defaults (grid 48,
+    24 training and 32 test draws, 8 certified greedy steps) with the IMEX
+    composition (nt 24), in float64 on the card as the JAX demo runs on a
+    CPU, and its checks: every true error within its certified bound (the
+    demo's 1 + 1e-8 slack, 0 violations), finite estimates and indicators."""
+    from rla4mor_tpu_torch.examples import semilinear_demo as demo
+
+    t0 = time.perf_counter()
+    res = demo.run(device=device, dtype=torch.float64, parabolic=True, nt=24,
+                   log=lambda line: print(f"[semilinear demo] {line}", flush=True))
+    torch.cuda.synchronize()
+    par = res["parabolic"]
+    check(res["violations"] == 0, f"semilinear demo: {res['violations']} bound violations")
+    check(bool(torch.isfinite(res["estimates"]).all()), "semilinear demo: estimates")
+    check(all(math.isfinite(x) for x in par["indicators"] + par["rel_errors"]),
+          f"semilinear demo: IMEX {par}")
+    effect = [float(b) / max(e, 1e-300) for b, e in zip(res["bounds"], res["errors"])]
+    return {"n": res["n"], "r": res["rom"].dim, "m_deim": res["rom"].n_deim,
+            "history": res["history"], "greedy_s": res["greedy_s"],
+            "online_ms": res["online_s"] * 1e3, "errors": res["errors"],
+            "bounds": [float(b) for b in res["bounds"][:len(res["errors"])]],
+            "effectivities": effect, "violations": res["violations"],
+            "imex_r": par["rom"].dim, "imex_m_deim": par["rom"].W.shape[1],
+            "imex_fit_s": par["fit_s"], "imex_rel_errors": par["rel_errors"],
+            "imex_indicators": par["indicators"], "wall_s": time.perf_counter() - t0}
 
 
 def build_all(sources) -> dict:
@@ -2419,11 +2640,25 @@ def main(argv=None) -> int:
 
     # 11. the parabolic tier: the SRHT kernel at [parabolic]'s widest block,
     # the big-n POD-greedy at 1,050,625 DoF, then the host-LU instationary demo
-    para_row = parabolic_kernel_row(device)
+    para_row = path_block_row(device, "parabolic", PARABOLIC_N, PARABOLIC_BLOCK, PARABOLIC_K, 0)
     para = parabolic_phase(device)
     phase("parabolic", **para, card=smi)
     inst = instationary_phase(device)
     phase("instationary", **inst, card=smi)
+
+    # 12. the wave and nonlinear tiers: the SRHT kernel at [wave]'s widest
+    # block, the matrix-free Newmark POD-greedy at 1,050,625 DoF, the
+    # semilinear scale mode at 4,198,401 DoF with the kernel at its residual
+    # block (known after the fit), then the semilinear demo in float64
+    wave_row = path_block_row(device, "wave", WAVE_N, WAVE_BLOCK, WAVE_K, 0)
+    wave = wave_phase(device)
+    phase("wave", **wave, card=smi)
+    semi = semilinear_phase(device)
+    phase("semilinear", **semi, card=smi)
+    semi_row = path_block_row(device, "semilinear", (LARGE_GRID + 1) ** 2, semi["block"],
+                              256, 7, reps=20)
+    semi_demo = semilinear_demo_phase(device)
+    phase("semilinear demo", **semi_demo, card=smi)
 
     # 12. result
     main_row = next(r for r in rows if r["label"].startswith("slice")
@@ -2441,7 +2676,8 @@ def main(argv=None) -> int:
     f32_launches = (summary["srht_launches"] + padded["srht_launches"]
                     + padded["resume_srht_launches"] + strong["srht_launches"]
                     + large_launches + family_launches + estim["srht_launches"]
-                    + helm_srht["srht_launches"] + para["srht_launches"])
+                    + helm_srht["srht_launches"] + para["srht_launches"]
+                    + wave["srht_launches"] + semi["srht_launches"])
     print(json.dumps({"kernels": [
         kernel_entry("srht_onepass", "rla4mor_tpu_torch/csrc/srht_onepass.cu",
                      "rla4mor_tpu/ops/srht_pallas.py:580", f32_launches, main_row),
@@ -2516,6 +2752,17 @@ def main(argv=None) -> int:
                      "rla4mor_tpu/ops/srht_pallas.py:580", para["srht_launches"], para_row,
                      note="the [parabolic] path's launches (one a reduce(), blocks of "
                      "5 r + 1 columns), a subset of the first row's"),
+        # [wave]: one launch a reduce(), the (n, 5 r + 1) block of the Newmark
+        # mass, the 4 stiffness terms and the rhs; the row at the widest one
+        kernel_entry("srht_onepass", "rla4mor_tpu_torch/csrc/srht_onepass.cu",
+                     "rla4mor_tpu/ops/srht_pallas.py:580", wave["srht_launches"], wave_row,
+                     note="the [wave] path's launches (one a reduce(), blocks of 5 r + 1 "
+                     "columns), a subset of the first row's"),
+        # [semilinear]: the fit's one launch on [f | A_1 V .. A_4 V | M_L U S]
+        kernel_entry("srht_onepass", "rla4mor_tpu_torch/csrc/srht_onepass.cu",
+                     "rla4mor_tpu/ops/srht_pallas.py:580", semi["srht_launches"], semi_row,
+                     note="the [semilinear] path's launch (the residual block of the "
+                     "POD-DEIM fit), a subset of the first row's"),
     ]}), flush=True)
     phase("wall", s=time.perf_counter() - t_start)
     print(json.dumps({"ok": True, "device": {

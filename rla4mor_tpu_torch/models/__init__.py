@@ -32,6 +32,18 @@ from rla4mor_tpu_torch.models.instationary_primal_dual import (
     output_pod_greedy,
     solve_dual,
 )
+from rla4mor_tpu_torch.models.wave import (
+    WaveFOM,
+    WaveReductor,
+    WaveROM,
+    wave_thermal_block,
+)
+from rla4mor_tpu_torch.models.wave_stencil import WaveStencilFOM
+from rla4mor_tpu_torch.models.semilinear import (
+    NONLINEARITIES,
+    SemilinearInstationaryFOM,
+    SemilinearStencilFOM,
+)
 
 __all__ = ["StationaryFOM", "StationaryROM", "ResidualErrorEstimator",
            "StencilThermalBlock", "StencilThermalBlock3D", "StencilAdvectionDiffusion",
@@ -40,4 +52,6 @@ __all__ = ["StationaryFOM", "StationaryROM", "ResidualErrorEstimator",
            "gaussian_bump_fom", "gaussian_bump_fom3d", "InstationaryFOM",
            "InstationaryROM", "InstationaryReductor", "instationary_thermal_block",
            "pod_greedy", "InstationaryStencilFOM", "InstationaryCorrectedOutputROM",
-           "InstationaryPrimalDualReductor", "output_pod_greedy", "solve_dual"]
+           "InstationaryPrimalDualReductor", "output_pod_greedy", "solve_dual",
+           "WaveFOM", "WaveROM", "WaveReductor", "wave_thermal_block", "WaveStencilFOM",
+           "NONLINEARITIES", "SemilinearStencilFOM", "SemilinearInstationaryFOM"]

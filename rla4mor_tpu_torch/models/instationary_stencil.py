@@ -248,10 +248,14 @@ class _FlatParabolicView:
         self.solution_dim = math.prod(fom.solution_shape)
         self.u0 = fom.u0.reshape(-1)
         self.T, self.nt, self.dt = fom.T, fom.nt, fom.dt
-        self.time_theta = fom.time_theta
+        self._scheme(fom)
         self.parameter_space = fom.parameter_space
         self.products: dict = {}
         self._output_functional = _UNBUILT  # the (1, 1, n) row, built on first use
+
+    def _scheme(self, fom) -> None:
+        """The time scheme's constants, as the host FOM names them."""
+        self.time_theta = fom.time_theta
 
     @property
     def stencil_fom(self) -> InstationaryStencilFOM:

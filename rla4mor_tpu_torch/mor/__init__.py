@@ -28,6 +28,8 @@ from rla4mor_tpu_torch.mor.serialization import (
     save_primal_dual_reductor,
     save_reductor,
     save_rom,
+    load_wave_reductor_state,
+    save_wave_reductor,
 )
 from rla4mor_tpu_torch.mor.bounds import (
     InfSupLowerBound,
@@ -56,6 +58,12 @@ from rla4mor_tpu_torch.mor.eim import (
     mdeim,
     theta_coefficients,
 )
+from rla4mor_tpu_torch.mor.semilinear_reductor import (
+    SemilinearInstationaryROM,
+    SemilinearReductor,
+    SemilinearResidualEstimator,
+    SemilinearROM,
+)
 
 __all__ = ["ClassicalReductor", "GramResidualEstimator", "SketchedReductor",
            "GreedyResult", "rb_greedy", "rb_greedy_padded", "rb_greedy_strong",
@@ -70,4 +78,6 @@ __all__ = ["ClassicalReductor", "GramResidualEstimator", "SketchedReductor",
            "parabolic_output_error_bound", "CorrectedOutputROM", "PrimalDualReductor",
            "dual_fom", "output_greedy", "save_instationary_reductor",
            "load_instationary_reductor_state", "save_primal_dual_reductor",
-           "load_primal_dual_reductor_state"]
+           "load_primal_dual_reductor_state", "save_wave_reductor",
+           "load_wave_reductor_state", "SemilinearResidualEstimator", "SemilinearROM",
+           "SemilinearInstationaryROM", "SemilinearReductor"]

@@ -6,10 +6,16 @@ the sketched reductors:
 * ``save_rom`` / ``load_rom``: a standalone ROM in the JAX package's
   format: :class:`StationaryROM` (``kind = "stationary"``, ``aux = [ls,
   ls_rcond]``), ``InstationaryROM`` (``"instationary"``, ``aux = [dt, nt,
-  theta]`` and the arrays ``mass_r``, ``u0_r``, ``est_mass``) and the
+  theta]`` and the arrays ``mass_r``, ``u0_r``, ``est_mass``), ``WaveROM``
+  (``"wave"``, ``aux = [dt, nt, beta, gamma]``, with ``v0_r``), the
   corrected-output composites (``"corrected_output"``,
   ``"instationary_corrected_output"``: their parts nested under ``pr__`` /
-  ``du__``). The file is one ``.npz``; each affine block (``lhs``, ``rhs``,
+  ``du__``) and the semilinear ROMs (``"semilinear"``, ``aux =
+  [reaction_scale, newton_tol, max_newton]``; ``"semilinear_instationary"``,
+  ``aux = [reaction_scale, nt, dt, v_row_sup]``, files without the last slot
+  loading with NaN; both with ``nonlinearity``, ``rhs_hat``, ``W``, ``Pv``,
+  ``out_row`` and the estimator's ``est_gram``, ``est_aux = [sketched,
+  mass_scale, n_interior]``, ``est_pv_res``, ``est_pred_res``). The file is one ``.npz``; each affine block (``lhs``, ``rhs``,
   ``out``, ``est_lhs``, ``est_rhs``, ...) is its term stack
   ``<name>__stack`` and its coefficient specs ``<name>__coeffs`` as JSON. It
   reads with numpy and json only, so either package loads the other's
@@ -30,8 +36,9 @@ the sketched reductors:
   projection. A coefficient the file format cannot name (an
   ``ExpressionCoefficient``, e.g. the Helmholtz family's) raises
   ``TypeError``, as in the JAX package.
-* ``save_instationary_reductor`` / ``load_instationary_reductor_state``
-  and ``save_primal_dual_reductor`` / ``load_primal_dual_reductor_state``:
+* ``save_instationary_reductor`` / ``load_instationary_reductor_state``,
+  ``save_wave_reductor`` / ``load_wave_reductor_state`` and
+  ``save_primal_dual_reductor`` / ``load_primal_dual_reductor_state``:
   the time-dependent reductors' bases (``reduce()`` rebuilds the rest from
   the FOM), with the port's tag and the embeddings' seeds and fingerprints
   (and the output kind), so a POD-greedy run can resume;
@@ -105,9 +112,11 @@ def _load_affine(d, prefix: str, device, dtype) -> Optional[AffineDense]:
 
 
 def save_rom(rom, path) -> None:
-    """Persist a :class:`StationaryROM`, an ``InstationaryROM`` or a
-    corrected-output composite (``CorrectedOutputROM``,
-    ``InstationaryCorrectedOutputROM``) standalone: no FOM, no basis."""
+    """Persist a :class:`StationaryROM`, an ``InstationaryROM``, a
+    ``WaveROM``, a corrected-output composite (``CorrectedOutputROM``,
+    ``InstationaryCorrectedOutputROM``) or a semilinear ROM
+    (``SemilinearROM``, ``SemilinearInstationaryROM``) standalone: no FOM,
+    no basis."""
     np.savez_compressed(path, seed_derivation=SEED_DERIVATION, **_rom_fields(rom))
 
 
@@ -118,7 +127,12 @@ def _rom_fields(rom) -> dict:
     from rla4mor_tpu_torch.models.instationary_primal_dual import (
         InstationaryCorrectedOutputROM,
     )
+    from rla4mor_tpu_torch.models.wave import WaveROM
     from rla4mor_tpu_torch.mor.primal_dual import CorrectedOutputROM
+    from rla4mor_tpu_torch.mor.semilinear_reductor import (
+        SemilinearInstationaryROM,
+        SemilinearROM,
+    )
 
     d: dict = {}
 
@@ -146,6 +160,18 @@ def _rom_fields(rom) -> dict:
         _save_affine(d, "est_lhs", rom.est_lhs)
         _save_affine(d, "est_rhs", rom.est_rhs)
         _save_affine(d, "out", rom.output_functional)
+    elif isinstance(rom, WaveROM):
+        d["kind"] = "wave"
+        d["aux"] = np.asarray([rom.dt, rom.nt, rom.beta, rom.gamma], np.float64)
+        arr("mass_r", rom.mass_r)
+        arr("u0_r", rom.u0_r)
+        arr("v0_r", rom.v0_r)
+        arr("est_mass", rom.est_mass)
+        _save_affine(d, "lhs", rom.lhs)
+        _save_affine(d, "rhs", rom.rhs_r)
+        _save_affine(d, "est_lhs", rom.est_lhs)
+        _save_affine(d, "est_rhs", rom.est_rhs)
+        _save_affine(d, "out", rom.output_functional)
     elif isinstance(rom, CorrectedOutputROM):
         d["kind"] = "corrected_output"
         d["aux"] = np.asarray([], np.float64)
@@ -167,6 +193,29 @@ def _rom_fields(rom) -> dict:
         _save_affine(d, "op_zv", rom.op_zv)
         _save_affine(d, "est_lhs_z", rom.est_lhs_z)
         _save_affine(d, "est_l", rom.est_l)
+    elif isinstance(rom, (SemilinearROM, SemilinearInstationaryROM)):
+        if isinstance(rom, SemilinearROM):
+            d["kind"] = "semilinear"
+            d["aux"] = np.asarray([rom.reaction_scale, rom.newton_tol, rom.max_newton],
+                                  np.float64)
+        else:
+            d["kind"] = "semilinear_instationary"
+            d["aux"] = np.asarray([rom.reaction_scale, rom.nt, rom.dt, rom.v_row_sup],
+                                  np.float64)
+            arr("M_hat", rom.M_hat)
+        d["nonlinearity"] = rom.nonlinearity
+        _save_affine(d, "lhs", rom.lhs)
+        arr("rhs_hat", rom.rhs_hat)
+        arr("W", rom.W)
+        arr("Pv", rom.Pv)
+        arr("out_row", rom.output_row)
+        est = rom.error_estimator
+        if est is not None:
+            d["est_gram"] = _numpy(est.gram)
+            d["est_aux"] = np.asarray([float(est.sketched), est.mass_scale, est.n_interior],
+                                      np.float64)
+            arr("est_pv_res", est.Pv_res)
+            arr("est_pred_res", est.pred_res)
     else:
         raise TypeError(f"save_rom: unsupported ROM type {type(rom)!r}")
     return d
@@ -179,9 +228,9 @@ def _nest(d: dict, prefix: str, rom) -> None:
 
 def load_rom(path, device=None, dtype=None):
     """Load a ROM written by either package's ``save_rom``: stationary,
-    instationary, and the two corrected-output kinds (the wave and
-    semilinear kinds are not ported). Tensors go to ``device``, in the
-    file's dtype unless ``dtype`` is given."""
+    instationary, wave, the two corrected-output kinds and the two
+    semilinear kinds. Tensors go to ``device``, in the file's dtype unless
+    ``dtype`` is given."""
     dev = resolve_device(device)
     src = path if hasattr(path, "read") else Path(path)
     with np.load(src, allow_pickle=False) as d:
@@ -197,7 +246,13 @@ def _rom_from_fields(d: dict, dev, dtype):
     from rla4mor_tpu_torch.models.instationary_primal_dual import (
         InstationaryCorrectedOutputROM,
     )
+    from rla4mor_tpu_torch.models.wave import WaveROM
     from rla4mor_tpu_torch.mor.primal_dual import CorrectedOutputROM
+    from rla4mor_tpu_torch.mor.semilinear_reductor import (
+        SemilinearInstationaryROM,
+        SemilinearResidualEstimator,
+        SemilinearROM,
+    )
 
     kind = str(d["kind"])
 
@@ -228,6 +283,34 @@ def _rom_from_fields(d: dict, dev, dtype):
                                float(dt), int(nt), est_mass=arr("est_mass"),
                                est_lhs=affine("est_lhs"), est_rhs=affine("est_rhs"),
                                output_functional=affine("out"), time_theta=float(th))
+    if kind == "wave":
+        dt, nt, beta, gamma = d["aux"]
+        return WaveROM(arr("mass_r"), affine("lhs"), affine("rhs"), arr("u0_r"),
+                       arr("v0_r"), float(dt), int(nt), float(beta), float(gamma),
+                       est_mass=arr("est_mass"), est_lhs=affine("est_lhs"),
+                       est_rhs=affine("est_rhs"), output_functional=affine("out"))
+    if kind in ("semilinear", "semilinear_instationary"):
+        est = None
+        if "est_gram" in d:
+            sketched, mass_scale, n_int = d["est_aux"]
+            est = SemilinearResidualEstimator(arr("est_gram"), arr("est_pv_res"),
+                                              arr("est_pred_res"), bool(sketched),
+                                              mass_scale=float(mass_scale),
+                                              n_interior=int(n_int))
+        common = (arr("W"), arr("Pv"), arr("out_row"), est)
+        kw = {"nonlinearity": str(d["nonlinearity"])}
+        aux = np.asarray(d["aux"], np.float64)
+        if kind == "semilinear":
+            return SemilinearROM(affine("lhs"), arr("rhs_hat"), *common,
+                                 reaction_scale=float(aux[0]), newton_tol=float(aux[1]),
+                                 max_newton=int(aux[2]), **kw)
+        # files of the older format have no v_row_sup slot: NaN, and the
+        # certified bound then asks for an explicit v_row_sup=
+        v_sup = float(aux[3]) if aux.shape[0] > 3 else float("nan")
+        return SemilinearInstationaryROM(affine("lhs"), arr("M_hat"), arr("rhs_hat"),
+                                         *common, reaction_scale=float(aux[0]),
+                                         nt=int(aux[1]), dt=float(aux[2]), v_row_sup=v_sup,
+                                         **kw)
     if kind == "corrected_output":
         return CorrectedOutputROM(nested("pr"), nested("du"), affine("rhs_z"),
                                   affine("op_zv"))
@@ -412,6 +495,12 @@ def load_instationary_reductor_state(reductor, path) -> None:
         _check_seed_derivation(d)
         _check_embedding(d, "embedding", reductor.embedding)
         reductor.rb = torch.as_tensor(d["rb"]).to(reductor.rb.device)
+
+
+# a ``WaveReductor``'s resumable state is the instationary one's (the basis,
+# the port's tag, the embedding's seed and fingerprint), as in the JAX package
+save_wave_reductor = save_instationary_reductor
+load_wave_reductor_state = load_instationary_reductor_state
 
 
 def save_primal_dual_reductor(reductor, path) -> None:

@@ -4,8 +4,9 @@ Counterpart of ``evaluate``, ``evaluate_batch``, ``serve_batch`` and
 ``pad_batch`` in ``rla4mor_tpu/serve.py``. A request batch is a batched Mu
 (leading batch axis on every leaf); the ROM solves, estimates and outputs
 for all rows at once: a batched ``torch.linalg.solve`` for a stationary ROM,
-one time loop of batched LU solves for an instationary one, the primal and
-the backward dual loop for a corrected-output composite. The ROM is an
+one time loop of batched LU solves for an instationary or a wave
+(Newmark) one, the primal and the backward dual loop for a
+corrected-output composite. The ROM is an
 argument, so a refreshed ROM of the same reduced dimensions is served by the
 same code path.
 
@@ -30,9 +31,10 @@ def evaluate(rom, mu) -> dict:
 
     * corrected-output composites -> ``{"output", "estimate"}`` from
       ``output_corrected`` (their primal trajectory stays internal);
-    * time-dependent ROMs (an ``est_lhs`` slot) -> ``{"u"}`` (the reduced
-      trajectory) plus ``"estimate"`` when reduced with an embedding and
-      ``"output"`` when the family defines one;
+    * time-dependent ROMs (an ``est_lhs`` slot: ``InstationaryROM``,
+      ``WaveROM``) -> ``{"u"}`` (the reduced trajectory) plus
+      ``"estimate"`` when reduced with an embedding and ``"output"`` when
+      the family defines one;
     * stationary ROMs -> ``{"u"}`` plus ``"estimate"`` / ``"output"`` when
       the ROM has them."""
     if hasattr(rom, "output_corrected"):

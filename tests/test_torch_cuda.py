@@ -829,3 +829,48 @@ def test_graphed_vcycle_matches_the_eager_one(cuda):
         x = torch.randn(b.shape, generator=g, device=cuda)
         assert torch.equal(fast(x), cycle(x))
     assert graphed(abs, torch.zeros(2)) is abs
+
+
+def _eager_graphs(monkeypatch):
+    """``core.graphs.graphed`` as the identity: the eager cycles."""
+    import rla4mor_tpu_torch.core.graphs as graphs
+
+    monkeypatch.setattr(graphs, "graphed", lambda fn, example, warmup=2: fn)
+
+
+def test_graphed_newmark_cycle_matches_the_eager_one(cuda, monkeypatch):
+    """``WaveStencilFOM`` with MG (the V-cycle shifted by beta dt^2, replayed
+    from a CUDA graph) at grid 128: the trajectory is bit-equal to the one
+    with the eager cycle, with the same CG iterations a step."""
+    from rla4mor_tpu_torch.models import StencilThermalBlock, WaveStencilFOM
+
+    st = StencilThermalBlock((2, 2), 128, device=cuda)
+    fom = WaveStencilFOM(st, T=1.0, nt=8)
+    mu = {"diffusion": torch.tensor([0.3, 0.9, 0.5, 0.7], device=cuda)}
+    graphed_traj = fom.solve(mu, tol=1e-6, maxiter=60, precond="mg")
+    with monkeypatch.context() as m:
+        _eager_graphs(m)
+        eager_traj = fom.solve(mu, tol=1e-6, maxiter=60, precond="mg")
+    assert torch.equal(graphed_traj, eager_traj)
+    assert fom.solve_log[0]["iters"] == fom.solve_log[1]["iters"]
+
+
+def test_graphed_stationary_cycle_in_newton_matches_the_eager_one(cuda, monkeypatch):
+    """``SemilinearStencilFOM.solve_newton`` with MG (the V-cycle of A(mu),
+    replayed from a CUDA graph) at grid 128 in float32: the iterate is
+    bit-equal to the one with the eager cycle, with the same steps, stop
+    and CG iterations."""
+    from rla4mor_tpu_torch.models import SemilinearStencilFOM
+
+    fom = SemilinearStencilFOM((2, 2), 128, device=cuda)
+    mu = {"diffusion": torch.tensor([0.3, 0.9, 0.5, 0.7], device=cuda),
+          "reaction": torch.tensor([0.6], device=cuda)}
+    kw = dict(newton_tol=1e-6, cg_tol=1e-6, cg_maxiter=200, cg_precond="mg",
+              return_info=True)
+    u, info = fom.solve_newton(mu, **kw)
+    with monkeypatch.context() as m:
+        _eager_graphs(m)
+        u_eager, info_eager = fom.solve_newton(mu, **kw)
+    assert torch.equal(u, u_eager)
+    for key in ("iters", "reason", "cg_iters", "residuals"):
+        assert info[key] == info_eager[key], key

@@ -59,8 +59,14 @@ def test_port_imports_no_jax_and_builds_nothing():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     names = set(proc.stdout.split())
-    assert len(names) >= 68  # every module of the slices
-    assert {"rla4mor_tpu_torch.core.graphs",
+    assert len(names) >= 74  # every module of the slices
+    assert {"rla4mor_tpu_torch.models.wave",
+            "rla4mor_tpu_torch.models.wave_stencil",
+            "rla4mor_tpu_torch.models.semilinear",
+            "rla4mor_tpu_torch.mor.semilinear_reductor",
+            "rla4mor_tpu_torch.examples.wave_demo",
+            "rla4mor_tpu_torch.examples.semilinear_demo",
+            "rla4mor_tpu_torch.core.graphs",
             "rla4mor_tpu_torch.models.instationary",
             "rla4mor_tpu_torch.models.instationary_stencil",
             "rla4mor_tpu_torch.models.instationary_primal_dual",

@@ -120,7 +120,8 @@ Phases, each printing one line (any failed check raises and exits non-zero):
    at 2^24, built and freed), the path, SRHT launches equal to 1 (the rhs)
    plus 1 a step, solver iterations and residuals a step and the solves
    that reached maxiter with a finite iterate (BiCGStab breakdowns), the
-   held-out checks at 4 parameters (2 for the 3-D block since PR 16)
+   held-out checks at 4 parameters (1 for the 3-D block, which takes 2
+   steps)
    against the family's own float64 solve (MG-BiCGStab or Jacobi-CG, tol
    1e-10; the ROM output error reported, not held: these manifolds
    converge more slowly) and one profiled step. ``[large
@@ -145,8 +146,8 @@ Phases, each printing one line (any failed check raises and exits non-zero):
    point ``rla4mor_tpu_torch.examples.preconditioned_large_demo.run`` at
    its defaults: ``StencilThermalBlock((2, 2), PRECOND_GRID)`` in float32
    (n = 1,050,625), 5 MG-CG snapshots, the ``ur_ur`` HS key, SRHT residual
-   rows (k = ``PRECOND_K_RES``), ``PRECOND_DIRECTIONS`` = 2
-   ``RecycledCGInverseOp`` directions (the demo's 3 cut to keep the script
+   rows (k = ``PRECOND_K_RES``), ``PRECOND_DIRECTIONS`` = 1
+   ``RecycledCGInverseOp`` direction (the demo's 3 cut to keep the script
    in its time limit), the batched online stage over ``PRECOND_NMU``
    parameters beside a loop over
    8, the ROM against MG-CG at 3 of them. Checks: ``solve_batch`` equals
@@ -165,9 +166,9 @@ Phases, each printing one line (any failed check raises and exits non-zero):
 9. state estimation (``[estim]``), through the entry point
    ``rla4mor_tpu_torch.examples.inverse_problems_demo.run``:
    ``ThermalBlockFOM((3, 3), ESTIM_GRID)`` in float32 (n = 36,481), 200
-   training and ``ESTIM_TEST`` = 32 test states (host ``splu`` in a pool
+   training and ``ESTIM_TEST`` = 16 test states (host ``splu`` in a pool
    of threads), m = 50 observations, PBDW with a 20-mode POD, dictionary
-   recovery of the 32 columns over 200 atoms (the LARS paths once, in
+   recovery of the 16 columns over 200 atoms (the LARS paths once, in
    float64), each column's path point selected by the manifold distance
    of the residual sketch (k = 256, one sketch of the K + m = 250 columns
    a term) through the Gaussian, SRHT and HwPrng embeddings, and the path
@@ -279,6 +280,18 @@ Phases, each printing one line (any failed check raises and exits non-zero):
    ``semilinear_demo.run`` at its defaults with the IMEX composition, in
    float64 on the card; check: every true error within its certified
    bound (0 violations);
+12b. the certified tier (``mor/scm_matfree.py``): ``[large advection]``,
+   ``[large nonaffine]`` and ``[parabolic]`` run with their bounds (the
+   matrix-free SCM's fit, each eigensolve site's runs, stop and defenses;
+   checks: certified, every stability constant positive, every bound
+   finite; at each ``[large advection]`` held-out parameter the float64
+   residual over alpha_LB at least the float64 error; ``[parabolic]``'s
+   certified final-time bound at least the measured error); then
+   ``[helmholtz bounds]`` (the Helmholtz greedy at ``INFSUP_GRID`` and its
+   inf-sup fit with the Weyl auto-fit; checks: certified, the Weyl bound
+   positive over the batch, every beta_LB positive, finite bounds) and
+   ``[lossy]`` (the complex bounds-only flow at ``INFSUP_GRID``; checks:
+   certified, a finite positive bound at every draw);
 13. the kernels' JSON line (the bf16 instance a row of its own, with the
    ``[bf16]`` path's bf16-input launches; the SRHT at each stencil
    family's block a row, with that phase's launches; the tiled Gaussian branch a row
@@ -369,19 +382,22 @@ LARGE_K, LARGE_STEPS = 256, 8
 # snapshots (the median estimate falls 100x over steps 0-3 and 1.5x over
 # 4-7, CPU float32 at grid 512), and past it a snapshot adds only rounding
 # noise, which the append refuses (the 8th there)
-FAMILY_PHASES = (  # (family, grid, steps, 1 + T; None: known after the EIM fit)
-    ("advection", LARGE_GRID, LARGE_STEPS, 4),
-    ("helmholtz", LARGE_GRID, 4, 3),
-    ("thermal3d", 255, 4, 9),
-    ("nonaffine", LARGE_GRID, LARGE_STEPS, None),
+# [large thermal3d] takes 2 weak-greedy steps, not 4 (4.4-4.6 s a step), to
+# keep the script in its time limit with the certified phases
+THERMAL3D_STEPS = 2
+FAMILY_PHASES = (  # (family, grid, steps, 1 + T (None: known after the EIM fit), bounds)
+    ("advection", LARGE_GRID, LARGE_STEPS, 4, True),
+    ("helmholtz", LARGE_GRID, 4, 3, False),
+    ("thermal3d", 255, THERMAL3D_STEPS, 9, False),
+    ("nonaffine", LARGE_GRID, LARGE_STEPS, None, True),
 )
 # [large nonaffine]: the two-grid EIM fit beside the direct one, its greedy
 # on a grid of this many intervals
 NONAFFINE_TWO_GRID = 256
 # held-out parameters of a family's checks; the 3-D block's float64 Jacobi-CG
-# reference solve takes about 17 s at 256^3 (820 iterations on an H100), so 2
-# of them since PR 16, to keep the script in its time limit
-FAMILY_HELD_OUT = {"thermal3d": 2}
+# reference solve takes about 17 s at 256^3 (820 iterations on an H100), so 1
+# of them (not 4), to keep the script in its time limit
+FAMILY_HELD_OUT = {"thermal3d": 1}
 FAMILY_CG_MAXITER = 6000  # the 3-D float64 reference solve (Jacobi-CG)
 # the bf16 offline path: 6 greedy extensions; the padded path 6 (4 leave the
 # ROM 8.1e-2 off at a held-out parameter, CPU float64 at grid 128, above the
@@ -406,16 +422,19 @@ BF16_FLOOR = 4 * 2.0 ** -7
 # [precond]: examples/preconditioned_large_demo.py's defaults
 PRECOND_GRID, PRECOND_K_RES, PRECOND_NMU = 1024, 200, 64
 PRECOND_N = (PRECOND_GRID + 1) ** 2  # 1,050,625 stencil unknowns
-# 2 RecycledCG directions, not the demo's 3: the third took about 65 s of the
-# script's 1,200 s limit, which [wave] and [semilinear] need (a run with 2
-# took 993.3 s of the 1,067.5 s before them)
-PRECOND_DIRECTIONS = 2
+# 1 RecycledCG direction, not the demo's 3: the third took about 65 s of the
+# script's 1,200 s limit, which [wave] and [semilinear] need, the second 77.3
+# s, which the certified phases need (a run with 2 reached the end of
+# [semilinear demo] at about 1,090 s)
+PRECOND_DIRECTIONS = 1
 PRECOND_HW_SEED = 21
 # [estim]: examples/inverse_problems_demo.py's run() on ThermalBlockFOM((3, 3),
-# 192), n = 191^2 = 36,481: 200 training and 32 test states, m = 50
-# observations, 200 atoms, the residual sketch of the K + m = 250 columns at
-# k = 256 through each embedding
-ESTIM_GRID, ESTIM_TEST = 192, 32
+# 192), n = 191^2 = 36,481: 200 training and 16 test states (the demo's 32
+# halved: the LARS paths and the test solves take half the time, which the
+# script's time limit needs; a run with 32 took 1,187 s on a slow machine),
+# m = 50 observations, 200 atoms, the residual sketch of the K + m = 250
+# columns at k = 256 through each embedding
+ESTIM_GRID, ESTIM_TEST = 192, 16
 ESTIM_N, ESTIM_COLS, ESTIM_K = (ESTIM_GRID - 1) ** 2, 250, 256
 # [helmholtz]: examples/helmholtz_demo.py's run() in complex128 at grid 48 (n
 # = 2,209): its SCM solves a dense n x n eigenproblem a box term and an
@@ -464,6 +483,12 @@ WAVE_GRID, WAVE_NT, WAVE_EXT, WAVE_MODES, WAVE_K = 1024, 60, 10, 3, 120
 WAVE_TOL, WAVE_MAXITER, WAVE_PROFILE_STEPS = 1e-6, 60, 1
 WAVE_N = (WAVE_GRID + 1) ** 2
 WAVE_BLOCK = 5 * WAVE_EXT * WAVE_MODES + 1
+# [helmholtz bounds] and [lossy]: the inf-sup flows of
+# large_scale_demo.py at grid 127, not the JAX demo's 255 (MG rounds it up to
+# 128: n = 16,641), the Helmholtz greedy 4 steps: at grid 256 each phase took
+# 193-194 s for its 6 defended anchors (the k2 preconditioner's nested CG,
+# before its chunks replayed from CUDA graphs), over the script's time limit
+INFSUP_GRID, INFSUP_STEPS = 127, 4
 TOL = {torch.float64: 1e-12, torch.float32: 1e-4}
 TOL_NARROW = 8e-3  # 2-byte output against the float32 sums: one bf16 rounding
 HBM_BYTES_PER_S = 3.35e12
@@ -1426,6 +1451,7 @@ def large_held_out(res: dict, device, label: str) -> list[dict]:
     from rla4mor_tpu_torch.ops.embeddings import SrhtEmbedding
 
     state, rom, n, family = res["state"], res["rom"], res["n"], res["family"]
+    certificate = (res.get("bounds") or {}).get("scm") if family != "nonaffine" else None
     r = int(state.ncols)
     if family == "nonaffine":
         # the float32 fit cast to float64 (the same points and basis): a
@@ -1457,6 +1483,13 @@ def large_held_out(res: dict, device, label: str) -> list[dict]:
                      "est_over_exact": est / exact, "checked": exact > 1e-3 * bnorm,
                      "f64_iters": solve.iters,
                      "f64_rel_res": float(solve.residual_norm) / bnorm})
+        if certificate is not None:
+            # the rigorous check: the float64 true residual over the
+            # certified stability constant against the float64 error
+            lb = float(certificate.lower(mu))
+            err = float(torch.linalg.vector_norm(solve.x - u_rom))
+            rows[-1].update(lower=lb, bound=exact / lb if lb > 0 else math.inf, error=err,
+                            effectivity=(exact / lb) / err if lb > 0 else math.inf)
         if family == "nonaffine":
             # the same ROM against the exact (non-affine) bump operator, and
             # the surrogate's ellipticity margin there
@@ -1474,7 +1507,7 @@ def large_held_out(res: dict, device, label: str) -> list[dict]:
     return rows
 
 
-def nonaffine_checks(res: dict, widths: dict, label: str) -> dict:
+def nonaffine_checks(res: dict, widths: dict, label: str, resketch: int = 0) -> dict:
     """``[large nonaffine]``'s readings and checks beyond the other families':
     the fit (terms, reserve, floor, sup error, seconds), the margin and
     the surrogate's minimum at the candidates and at each step's parameter
@@ -1502,8 +1535,8 @@ def nonaffine_checks(res: dict, widths: dict, label: str) -> dict:
     for it, (iters, rr) in enumerate(zip(res["cg_iters"], res["rec_res"])):
         check(iters < 300 and rr <= 1e-7, f"{label}: step {it}: MG-CG {iters} iterations, "
               f"residual {rr:.3e}")
-    check(widths == {1: 1, 1 + M: steps}, f"{label}: SRHT launches by width {widths}, not "
-          f"1 of m = 1 and {steps} of m = {1 + M}")
+    want = {1: 1, 1 + M: steps, **({steps: 1} if resketch else {})}
+    check(widths == want, f"{label}: SRHT launches by width {widths}, not {want}")
 
     exact = fom.exact
     train = exact.parameter_space.sample_uniformly(demo.EIM_TRAIN_PER_DIM, device=exact.device,
@@ -1539,13 +1572,51 @@ def nonaffine_checks(res: dict, widths: dict, label: str) -> dict:
     return eim
 
 
+def bounds_checks(b: dict, label: str) -> dict:
+    """The certified-bounds readings of a run (``large_scale_demo.certify``
+    or ``run_lossy``): the fit's seconds, every eigensolve site's value,
+    radius, runs (iterations / stop by stage), gap, restart disagreement and
+    radius ratio, the constants and bounds over the batch; checks that the
+    fit is certified, every constant positive and every bound finite (the
+    coercive families) or positive (the non-affine total bound)."""
+    from rla4mor_tpu_torch.examples.large_scale_demo import run_stages
+
+    out = {k: b[k] for k in ("fit_s", "certified", "median", "max") if k in b}
+    for i, d in enumerate(b["diagnostics"]):
+        phase(f"{label} bounds site", i=i, theta=d["theta"], radius=d["radius"],
+              runs=run_stages(d), stop=d["stop"], gap=d["gap_margin"],
+              restart_dis=d["restart_disagreement"],
+              radius_ratio=d["restart_radius_ratio"], certified=d["certified"])
+    out["sites"] = len(b["diagnostics"])
+    out["f64_iters"] = [d["iterations"] for d in b["diagnostics"]]
+    check(b["certified"], f"{label}: the matrix-free SCM is not certified")
+    if "lower" in b:
+        lower = np.asarray(b["lower"])
+        out.update(lower_min=float(lower.min()), lower_max=float(lower.max()))
+        check(bool((lower > 0).all()), f"{label}: stability constant {lower}")
+    if "lam" in b:
+        out.update(lam_lo=b["lam"][0], lam_hi=b["lam"][1])
+        check(b["lam"][0] > 0, f"{label}: unit-stiffness lower edge {b['lam'][0]}")
+    bounds = np.asarray(b["bounds"])
+    check(bool(np.isfinite(bounds).all() and (bounds > 0).all()),
+          f"{label}: bounds {bounds}")
+    for key in ("weyl_min", "weyl_fit_s", "weyl_max_rel_gap", "lp_nonpositive"):
+        if key in b:
+            out[key] = b[key]
+    if "weyl" in b:
+        out["weyl_anchors"] = b["weyl"]["n_anchors"]
+    phase(f"{label} bounds", **out)
+    return out
+
+
 def large_phase(device, grid: int, label: str, family: str = "thermal",
-                steps: int = LARGE_STEPS) -> dict:
+                steps: int = LARGE_STEPS, bounds: bool = False) -> dict:
     """A large path once through the entry point (``steps`` weak-greedy
     steps of ``family``), its checks and one profiled step. The thermal
     family's ROM output is held to 5e-2 at the held-out parameters; the
     other families' manifolds converge more slowly, and their output
-    error is reported only."""
+    error is reported only. ``bounds``: the run certifies its ROM
+    (``bounds_checks``)."""
     from rla4mor_tpu_torch.examples import large_scale_demo as demo
     from rla4mor_tpu_torch.ops import srht_cuda
 
@@ -1565,7 +1636,7 @@ def large_phase(device, grid: int, label: str, family: str = "thermal",
     srht_cuda.srht_onepass.launches_by_width.clear()
     t0 = time.perf_counter()
     res = demo.run(grid=grid, steps=steps, k=LARGE_K, precond=precond, sketch="srht",
-                   device=device, select="greedy", family=family, log=log)
+                   device=device, select="greedy", family=family, bounds=bounds, log=log)
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
     launches = srht_cuda.srht_onepass.launches
@@ -1583,7 +1654,10 @@ def large_phase(device, grid: int, label: str, family: str = "thermal",
     med = res["median_est"]
     check(med[-1] < med[0], f"{label}: median estimate did not drop: {med}")
     # one sketch of the rhs when the step is built, then one block a step
-    check(launches == 1 + steps, f"{label}: {launches} SRHT launches, not 1 + {steps}")
+    # (and the non-affine bound's one sketch of the snapshots)
+    resketch = int(bounds and family == "nonaffine")
+    check(launches == 1 + steps + resketch,
+          f"{label}: {launches} SRHT launches, not 1 + {steps} + {resketch}")
     # a solve that ran to maxiter with a finite iterate: BiCGStab broke down
     # (its guard keeps the last finite iterate) or CG did not converge
     breakdowns = sum(it == res["cg_maxiter"] and bool(torch.isfinite(u).all())
@@ -1591,7 +1665,8 @@ def large_phase(device, grid: int, label: str, family: str = "thermal",
 
     eim = None
     if family == "nonaffine":
-        eim = nonaffine_checks(res, widths, label)
+        eim = nonaffine_checks(res, widths, label, resketch)
+    cert = bounds_checks(res["bounds"], label) if bounds else None
     rows = large_held_out(res, device, label)
     for row in rows:
         check(math.isfinite(row["out_rel_err"]), f"{label}: ROM output not finite")
@@ -1603,6 +1678,16 @@ def large_phase(device, grid: int, label: str, family: str = "thermal",
                   f"{label}: estimate / exact l2 residual {row['est_over_exact']:.3f} "
                   "outside [0.5, 2]")
 
+    if cert is not None and family != "nonaffine":
+        for row in rows:
+            check(row["lower"] > 0 and row["bound"] >= row["error"],
+                  f"{label}: held-out float64 bound {row['bound']:.4e} < error "
+                  f"{row['error']:.4e} (alpha_LB {row['lower']:.4e})")
+        cert.update(held_out_bound=[row["bound"] for row in rows],
+                    held_out_error=[row["error"] for row in rows],
+                    held_out_effectivity=[row["effectivity"] for row in rows])
+        phase(f"{label} bounds held-out", **{k: cert[k] for k in (
+            "held_out_bound", "held_out_error", "held_out_effectivity")})
     if eim is not None:
         margins = [row["margin"] for row in rows]
         check(min(margins) > 0 and min(row["kappa_min"] for row in rows) > 0,
@@ -1644,6 +1729,8 @@ def large_phase(device, grid: int, label: str, family: str = "thermal",
     }
     if eim is not None:
         out["eim"] = eim
+    if cert is not None:
+        out["bounds"] = cert
     del res, state
     torch.cuda.empty_cache()
     return out
@@ -2246,8 +2333,11 @@ def parabolic_phase(device) -> dict:
     the first, the held-out trajectory relative error at the stored steps
     at most 0.1, the sketched space-time estimate within [0.5, 2] of the
     exact l2 one (float64 stencil residual of the reconstructed
-    trajectory), ``serve_batch`` equal to per-parameter solves (1e-4)."""
+    trajectory), ``serve_batch`` equal to per-parameter solves (1e-4); with
+    the bounds: the l2 anchor certified and the certified final-time
+    M-norm bound at least the measured error."""
     from rla4mor_tpu_torch.examples import large_scale_parabolic_demo as demo
+    from rla4mor_tpu_torch.examples.large_scale_demo import run_stages
     from rla4mor_tpu_torch.ops import srht_cuda
     from rla4mor_tpu_torch.ops.embeddings import SrhtEmbedding
 
@@ -2259,7 +2349,7 @@ def parabolic_phase(device) -> dict:
     res = demo.run(grid=PARABOLIC_GRID, nt=PARABOLIC_NT, ext=PARABOLIC_EXT, k=PARABOLIC_K,
                    precond="mg", device=device, profile_steps=PARABOLIC_PROFILE_STEPS,
                    embedding=lambda n, k: SrhtEmbedding(k, n, seed=0, device=device),
-                   log=lambda line: print(f"[parabolic] {line}", flush=True))
+                   bounds=True, log=lambda line: print(f"[parabolic] {line}", flush=True))
     torch.cuda.synchronize()
     launches = srht_cuda.srht_onepass.launches
     widths = dict(srht_cuda.srht_onepass.launches_by_width)
@@ -2279,6 +2369,15 @@ def parabolic_phase(device) -> dict:
     check(0.5 <= held["est_over_exact"] <= 2.0,
           f"parabolic: estimate / exact {held['est_over_exact']:.3f} outside [0.5, 2]")
     check(res["serve_dev"] <= 1e-4, f"parabolic: serve_batch vs solve {res['serve_dev']:.3e}")
+    cert = res["bounds"]
+    check(cert["certified"] and cert["alpha_ref"] > 0,
+          f"parabolic: l2 anchor {cert['alpha_ref']:.4e}, certified={cert['certified']}")
+    check(held["bound"] >= held["error_M"],
+          f"parabolic: final-time bound {held['bound']:.4e} < error {held['error_M']:.4e}")
+    d = cert["diagnostics"]
+    phase("parabolic bounds", fit_s=cert["fit_s"], alpha_ref=cert["alpha_ref"],
+          radius=d["radius"], runs=run_stages(d), certified=cert["certified"],
+          bound=held["bound"], error_M=held["error_M"], effectivity=held["effectivity"])
     for row in prof["top"]:
         phase("parabolic profile top", ms=row["ms"], calls=row["calls"],
               name=row["name"].replace(" ", "_"))
@@ -2301,7 +2400,8 @@ def parabolic_phase(device) -> dict:
         "profile_steps": PARABOLIC_PROFILE_STEPS, "profile_wall_s": prof["wall_s"],
         "profile_busy_s": prof["busy_s"], "profile_idle_share": prof["idle_share"],
         "profile_device_events": prof["device_events"], "peak_gb": peak_gb,
-        "phase_s": time.perf_counter() - t_phase,
+        "bounds_fit_s": cert["fit_s"], "final_bound": held["bound"],
+        "final_error_M": held["error_M"], "phase_s": time.perf_counter() - t_phase,
     }
     del res
     torch.cuda.empty_cache()
@@ -2494,6 +2594,60 @@ def semilinear_demo_phase(device) -> dict:
             "imex_indicators": par["indicators"], "wall_s": time.perf_counter() - t0}
 
 
+def helmholtz_bounds_phase(device) -> dict:
+    """[helmholtz bounds]: ``large_scale_demo.run`` on the Helmholtz family
+    at ``INFSUP_GRID`` with 4 weak-greedy steps (MG, SRHT k = 256) and its
+    bounds: the inf-sup fit over the batch of 8 (at most 6 anchors, two-stage
+    LOBPCG, the k2 preconditioner on ``cg_columns``), ``fit_weyl_positive``
+    (at most 10) and ``weyl_gap_report``. Checks: certified, the Weyl bound
+    positive over the batch, every beta_LB > 0, finite bounds; no SRHT kernel
+    launch (n = 16,641 is below ``SrhtEmbedding._ONEPASS_MIN_DIM``: the
+    sketches take the FWHT route)."""
+    from rla4mor_tpu_torch.examples import large_scale_demo as demo
+    from rla4mor_tpu_torch.ops import srht_cuda
+
+    t_phase = time.perf_counter()
+    label = "helmholtz bounds"
+    srht_cuda.srht_onepass.launches = 0
+    res = demo.run(grid=INFSUP_GRID, steps=INFSUP_STEPS, k=LARGE_K, precond="mg",
+                   sketch="srht", device=device, select="greedy", family="helmholtz",
+                   bounds=True, log=lambda line: print(f"[{label}] {line}", flush=True))
+    torch.cuda.synchronize()
+    launches = srht_cuda.srht_onepass.launches
+    check(launches == 0, f"{label}: {launches} SRHT kernel launches below 2^15 DoF")
+    out = bounds_checks(res["bounds"], "helmholtz")  # its lines: [helmholtz bounds ...]
+    check(res["bounds"]["weyl"]["positive"] and res["bounds"]["weyl_min"] > 0,
+          f"{label}: Weyl bound {res['bounds']['weyl_min']} over the batch")
+    out.update(n=res["n"], steps=len(res["step_s"]), step_s=res["step_s"],
+               median_est=res["median_est"], srht_launches=launches,
+               phase_s=time.perf_counter() - t_phase)
+    del res
+    torch.cuda.empty_cache()
+    return out
+
+
+def lossy_phase(device) -> dict:
+    """[lossy]: ``large_scale_demo.run(family="lossy")`` at ``INFSUP_GRID``,
+    the bounds-only complex flow (the complex inf-sup fit in complex64 then
+    complex128 on the card, the Weyl auto-fit, 8 BiCGStab solves on the
+    V-cycle of K (the JAX demo's Jacobi-BiCGStab did not reach 1e-6 in 4,000
+    iterations at grid 256 in complex64), their residuals in complex128).
+    Checks: certified, a finite positive bound at each draw."""
+    from rla4mor_tpu_torch.examples import large_scale_demo as demo
+
+    t_phase = time.perf_counter()
+    res = demo.run(grid=INFSUP_GRID, family="lossy", precond="mg", device=device,
+                   log=lambda line: print(f"[lossy] {line}", flush=True))
+    torch.cuda.synchronize()
+    out = bounds_checks(res, "lossy")
+    out.update(n=res["n"], solve_iters=[row["iters"] for row in res["rows"]],
+               residuals=[row["residual"] for row in res["rows"]],
+               phase_s=time.perf_counter() - t_phase)
+    del res
+    torch.cuda.empty_cache()
+    return out
+
+
 def build_all(sources) -> dict:
     """nvcc of every source, all started together -> {source: seconds}."""
     from rla4mor_tpu_torch.utils import nvcc
@@ -2594,7 +2748,7 @@ def main(argv=None) -> int:
     # path (the non-affine block's width is 1 + the EIM fit's terms, so its
     # kernel row comes after the path)
     families = {}
-    for family, grid, steps, width in FAMILY_PHASES:
+    for family, grid, steps, width, bounds in FAMILY_PHASES:
         label = f"large {family}"
         n = (grid + 1) ** (3 if family == "thermal3d" else 2)
 
@@ -2603,7 +2757,7 @@ def main(argv=None) -> int:
                         if f" m={m} " in r["label"])
 
         row = None if width is None else kernel_row(width)
-        res = large_phase(device, grid, label, family, steps)
+        res = large_phase(device, grid, label, family, steps, bounds)
         phase(label, **res)
         if row is None:
             row = kernel_row(1 + res["eim"]["terms"])
@@ -2659,6 +2813,14 @@ def main(argv=None) -> int:
                               256, 7, reps=20)
     semi_demo = semilinear_demo_phase(device)
     phase("semilinear demo", **semi_demo, card=smi)
+
+    # 13. the certified inf-sup tier: the Helmholtz greedy and its
+    # inf-sup fit, then the complex bounds-only flow (no kernel on either:
+    # at n = 16,641 the SRHT takes its FWHT route)
+    helm_b = helmholtz_bounds_phase(device)
+    phase("helmholtz bounds", **helm_b, card=smi)
+    lossy = lossy_phase(device)
+    phase("lossy", **lossy, card=smi)
 
     # 12. result
     main_row = next(r for r in rows if r["label"].startswith("slice")

@@ -55,7 +55,13 @@ from rla4mor_tpu_torch.core.rsvd import (
     pod_randomized,
 )
 from rla4mor_tpu_torch.core.image import estimate_image
-from rla4mor_tpu_torch.core.solvers import cg, solve_dense, lstsq_dense, bounded_lstsq
+from rla4mor_tpu_torch.core.solvers import (
+    cg,
+    cg_columns,
+    solve_dense,
+    lstsq_dense,
+    bounded_lstsq,
+)
 
 __all__ = [
     "Mu", "ParameterSpace", "Coefficient", "ConstantCoefficient",
@@ -70,5 +76,5 @@ __all__ = [
     "project_block", "apply2", "materialize", "concat_affine",
     "Product", "gram_schmidt", "pod", "estimate_image",
     "range_finder", "range_finder_adaptive", "rsvd", "pod_randomized",
-    "cg", "solve_dense", "lstsq_dense", "bounded_lstsq",
+    "cg", "cg_columns", "solve_dense", "lstsq_dense", "bounded_lstsq",
 ]

@@ -68,6 +68,125 @@ def cg(
     return CGResult(x, k, _norm(r))
 
 
+def _colnorm(a: torch.Tensor) -> torch.Tensor:
+    return torch.linalg.vector_norm(a, dim=0)
+
+
+def _coldot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return (a.conj() * b).sum(dim=0).real
+
+
+class ColumnCG:
+    """:func:`cg` on each column of an (n, m) block at once, each column with
+    its own stop: the counterpart of ``jax.vmap(cg)`` over columns.
+    ``matvec`` and ``precond`` map (n, m) blocks column by column.
+
+    A column stops once ``||r_j|| <= tol * max(||b_j||, 1e-30)`` or at
+    ``maxiter``; a stopped column is frozen by a mask on the device (its x,
+    r, p and rz keep their values, as the vmapped while loop keeps them), so
+    every column ends at the iteration the JAX loop ends it. The iterations
+    run in chunks of ``check_every`` (default 8 on a CUDA block, where a
+    host read waits for the device, and 1 elsewhere), masked on the device
+    past ``maxiter`` too, and the host reads the all-stopped flag once a
+    chunk: the iterations after every column stopped are masked no-ops, and
+    the results equal those of a check at every iteration.
+
+    On a CUDA block a chunk is captured once per block shape and dtype in a
+    CUDA graph and replayed (one launch a chunk, the same kernels: the
+    values are the eager chunk's); ``matvec`` and ``precond`` must then be
+    fixed functions without host synchronisation. One instance serves many
+    solves of one operator (an inner solve of a preconditioner)."""
+
+    def __init__(self, matvec: Callable, precond: Optional[Callable] = None,
+                 tol: float = 1e-8, maxiter: int = 1000,
+                 check_every: Optional[int] = None, graph: bool = True):
+        self.matvec = matvec
+        self.precond = precond if precond is not None else (lambda r: r)
+        self.tol, self.maxiter = float(tol), int(maxiter)
+        self.check_every = check_every
+        self.graph = graph
+        self._graphs: dict = {}
+
+    def _chunk(self, st: dict, steps: int) -> None:
+        """``steps`` masked iterations, the state tensors updated in place (a
+        CUDA graph replays this on fixed buffers)."""
+        X, R, P, rz, active, iters, k = (st[key] for key in
+                                        ("X", "R", "P", "rz", "active", "iters", "k"))
+        tiny = torch.finfo(R.real.dtype).tiny
+        for _ in range(steps):
+            live = active & (k < self.maxiter)
+            AP = self.matvec(P)
+            alpha = rz / torch.clamp(_coldot(P, AP), min=tiny)
+            X = torch.where(live, X + alpha * P, X)
+            R = torch.where(live, R - alpha * AP, R)
+            Z = self.precond(R)
+            rz_new = _coldot(R, Z)
+            beta = rz_new / torch.clamp(rz, min=tiny)
+            P = torch.where(live, Z + beta * P, P)
+            rz = torch.where(live, rz_new, rz)
+            iters = iters + live
+            active = active & ~(live & (_colnorm(R) <= st["thresh"]))
+            k = k + 1
+        for key, v in (("X", X), ("R", R), ("P", P), ("rz", rz), ("active", active),
+                       ("iters", iters), ("k", k)):
+            st[key].copy_(v)
+
+    def _replay(self, st: dict, steps: int):
+        """The chunk for ``st``'s shapes: a graph replay on CUDA, else eager."""
+        if not self.graph or st["X"].device.type != "cuda":
+            return lambda: self._chunk(st, steps)
+        key = (tuple(st["X"].shape), st["X"].dtype, st["X"].device, steps)
+        if key not in self._graphs:
+            buf = {name: v.clone() for name, v in st.items()}
+            side = torch.cuda.Stream(buf["X"].device)
+            side.wait_stream(torch.cuda.current_stream(buf["X"].device))
+            with torch.cuda.stream(side):
+                self._chunk(buf, steps)  # warm-up: allocations outside the graph's pool
+            torch.cuda.current_stream(buf["X"].device).wait_stream(side)
+            g = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(g):
+                self._chunk(buf, steps)
+            self._graphs[key] = (g, buf)
+        g, buf = self._graphs[key]
+        for name, v in st.items():
+            buf[name].copy_(v)
+        st.update(buf)
+        return g.replay
+
+    def __call__(self, B: torch.Tensor, x0: Optional[torch.Tensor] = None) -> CGResult:
+        """Solve the columns of ``B``: ``iters`` is an (m,) tensor of
+        per-column counts, ``residual_norm`` the (m,) final residual norms."""
+        X = torch.zeros_like(B) if x0 is None else x0.clone()
+        R = B - self.matvec(X)
+        Z = self.precond(R)
+        thresh = self.tol * torch.clamp(_colnorm(B), min=1e-30)
+        st = {"X": X, "R": R, "P": Z.clone(), "rz": _coldot(R, Z),  # P updates in place
+              "active": _colnorm(R) > thresh,
+              "iters": torch.zeros(B.shape[1], dtype=torch.int64, device=B.device),
+              "k": torch.zeros((), dtype=torch.int64, device=B.device), "thresh": thresh}
+        steps = self.check_every or (8 if B.device.type == "cuda" else 1)
+        step = self._replay(st, max(1, int(steps)))
+        for _ in range(0, self.maxiter, max(1, int(steps))):
+            if not bool(st["active"].any()):
+                break
+            step()
+        return CGResult(st["X"].clone(), st["iters"].clone(), _colnorm(st["R"]))
+
+
+def cg_columns(
+    matvec: Callable,
+    B: torch.Tensor,
+    x0: Optional[torch.Tensor] = None,
+    precond: Optional[Callable] = None,
+    tol: float = 1e-8,
+    maxiter: int = 1000,
+    check_every: Optional[int] = None,
+) -> CGResult:
+    """One :class:`ColumnCG` solve of the columns of ``B`` (n, m), eager
+    (a one-off solve gains nothing from a captured graph)."""
+    return ColumnCG(matvec, precond, tol, maxiter, check_every, graph=False)(B, x0)
+
+
 def bicgstab(
     matvec: Callable,
     b: torch.Tensor,

@@ -21,6 +21,26 @@ The port's counterpart of ``examples/large_scale_demo.py`` (BASELINE config
   listed: ``screen_elliptic``);
   ``--score exact`` adds the EIM model-error bound to each estimate.
 
+* ``lossy``: ``StencilHelmholtzDamped(N)``, the complex damped family
+  K + (-ksq + i gamma) M, a bounds-only flow (no greedy): the complex
+  matrix-free inf-sup SCM fit and the Weyl auto-fit over 8 draws, then at
+  each draw a BiCGStab solve (Jacobi; the V-cycle on K with ``--precond
+  mg``) and its certified error bound ||A u - f||_2 / beta_LB.
+
+``--bounds`` (``run(bounds=True)``) certifies the greedy's ROM after it is
+served, by the matrix-free SCM of ``mor/scm_matfree.py`` at the same DoF
+count (the JAX demo's settings: two-stage LOBPCG, 50 float32 and up to 400
+float64 iterations, block 2, one restart at every eigensolve site): the
+coercive families by ``l2_interior_scm`` (analytic term boxes, one anchor
+at mu_ref, the V-cycle on A(mu_ref) as its preconditioner where the grid
+allows), the Helmholtz family by ``MatrixFreeScmInfSup`` (analytic pair
+boxes, the greedy fit over the batch, the Weyl bound fit to positivity and
+its gap to the LP; beta_LB is the larger of the two certified bounds), the
+non-affine family by the unit-stiffness enclosure of
+a 1x1 block and ``EimStencilFOM.total_error_bound``. It prints the fit's
+seconds, every eigensolve's iterations, stop and defenses, ``certified``,
+the stability constant over the batch of 8 and the bounds (median, max).
+
 Solves are preconditioned by Jacobi or the V-cycle (``--precond mg``, the
 2-D families: on the thermal block's field, on the advection family's
 diffusion part, on the Helmholtz family's K). The snapshot and its
@@ -31,6 +51,7 @@ kernel), through the padded greedy step of ``parallel/driver.py``; then
     python -m rla4mor_tpu_torch.examples.large_scale_demo --precond mg --sketch srht
     python -m rla4mor_tpu_torch.examples.large_scale_demo --family thermal3d --grid 255 --sketch srht
     python -m rla4mor_tpu_torch.examples.large_scale_demo --family nonaffine --precond mg --sketch srht
+    python -m rla4mor_tpu_torch.examples.large_scale_demo --family lossy --grid 127 --precond mg
     python -m rla4mor_tpu_torch.examples.large_scale_demo --cpu --grid 16 --steps 2
 
 The defaults are the JAX demo's (thermal, Jacobi, Gaussian, k = 256, 4
@@ -52,13 +73,21 @@ import torch
 from rla4mor_tpu_torch.utils.config import sync
 
 # the JAX demo's families that need modules the port does not have yet
-NOT_PORTED = {
-    "lossy": "its bounds-only flow through the matrix-free SCM (ROADMAP.md queue 1, "
-             "item 10)",
-}
-FAMILIES = ("thermal", "advection", "helmholtz", "thermal3d", "nonaffine", *NOT_PORTED)
+NOT_PORTED: dict = {}
+FAMILIES = ("thermal", "advection", "helmholtz", "thermal3d", "nonaffine", "lossy",
+            *NOT_PORTED)
 # the JAX demo's EIM fit: a 5^3 tensor grid of training bumps, tol 1e-3
 EIM_TRAIN_PER_DIM, EIM_TOL, EIM_RESERVE = 5, 1e-3, 4
+# the JAX demo's matrix-free SCM settings (examples/large_scale_demo.py,
+# --bounds and --family lossy): two-stage LOBPCG, 50 float32 and up to 400
+# float64 iterations, block 2, one independent restart at every site. The
+# coercive anchors converge to 1e-2 of |theta| (a 1% radius loosens a bound
+# by 1%); the inf-sup anchors to 1e-3 of |theta|, with a plateau stop of 60
+L2_SCM = dict(two_stage=True, iters=400, tol=1e-2, eig_relative_tol=True, block=2,
+              f32_iters=50, box_tol=1e-5, cg_maxiter=1200, restarts=1)
+INFSUP_SCM = dict(two_stage=True, iters=400, tol=1e-3, analytic_boxes=True, block=2,
+                  f32_iters=50, plateau=60, cg_maxiter=400, restarts=1)
+INFSUP_FIT_TOL, INFSUP_MAX_ANCHORS, WEYL_MAX_ANCHORS = 0.5, 6, 10
 
 
 def true_residual(fom, mu, u: torch.Tensor) -> float:
@@ -130,7 +159,7 @@ def run(grid: int = 2047, steps: int = 4, k: int = 256, precond: str = "jacobi",
         sketch: str = "gaussian", score: str = "sketched", device=None, dtype=None,
         batch: int = 8, requests: int = 200, serve_size: int = 256, seed: int = 0,
         select: str = "random", family: str = "thermal", eim_grid=None,
-        eim_scan: bool = False, log=print) -> dict:
+        eim_scan: bool = False, bounds: bool = False, log=print) -> dict:
     """Build the FOM, run ``steps`` greedy steps, ship the ROM and serve one
     padded batch; returns what was built and measured.
 
@@ -142,7 +171,10 @@ def run(grid: int = 2047, steps: int = 4, k: int = 256, precond: str = "jacobi",
     families only; the 3-D one runs Jacobi (with a note). ``eim_grid`` /
     ``eim_scan``: the nonaffine family's EIM fit (``make_fom``); its
     readings are ``out["eim"]``, and its parameters are screened by their
-    ellipticity margin (``screen_elliptic``)."""
+    ellipticity margin (``screen_elliptic``). ``bounds``: certify the ROM
+    after serving (:func:`certify`); its readings are ``out["bounds"]``.
+    ``family="lossy"`` runs the bounds-only flow (:func:`run_lossy`) and
+    returns its readings."""
     if family in NOT_PORTED:
         raise NotImplementedError(f"--family {family} needs {NOT_PORTED[family]}")
     if select not in ("random", "greedy"):
@@ -164,6 +196,9 @@ def run(grid: int = 2047, steps: int = 4, k: int = 256, precond: str = "jacobi",
     if use_mg:  # multigrid needs power-of-two element counts
         while N & (N - 1):
             N += 1
+    if family == "lossy":
+        return run_lossy(N, device, dtype, batch=batch, precond="mg" if use_mg else "jacobi",
+                         log=log)
     t0 = time.perf_counter()
     fom = make_fom(family, N, device, dtype, eim_grid=eim_grid, eim_scan=eim_scan)
     sync(device)
@@ -282,7 +317,210 @@ def run(grid: int = 2047, steps: int = 4, k: int = 256, precond: str = "jacobi",
                requests_per_s=valid / serve_s)
     log(f"rom r={int(state.ncols)} built in {rom_s:.4f}s; served {valid} requests "
         f"(padded to {serve_size}) in {serve_s:.6f}s ({valid / serve_s:.0f}/s)")
+    if bounds:
+        out["bounds"] = certify(out, use_mg, log)
     return out
+
+
+def run_stages(d: dict) -> str:
+    """A site's runs as 'iterations/stop' per stage (float32 warm start,
+    float64 polish), runs separated by '|'."""
+    runs = d["runs"] or ({"stages": d["stages"]},)
+    return "|".join(",".join(f"{it}/{stop}" for _, it, stop in run["stages"])
+                    for run in runs)
+
+
+def defenses(diags) -> str:
+    """One line of the eigensolves' readings: value, radius, each run's
+    iterations and stop by stage, gap margin, restart disagreement, radius /
+    |theta| and verdict."""
+    return "; ".join(
+        f"theta={d['theta']:.4e} rho={d['radius']:.1e} runs={run_stages(d)} "
+        f"gap={d['gap_margin']:.1e} restart_dis={d['restart_disagreement']:.1e} "
+        f"rho/theta={d['restart_radius_ratio']:.1e} cert={d['certified']}" for d in diags)
+
+
+def _mu_ref(fom, family: str) -> dict:
+    """The coercive families' anchor: eps = 1 without advection, or every
+    diffusion coefficient 1."""
+    kw = dict(dtype=fom.dtype, device=fom.device)
+    if family == "advection":
+        return {"eps": torch.ones(1, **kw), "velocity": torch.zeros(2, **kw)}
+    return {"diffusion": torch.ones(fom.n_terms, **kw)}
+
+
+def certify(res: dict, use_mg: bool, log=print) -> dict:
+    """Certified l2 state-error bounds of ``run``'s ROM over its batch of
+    candidates: the last step's sketched estimates over the matrix-free SCM's
+    stability constant (rigorous up to the sketch's distortion). Returns the
+    fit's seconds, ``certified``, the sites' diagnostics, the constants and
+    the bounds, and the SCM itself (``"scm"``)."""
+    import numpy as np
+
+    from rla4mor_tpu_torch.core import mu_unstack
+    from rla4mor_tpu_torch.mor.scm_matfree import MatrixFreeScmInfSup, l2_interior_scm
+
+    fom, family = res["fom"], res["family"]
+    mus = mu_unstack(res["mu_batch"])  # the batch's own draw
+    est = res["estimates"][-1].to(torch.float64).numpy()
+    out = {"family": family}
+    t0 = time.perf_counter()
+    if family == "helmholtz":
+        scm = MatrixFreeScmInfSup(fom, **INFSUP_SCM)
+        hist = scm.fit(mus, tol=INFSUP_FIT_TOL, max_anchors=INFSUP_MAX_ANCHORS)
+        out["fit_s"] = time.perf_counter() - t0
+        t1 = time.perf_counter()
+        out.update(_weyl_fit(scm, mus, t1, log), fit_history=hist, const="beta_LB",
+                   kind="inf-sup")
+        desc = f"{len(scm.box)} pair boxes + {len(scm.scm.anchor_mus)} anchors, inf-sup"
+    elif family == "nonaffine":
+        return _certify_nonaffine(res, est, mus, log)
+    else:
+        mu_ref = _mu_ref(fom, family)
+        scm = l2_interior_scm(fom, mu_ref, precond_type="mg" if use_mg else "cg", **L2_SCM)
+        scm.add_anchor(mu_ref)
+        out.update(fit_s=time.perf_counter() - t0, const="alpha_LB", kind="coercivity")
+        desc = f"{len(scm.box)} term boxes + 1 anchor, coercivity"
+    radii = ", ".join(f"{lo:.0e}/{hi:.0e}" for lo, hi in scm.box_radii)
+    log(f"matrix-free SCM offline fit ({desc}, l2 metric): {out['fit_s']:.1f}s  "
+        f"enclosure radii [{radii}]")
+    log(f"LOBPCG defenses: certified={scm.certified}  anchors: "
+        f"{defenses(scm.anchor_diagnostics)}")
+    lbs = np.array([float(scm.lower(m)) for m in mus])
+    if "weyl_values" in out:  # two certified lower bounds: the larger holds
+        out["lp_lower"] = lbs
+        lbs = np.maximum(lbs, out["weyl_values"])
+    with np.errstate(divide="ignore"):
+        bound = np.where(lbs > 0, est / np.where(lbs > 0, lbs, 1.0), np.inf)
+    log(f"certified l2 state-error bounds over the mu batch (rigorous up to sketch "
+        f"distortion): median {np.median(bound):.3e}  max {bound.max():.3e}  "
+        f"({out['const']} in [{lbs.min():.3e}, {lbs.max():.3e}])")
+    out.update(scm=scm, certified=bool(scm.certified),
+               diagnostics=list(scm.anchor_diagnostics), box=list(scm.box),
+               lower=lbs, estimates=est, bounds=bound, median=float(np.median(bound)),
+               max=float(bound.max()))
+    return out
+
+
+def _weyl_fit(scm, mus, t0: float, log) -> dict:
+    """``fit_weyl_positive`` over ``mus`` (at most ``WEYL_MAX_ANCHORS``) and
+    the Weyl bound's readings there: the bound per mu (``weyl_values``, the
+    clamped one of ``weyl_bound``), its minimum and its gap to the LP. The
+    flows take beta_LB = max(LP, Weyl) at each mu: both are certified lower
+    bounds of beta, and with analytic boxes the LP can fall to 0 between
+    anchors where the Weyl bound stays positive."""
+    import numpy as np
+
+    weyl = scm.fit_weyl_positive(mus, max_anchors=WEYL_MAX_ANCHORS)
+    rep = scm.weyl_gap_report(mus)
+    values = np.maximum(rep["weyl"], 0.0)
+    out = dict(weyl_fit_s=time.perf_counter() - t0, weyl=weyl, weyl_min=float(values.min()),
+               weyl_values=values, weyl_max_rel_gap=rep["max_rel_gap"],
+               lp_nonpositive=int((rep["lp"] <= 0).sum()))
+    log(f"weyl auto-fit: positive={weyl['positive']} (anchors {weyl['n_anchors']}, "
+        f"flagged={weyl['flagged']}) in {out['weyl_fit_s']:.1f}s; min over the batch "
+        f"{out['weyl_min']:.3e}; weyl-vs-LP max rel gap {rep['max_rel_gap']:.2f}; LP "
+        f"nonpositive at {out['lp_nonpositive']} of {len(values)}")
+    return out
+
+
+def _certify_nonaffine(res: dict, est, mus, log) -> dict:
+    """The total bound against the exact bump operator: the surrogate
+    residual and the EIM model term over the exact family's l2 coercivity
+    kappa_lower lambda_min(K_1), with lambda_min(K_1) enclosed by the l2 SCM
+    of a 1x1 thermal block (its one term is the unit stiffness K_1)."""
+    import numpy as np
+
+    from rla4mor_tpu_torch.core.solvers import lstsq_dense
+    from rla4mor_tpu_torch.models import StencilThermalBlock
+    from rla4mor_tpu_torch.mor.scm_matfree import l2_interior_scm
+
+    fom, state, rom = res["fom"], res["state"], res["rom"]
+    N = res["grid"]
+    t0 = time.perf_counter()
+    unit = StencilThermalBlock((1, 1), N, dtype=fom.dtype, device=fom.device)
+    mu1 = {"diffusion": torch.ones(1, dtype=fom.dtype, device=fom.device)}
+    uscm = l2_interior_scm(unit, mu1, precond_type="mg" if N & (N - 1) == 0 else "cg",
+                           **L2_SCM)
+    uscm.add_anchor(mu1)
+    lam = (uscm.lower(mu1), uscm.box[0][1])
+    fit_s = time.perf_counter() - t0
+    log(f"unit-stiffness enclosure: lam in [{lam[0]:.4e}, {lam[1]:.4e}] ({fit_s:.1f}s, "
+        f"certified={uscm.certified}; {defenses(uscm.anchor_diagnostics)})")
+    # the basis: the snapshots in the combination the state's sketched
+    # Gram-Schmidt made of them, recovered from their sketch
+    r = int(state.ncols)
+    snaps = torch.stack(res["snapshots"]).reshape(len(res["snapshots"]), -1).T
+    comb = lstsq_dense(res["step"].sketch(snaps).to(torch.float64),
+                       state.srb[:, :r].to(torch.float64))
+    basis = snaps.to(torch.float64) @ comb                      # (n, r)
+    bounds = []
+    for mu in mus:
+        y = rom.solve(mu)
+        u_r = (basis @ y.to(torch.float64)).reshape(fom.solution_shape).to(fom.dtype)
+        bounds.append(float(fom.total_error_bound(mu, u_r, rom.estimate_error(mu, y), lam)))
+    bounds = np.array(bounds)
+    log("TOTAL certified bounds vs the EXACT non-affine operator (surrogate residual + EIM "
+        "model term, rigorous up to sketch distortion + the reserve-point indicator): "
+        f"median {np.median(bounds):.3e}  max {bounds.max():.3e}")
+    return {"family": "nonaffine", "kind": "unit stiffness", "scm": uscm,
+            "fit_s": fit_s, "certified": bool(uscm.certified), "lam": lam,
+            "diagnostics": list(uscm.anchor_diagnostics), "box": list(uscm.box),
+            "bounds": bounds, "median": float(np.median(bounds)),
+            "max": float(bounds.max())}
+
+
+def run_lossy(grid: int = 255, device=None, dtype=None, batch: int = 8,
+              precond: str = "jacobi", log=print) -> dict:
+    """The bounds-only flow of the damped complex family: the complex
+    matrix-free inf-sup SCM fit over ``batch`` draws (seed 1) and the Weyl
+    auto-fit (:func:`_weyl_fit`), then at each draw a BiCGStab solve (tol
+    1e-6, ``precond`` 'jacobi' as the JAX demo, or 'mg', the V-cycle on K)
+    and its certified l2 error bound ||A u - f||_2 / beta_LB, the residual in
+    complex128 (valid for any approximate solve: no reduced basis needed)."""
+    import numpy as np
+
+    from rla4mor_tpu_torch import models
+    from rla4mor_tpu_torch.mor.scm_matfree import MatrixFreeScmInfSup
+    from rla4mor_tpu_torch.utils.config import resolve_device
+
+    device = resolve_device(device)
+    fom = models.StencilHelmholtzDamped(grid, dtype=dtype, device=device)
+    n = math.prod(fom.solution_shape)
+    log(f"device={device} lossy grid {grid + 1}x{grid + 1}, n = {n} DoF, {fom.complex_dtype}, "
+        f"{precond}-BiCGStab")
+    mus = fom.sample_parameters(batch, 1)
+    t0 = time.perf_counter()
+    scm = MatrixFreeScmInfSup(fom, **INFSUP_SCM)
+    hist = scm.fit(mus, tol=INFSUP_FIT_TOL, max_anchors=INFSUP_MAX_ANCHORS)
+    fit_s = time.perf_counter() - t0
+    weyl = _weyl_fit(scm, mus, time.perf_counter(), log)
+    log(f"complex inf-sup SCM offline fit: {fit_s:.1f}s ({len(scm.box)} pair boxes, "
+        f"{len(scm.scm.anchor_mus)} anchors, certified={scm.certified})")
+    log(f"LOBPCG defenses: {defenses(scm.anchor_diagnostics)}")
+    f = fom.rhs(dtype=torch.float64).to(torch.complex128)
+    rows = []
+    for i, mu in enumerate(mus):
+        t0 = time.perf_counter()
+        solve = fom.solve_bicgstab_result(mu, tol=1e-6, maxiter=4000, precond=precond)
+        resid = float(torch.linalg.vector_norm(
+            fom.apply(mu, solve.x.to(torch.complex128)) - f))
+        lb = max(float(scm.lower(mu)), float(weyl["weyl_values"][i]))
+        rows.append({"lower": lb, "residual": resid, "iters": solve.iters,
+                     "bound": resid / lb if lb > 0 else float("inf"),
+                     "solve_s": time.perf_counter() - t0})
+    bnds = np.array([row["bound"] for row in rows])
+    lbs = np.array([row["lower"] for row in rows])
+    log(f"BiCGStab solves: iterations {[row['iters'] for row in rows]}, residuals "
+        f"{min(row['residual'] for row in rows):.3e}-{max(row['residual'] for row in rows):.3e}")
+    log("certified l2 solve-error bounds over the mu batch (||A u - f||_2 / beta_LB, "
+        f"rigorous): median {np.median(bnds):.3e}  max {bnds.max():.3e}  (beta_LB in "
+        f"[{lbs.min():.3e}, {lbs.max():.3e}])")
+    return {"fom": fom, "family": "lossy", "n": n, "grid": grid, "mus": mus, "scm": scm,
+            "fit_s": fit_s, "fit_history": hist, "certified": bool(scm.certified), **weyl,
+            "diagnostics": list(scm.anchor_diagnostics), "box": list(scm.box),
+            "rows": rows, "lower": lbs, "bounds": bnds,
+            "median": float(np.median(bnds)), "max": float(bnds.max())}
 
 
 def profile_step(step, state, mu, mu_batch, top: int = 8) -> dict:
@@ -351,29 +589,24 @@ def main(argv=None) -> int:
                     help="advection: non-SPD, BiCGStab, minres; helmholtz: indefinite "
                     "K - ksq M, BiCGStab, minres; thermal3d: trilinear 3-D block, "
                     "Jacobi-CG; nonaffine: Gaussian-bump conductivity made affine by "
-                    "an offline EIM greedy (lossy is not ported)")
+                    "an offline EIM greedy; lossy: the complex damped family's "
+                    "bounds-only flow")
     ap.add_argument("--eim-grid", type=int, default=None,
                     help="nonaffine: two-grid EIM, the greedy on this interval count "
                     "and the selected snapshots rebuilt on the fine grid")
     ap.add_argument("--eim-scan", action="store_true",
                     help="nonaffine: the EIM greedy with its argmax indices on the "
                     "device, one host read a chunk")
-    ap.add_argument("--bounds", action="store_true")
+    ap.add_argument("--bounds", action="store_true",
+                    help="after serving: certified l2 error bounds of the ROM by the "
+                    "matrix-free SCM (mor/scm_matfree.py)")
     ap.add_argument("--profile", action="store_true",
                     help="profile one more step and print its top device operations")
     args = ap.parse_args(argv)
-    if args.bounds and args.family == "nonaffine":
-        raise NotImplementedError(
-            "--bounds --family nonaffine: the total bound against the exact operator "
-            "needs the unit-stiffness enclosure of scm_matfree.l2_interior_scm, which is "
-            "not ported (ROADMAP.md queue 1, item 10)")
-    if args.bounds:
-        raise NotImplementedError(
-            "--bounds: the matrix-free SCM is not ported (ROADMAP.md queue 1, item 10)")
     res = run(args.grid, args.steps, args.k, args.precond, args.sketch, args.score,
               device="cpu" if args.cpu else None, select=args.select, family=args.family,
-              eim_grid=args.eim_grid, eim_scan=args.eim_scan)
-    if args.profile:
+              eim_grid=args.eim_grid, eim_scan=args.eim_scan, bounds=args.bounds)
+    if args.profile and args.family != "lossy":
         prof = profile_step(res["step"], res["state"], res["mus"][-1], res["mu_batch"])
         print(f"profiled step {prof['wall_s']:.4f}s, device busy {prof['busy_s']}s, "
               f"idle share {prof['idle_share']}")

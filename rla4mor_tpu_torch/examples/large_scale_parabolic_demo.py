@@ -23,7 +23,12 @@ It prints the seconds of each extension and FOM trajectory, the CG
 iterations of the implicit steps, the max estimates, the held-out
 trajectory error at the stored steps, the estimate against the exact l2
 space-time residual of the reconstructed trajectory (float64), and the
-served batch against per-parameter solves.
+served batch against per-parameter solves. ``--bounds`` adds the certified
+final-time bound: the l2 coercivity anchor lambda_min(A(1), I | interior)
+by ``mor/scm_matfree.py::l2_interior_scm`` (two-stage LOBPCG, the V-cycle
+on A(1) as its preconditioner when the V-cycle runs the trajectories),
+``MinThetaCoercivity`` on it and ``parabolic_error_bound``, against the
+measured final-time M-norm error of each held-out trajectory.
 """
 
 from __future__ import annotations
@@ -83,12 +88,10 @@ def run(grid: int = 1024, nt: int = 50, ext: int = 5, k: int = 128, family: str 
     ``profile_steps`` > 0 runs the first that many implicit steps of the
     held-out trajectory once more under ``torch.profiler`` (a whole
     trajectory is about 800k device events at grid 1024, whose processing
-    takes minutes). ``bounds`` (the JAX demo's ``--bounds``) needs the
-    matrix-free SCM. ``out["stage_s"]`` holds the seconds of each stage."""
-    if bounds:
-        raise NotImplementedError(
-            "--bounds needs scm_matfree.l2_interior_scm, not ported yet (ROADMAP.md "
-            "queue 1, item 10)")
+    takes minutes). ``bounds`` (the JAX demo's ``--bounds``): the certified
+    final-time M-norm bound at each held-out parameter (``held_out[i]``'s
+    ``bound`` and ``error_M``; the anchor's readings in ``out["bounds"]``).
+    ``out["stage_s"]`` holds the seconds of each stage."""
     if family not in FAMILIES:
         raise ValueError(f"unknown family {family!r}")
     from rla4mor_tpu_torch import models
@@ -144,6 +147,12 @@ def run(grid: int = 1024, nt: int = 50, ext: int = 5, k: int = 128, family: str 
     log("seconds per FOM trajectory: " + " ".join(f"{s:.2f}" for s in hist["fom_s"]))
     log("max estimates: " + " ".join(f"{e:.3e}" for e in hist["max_estimates"]))
 
+    certificate = None
+    if bounds:
+        t0 = time.perf_counter()
+        certificate = anchor_coercivity(st, view, precond, log)
+        stage_s["bounds_fit"] = time.perf_counter() - t0
+
     t0 = time.perf_counter()
     mus_t = mu_stack(test)
     traj_r, eta = rom.solve(mus_t, return_estimate=True)
@@ -161,6 +170,19 @@ def run(grid: int = 1024, nt: int = 50, ext: int = 5, k: int = 128, family: str 
         log(f"held-out {i}: trajectory rel error {rel:.3e}, space-time estimate "
             f"{float(eta[i]):.3e}, exact l2 residual {exact:.3e} (ratio "
             f"{float(eta[i]) / max(exact, 1e-300):.3f})")
+        if certificate is not None:
+            from rla4mor_tpu_torch.mor import parabolic_error_bound
+
+            bound = float(parabolic_error_bound(rom, mu, certificate["coercivity"],
+                                                kind="final"))
+            eT = (rec[:, -1] - truth[:, -1]).to(torch.float64).reshape(st.solution_shape)
+            err_M = float(torch.vdot(eT.reshape(-1), fom._mass_apply(eT).reshape(-1)).real
+                          ) ** 0.5
+            held[-1].update(bound=bound, error_M=err_M,
+                            effectivity=bound / max(err_M, 1e-300))
+            log(f"certified final-time M-norm bound {bound:.3e} (measured {err_M:.3e}, "
+                f"effectivity {bound / max(err_M, 1e-300):.1f}x): rigorous up to sketch "
+                "distortion")
         del truth, full, rec
     stage_s["held_out"] = time.perf_counter() - t0
 
@@ -208,7 +230,37 @@ def run(grid: int = 1024, nt: int = 50, ext: int = 5, k: int = 128, family: str 
         "held_out": held, "served": served, "n_valid": n_valid, "serve_s": serve_s,
         "serve_dev": serve_dev, "solver": stats, "profile": prof, "rom": rom,
         "reductor": red, "view": view, "fom": fom, "train": train, "test": test,
+        "bounds": certificate,
     }
+
+
+def anchor_coercivity(st, view, precond: str, log=print) -> dict:
+    """The l2 coercivity anchor of the stencil operator at mu_ref = 1 (the
+    estimator's metric: the reductor's embedding is an unweighted l2 one)
+    by the matrix-free LOBPCG (the JAX demo's settings: two-stage, 200
+    float64 iterations, absolute tol 1e-8; the safe side theta - rho of the
+    enclosure), and ``MinThetaCoercivity`` on it. The inverse-iteration
+    preconditioner is the V-cycle on A(1) when the trajectories run it, else
+    the Jacobi-CG of the JAX demo (the same anchor:
+    tests/test_torch_scm_matfree.py)."""
+    from rla4mor_tpu_torch.mor import MinThetaCoercivity
+    from rla4mor_tpu_torch.mor.scm_matfree import l2_interior_scm
+
+    mu_ref = {"diffusion": torch.ones(st.n_terms, dtype=st.dtype, device=st.device)}
+    t0 = time.perf_counter()
+    scm = l2_interior_scm(st, mu_ref, two_stage=True, iters=200, tol=1e-8, cg_maxiter=1200,
+                          precond_type="mg" if precond == "mg" else "cg")
+    alpha_ref, _ = scm.alpha_exact(mu_ref)
+    fit_s = time.perf_counter() - t0
+    if not alpha_ref > 0:
+        raise RuntimeError(f"l2 anchor {alpha_ref}: A(mu_ref) not certified coercive")
+    diag = scm.anchor_diagnostics[0]
+    log(f"l2 anchor lambda_min(A(1), I | interior) = {alpha_ref:.6e} ({fit_s:.1f}s, "
+        f"matrix-free LOBPCG two-stage: rho {diag['radius']:.1e}, {diag['iterations']} "
+        f"float64 iterations, stop {diag['stop']}, certified={scm.certified})")
+    return {"alpha_ref": alpha_ref, "fit_s": fit_s, "certified": bool(scm.certified),
+            "diagnostics": diag, "scm": scm,
+            "coercivity": MinThetaCoercivity(view, mu_ref, alpha_ref=alpha_ref)}
 
 
 def main(argv=None) -> int:
@@ -227,8 +279,8 @@ def main(argv=None) -> int:
                     help="the first N implicit steps of the held-out trajectory once "
                     "more under torch.profiler")
     ap.add_argument("--bounds", action="store_true",
-                    help="certified final-time bound (needs the matrix-free SCM: not "
-                    "ported yet)")
+                    help="the certified final-time bound at the held-out parameter "
+                    "(the l2 anchor by the matrix-free SCM)")
     args = ap.parse_args(argv)
     grid = args.grid if args.grid is not None else (255 if args.family == "thermal3d" else 1024)
     device = "cpu" if args.cpu else None

@@ -106,9 +106,13 @@ def direction(st, mu, precond: str = "mg", m_max: int = 16) -> InteriorInverse:
 
     shape = st.solution_shape
     if precond == "mg":
+        from rla4mor_tpu_torch.core.graphs import graphed
         from rla4mor_tpu_torch.models.multigrid import make_vcycle
 
-        cycle = make_vcycle(st.kappa(mu))
+        # a cycle is thousands of small kernels: replayed from one CUDA graph
+        # on the card (the same kernels, so the same values)
+        cycle = graphed(make_vcycle(st.kappa(mu)),
+                        torch.zeros(shape, dtype=st.dtype, device=st.device))
 
         def M(r):
             return cycle(r.reshape(shape)).reshape(-1)

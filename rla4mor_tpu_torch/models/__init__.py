@@ -6,7 +6,10 @@ from rla4mor_tpu_torch.models.stationary import (
 from rla4mor_tpu_torch.models.stencil import StencilThermalBlock
 from rla4mor_tpu_torch.models.stencil3d import StencilThermalBlock3D
 from rla4mor_tpu_torch.models.stencil_advection import StencilAdvectionDiffusion
-from rla4mor_tpu_torch.models.stencil_helmholtz import StencilHelmholtz
+from rla4mor_tpu_torch.models.stencil_helmholtz import (
+    StencilHelmholtz,
+    StencilHelmholtzDamped,
+)
 from rla4mor_tpu_torch.models.advection_diffusion import AdvectionDiffusionFOM
 from rla4mor_tpu_torch.models.thermal_block import ThermalBlockFOM
 from rla4mor_tpu_torch.models.helmholtz import helmholtz_fom
@@ -47,7 +50,7 @@ from rla4mor_tpu_torch.models.semilinear import (
 
 __all__ = ["StationaryFOM", "StationaryROM", "ResidualErrorEstimator",
            "StencilThermalBlock", "StencilThermalBlock3D", "StencilAdvectionDiffusion",
-           "StencilHelmholtz", "AdvectionDiffusionFOM", "ThermalBlockFOM",
+           "StencilHelmholtz", "StencilHelmholtzDamped", "AdvectionDiffusionFOM", "ThermalBlockFOM",
            "helmholtz_fom", "NonAffineStencilFOM", "NonAffineStencilFOM3D", "EimStencilFOM",
            "gaussian_bump_fom", "gaussian_bump_fom3d", "InstationaryFOM",
            "InstationaryROM", "InstationaryReductor", "instationary_thermal_block",

@@ -218,6 +218,16 @@ class StencilThermalBlock:
         N = self.num_intervals
         return stencil_apply(u, torch.ones((N, N), dtype=u.dtype, device=u.device))
 
+    def term_box_bounds(self) -> list:
+        """l2 spectral boxes of the affine terms, for
+        ``mor/scm_matfree.py::l2_interior_scm``: each term is a masked PSD Q1
+        stiffness with kappa in {0, 1}, so 0 <= lambda <= 16/3. The lower
+        edge is exact (the masked terms are singular); the upper one is the
+        element Rayleigh bound x^T A x = sum_e x_e^T K_e x_e <= (4/3) 4 ||x||^2
+        (each node lies in at most 4 elements; the unit Q1 element
+        stiffness has eigenvalues 0, 2/3, 2/3, 4/3)."""
+        return [(0.0, 16.0 / 3.0)] * self.n_terms
+
     def rhs(self, dtype=None) -> torch.Tensor:
         """Load vector for f = 1 (interior nodes get h^2: four adjacent
         elements x h^2 / 4)."""

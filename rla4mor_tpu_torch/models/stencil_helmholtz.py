@@ -1,8 +1,8 @@
 """Indefinite Helmholtz stencil family A(ksq) = K - ksq M, on the device.
 
-Counterpart of ``rla4mor_tpu/models/stencil_helmholtz.py`` (its real
-family; the damped complex ``StencilHelmholtzDamped`` is not ported yet).
-For ``ksq`` above the first Dirichlet eigenvalue of the unit square
+Counterpart of ``rla4mor_tpu/models/stencil_helmholtz.py``: the real
+family and its damped complex twin :class:`StencilHelmholtzDamped`. For
+``ksq`` above the first Dirichlet eigenvalue of the unit square
 (2 pi^2 ~ 19.74), A has negative eigenvalues: no coercivity constant
 exists, and BiCGStab solves it. ``K`` is the unit-coefficient Q1 stiffness
 (``stencil_apply``), ``M`` the consistent Q1 mass (``mass_apply``), both
@@ -175,3 +175,92 @@ class HelmholtzTermOp(FlatGridOp):
     @property
     def H(self):
         return self
+
+
+def _m_coeff_damped(mu):
+    """-ksq + i gamma: (), or (B,) for a batched Mu."""
+    ksq = torch.as_tensor(mu["ksq"])[..., 0]
+    gam = torch.as_tensor(mu["gamma"])[..., 0]
+    return torch.complex(-ksq.to(torch.float64), gam.to(torch.float64))
+
+
+_M_COEFF_DAMPED = ExpressionCoefficient(_m_coeff_damped, "-ksq+i*gamma")
+
+
+class StencilHelmholtzDamped(StencilHelmholtz):
+    """Helmholtz in lossy media, A(mu) = K + (-ksq + i gamma) M: the same
+    real symmetric stencil terms with a complex coefficient on the mass
+    (damping gamma > 0 models absorption). The family of the complex
+    matrix-free inf-sup SCM (``mor/scm_matfree.py::MatrixFreeScmInfSup``,
+    the Re / Im pair expansion). Solutions and solves are complex;
+    ``dtype`` is the real storage dtype of the stencil fields, promoted to
+    :attr:`complex_dtype` in :meth:`apply` and :meth:`solve_bicgstab`. The
+    port's ``ParameterSpace`` is one scalar box, which cannot hold the two
+    ranges: :meth:`sample_parameters` draws within them."""
+
+    is_complex = True
+
+    def __init__(self, num_intervals: int = 64, dtype=None,
+                 ksq_range: tuple[float, float] = (22.0, 46.0),
+                 gamma_range: tuple[float, float] = (0.5, 4.0), device=None):
+        super().__init__(num_intervals, dtype, ksq_range, device)
+        self.parameter_space = None
+        self._gamma_range = gamma_range
+
+    @property
+    def complex_dtype(self):
+        return torch.complex64 if self.dtype == torch.float32 else torch.complex128
+
+    def theta_vector(self, mu) -> torch.Tensor:
+        """(1, -ksq + i gamma) in :attr:`complex_dtype`: (2,), or (B, 2)."""
+        z = _m_coeff_damped(mu).to(self.device, self.complex_dtype)[..., None]
+        return torch.cat([torch.ones_like(z), z], dim=-1)
+
+    def apply(self, mu, u: torch.Tensor) -> torch.Tensor:
+        dt = torch.promote_types(u.dtype, self.complex_dtype)
+        u = u.to(dt)
+        theta = self.theta_vector(mu).to(dt)
+        return (theta[0] * stencil_apply(u, self._ones(dt))
+                + theta[1] * mass_apply(u, self.h))
+
+    def jacobi_diag(self, mu) -> torch.Tensor:
+        """Complex diag K + (-ksq + i gamma) diag M (the damping keeps |diag|
+        away from zero; entries under the 0.1 x 8/3 floor in magnitude take
+        the floor), 1 on the Dirichlet ring."""
+        z = _m_coeff_damped(mu).to(self.device, self.complex_dtype)
+        dk = stiffness_diag_raw(self._ones(self.dtype))
+        dm = mass_diag(self.n_nodes, self.h, self.dtype, self.device)
+        mask = interior_mask(self.n_nodes, self.dtype, self.device)
+        d = (dk + z * torch.where(mask > 0, dm, torch.zeros_like(dm))) * mask
+        floor = 0.1 * float(8.0 / 3.0)
+        safe = torch.where(d.abs() > floor, d, torch.full_like(d, floor))
+        return torch.where(mask > 0, safe, torch.ones_like(safe))
+
+    def solve_bicgstab_result(self, mu, tol=1e-8, maxiter=6000, precond="jacobi"):
+        """Complex matrix-free BiCGStab preconditioned by ``precond`` ('jacobi',
+        the complex diagonal, or 'mg', the V-cycle on K)."""
+        return bicgstab(lambda u: self.apply(mu, u), self.rhs().to(self.complex_dtype),
+                        precond=preconditioner(self, mu, precond), tol=tol,
+                        maxiter=maxiter)
+
+    def affine_operator(self):
+        from rla4mor_tpu_torch.core.affine import AffineOp
+        from rla4mor_tpu_torch.core.parameters import ONE
+
+        return AffineOp((self.term_linop(0), self.term_linop(1)), (ONE, _M_COEFF_DAMPED))
+
+    def sample_parameters(self, count: int, key: int = 0, values=None) -> list:
+        """Uniform ksq and gamma in their ranges, sample i from the generator
+        of stream ``(key, i)`` (ksq first); or, with ``values`` ((count, 2):
+        ksq, gamma, as another sampler drew them), those values."""
+        if values is not None:
+            v = torch.as_tensor(values, dtype=torch.float64)
+            return [{"ksq": v[i, :1].to(self.device, self.dtype),
+                     "gamma": v[i, 1:2].to(self.device, self.dtype)} for i in range(count)]
+        (klo, khi), (glo, ghi) = self._ksq_range, self._gamma_range
+        out = []
+        for i in range(count):
+            g = generator(key, i)
+            out.append({"ksq": uniform(g, 1, klo, khi, self.device, self.dtype),
+                        "gamma": uniform(g, 1, glo, ghi, self.device, self.dtype)})
+        return out

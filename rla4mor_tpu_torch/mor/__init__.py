@@ -46,6 +46,15 @@ from rla4mor_tpu_torch.mor.primal_dual import (
     output_greedy,
 )
 from rla4mor_tpu_torch.mor.scm import ScmCoercivity, ScmHermitian, ScmInfSup
+from rla4mor_tpu_torch.mor.scm_matfree import (
+    MatrixFreeScmCoercivity,
+    MatrixFreeScmHermitian,
+    MatrixFreeScmInfSup,
+    l2_interior_scm,
+    lobpcg_gen,
+    lobpcg_gen_two_stage,
+    spectral_interval,
+)
 from rla4mor_tpu_torch.mor.eim import (
     EimInterpolant,
     MdeimOperator,
@@ -71,7 +80,9 @@ __all__ = ["ClassicalReductor", "GramResidualEstimator", "SketchedReductor",
            "save_reductor", "load_reductor_state", "save_padded_reductor",
            "load_padded_reductor_state", "MinThetaCoercivity", "InfSupLowerBound",
            "error_bound", "inf_sup_error_bound", "ScmHermitian", "ScmCoercivity",
-           "ScmInfSup", "EimInterpolant", "eim_greedy", "eim_greedy_device",
+           "ScmInfSup", "MatrixFreeScmCoercivity", "MatrixFreeScmHermitian",
+           "MatrixFreeScmInfSup", "l2_interior_scm", "lobpcg_gen", "lobpcg_gen_two_stage",
+           "spectral_interval", "EimInterpolant", "eim_greedy", "eim_greedy_device",
            "eim_greedy_scan", "eim_rebuild", "deim", "deim_points", "MdeimOperator", "mdeim",
            "theta_coefficients", "save_eim_interpolant", "load_eim_interpolant",
            "save_mdeim_operator", "load_mdeim_operator", "parabolic_error_bound",

@@ -243,6 +243,7 @@ def make_sharded_greedy_step(
         return state, estimates, u
 
     step.last_solve = None
+    step.sketch = sketch_fn  # (n, m) -> (k, m), the embedding the state lives in
     return state0, step
 
 

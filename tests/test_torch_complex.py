@@ -80,6 +80,18 @@ def _jax_demo_flow(grid, extensions):
                 red.extend_basis(jnp.asarray(fom.solve(train[j])).reshape(-1, 1))
                 break
     scm = ScmInfSup(fom, product=Ru)
+    # the fit evaluates the coefficients of the same 40 training parameters
+    # by eager JAX at every LP of every round: memoized by wavenumber (the
+    # same values, each computed once)
+    theta_fn, memo = scm.scm.theta_fn, {}
+
+    def memo_theta(mu):
+        w = float(mu["wavenumber"][0])
+        if w not in memo:
+            memo[w] = theta_fn(mu)
+        return memo[w]
+
+    scm.scm.theta_fn = memo_theta
     fit = scm.fit(train, tol=0.2, max_anchors=len(train))
     sweep = [{"wavenumber": jnp.asarray([w])} for w in np.linspace(2.0, 8.0, 41)]
     y, est = rom_mid.solve_and_estimate_batch(mu_stack(sweep))

@@ -874,3 +874,34 @@ def test_graphed_stationary_cycle_in_newton_matches_the_eager_one(cuda, monkeypa
     assert torch.equal(u, u_eager)
     for key in ("iters", "reason", "cg_iters", "residuals"):
         assert info[key] == info_eager[key], key
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64, torch.complex64])
+def test_column_cg_graph_matches_the_eager_one(cuda, dtype):
+    """``ColumnCG`` replaying its chunks from a CUDA graph equals the eager
+    chunks bit for bit, call after call with other right-hand sides (the
+    graph is captured once), on the k2 preconditioner's operator (the unit
+    stiffness on (n, 2) blocks, Jacobi) with columns that stop at different
+    iterations and one that hits ``maxiter``."""
+    from rla4mor_tpu_torch.core.solvers import ColumnCG
+    from rla4mor_tpu_torch.models import StencilHelmholtz
+    from rla4mor_tpu_torch.mor.scm_matfree import _flat_cols, _unit_stiffness_diag
+
+    fom = StencilHelmholtz(64, device=cuda)
+    apply_R = _flat_cols(fom.product_apply, fom.solution_shape)
+    d = _unit_stiffness_diag(fom).to(torch.float32 if dtype != torch.float64
+                                     else torch.float64)[:, None]
+    mask = torch.ones(fom.solution_shape, device=cuda)
+    mask[0], mask[-1], mask[:, 0], mask[:, -1] = 0, 0, 0, 0
+    graphed, eager = (ColumnCG(apply_R, lambda r: r / d, tol=1e-2, maxiter=60, graph=g)
+                      for g in (True, False))
+    g = torch.Generator(device=cuda).manual_seed(5)
+    for trial in range(3):
+        B = torch.randn((fom.n_nodes ** 2, 2), generator=g, device=cuda).to(dtype)
+        B = B * mask.reshape(-1, 1).to(B.real.dtype)
+        B[:, 1] *= 1e-3 * (trial + 1)
+        a, b = graphed(B), eager(B)
+        assert torch.equal(a.x, b.x) and torch.equal(a.iters, b.iters)
+        assert torch.equal(a.residual_norm, b.residual_norm)
+    assert len(graphed._graphs) == 1
+    assert int(a.iters.max()) <= 60

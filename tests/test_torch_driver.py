@@ -277,7 +277,8 @@ def test_driver_rejects_what_is_not_ported():
 def test_large_scale_demo_runs_on_the_cpu(capsys):
     """The entry point with ``--cpu`` at grid 16, 2 steps, MG-CG and the
     SRHT: it prints each step's time, CG iterations, recursive and true
-    residuals and median estimate, then the ROM and the served batch."""
+    residuals and median estimate, then the ROM and the served batch;
+    ``--bounds`` prints the certified bounds."""
     from rla4mor_tpu_torch.examples import large_scale_demo
 
     assert large_scale_demo.main(["--cpu", "--grid", "16", "--steps", "2",
@@ -291,6 +292,10 @@ def test_large_scale_demo_runs_on_the_cpu(capsys):
     assert res["grid"] == 16 and res["n"] == 289 and len(res["cg_iters"]) == 2
     assert all(t < 1e-6 for t in res["true_res"])
     assert torch.isfinite(res["served"]["output"]).all()
-    for flag in (["--family", "lossy"], ["--bounds"], ["--family", "nonaffine", "--bounds"]):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            large_scale_demo.main(["--cpu", "--grid", "16", *flag])
+    # nothing is refused any more: --bounds certifies (grid 8, one step)
+    assert not large_scale_demo.NOT_PORTED and "lossy" in large_scale_demo.FAMILIES
+    assert large_scale_demo.main(["--cpu", "--grid", "8", "--steps", "1", "--family",
+                                  "advection", "--precond", "mg", "--sketch", "srht",
+                                  "--bounds"]) == 0
+    assert any(ln.startswith("certified l2 state-error bounds")
+               for ln in capsys.readouterr().out.splitlines())

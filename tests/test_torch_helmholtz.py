@@ -6,6 +6,7 @@ operators, diagonals and bounds to 1e-12 relative to the largest entry;
 BiCGStab iterates to 1e-10.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -112,15 +113,17 @@ def test_affine_operator_and_term_linops_match_jax():
     X = np.random.RandomState(3).normal(size=(16 * 16, 3))
     jop, top = jfom.affine_operator(), tfom.affine_operator()
     assert top.coefficients[1] is _NEG_KSQ
+    # the JAX side in one jitted program (eagerly each primitive compiles)
+    want = jax.jit(lambda X: [(t.apply(X), t.apply_adjoint(X)) for t in jop.terms])(
+        jnp.asarray(X))
     for t in range(2):
-        jt, tt = jop.terms[t], top.terms[t]
+        tt = top.terms[t]
         assert isinstance(tt, HelmholtzTermOp) and tt.H is tt
-        assert rel(tt.apply(torch.tensor(X)), jt.apply(jnp.asarray(X))) < 1e-12
-        assert rel(tt.apply_adjoint(torch.tensor(X)), jt.apply_adjoint(jnp.asarray(X))) < 1e-12
+        assert rel(tt.apply(torch.tensor(X)), want[t][0]) < 1e-12
+        assert rel(tt.apply_adjoint(torch.tensor(X)), want[t][1]) < 1e-12
     (jmu,), (tmu,) = _ksq([33.0])
-    eye = jnp.eye(16 * 16)
-    jA = sum(float(c(jmu)) * np.asarray(t.apply(eye))
-             for c, t in zip(jop.coefficients, jop.terms))
+    cols = jax.jit(lambda E: [t.apply(E) for t in jop.terms])(jnp.eye(16 * 16))
+    jA = sum(float(c(jmu)) * np.asarray(col) for c, col in zip(jop.coefficients, cols))
     assert rel(top.assemble_dense(tmu), jA) < 1e-12
 
 

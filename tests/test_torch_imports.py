@@ -59,8 +59,10 @@ def test_port_imports_no_jax_and_builds_nothing():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     names = set(proc.stdout.split())
-    assert len(names) >= 74  # every module of the slices
-    assert {"rla4mor_tpu_torch.models.wave",
+    assert len(names) >= 76  # every module of the slices
+    assert {"rla4mor_tpu_torch.mor.scm_matfree",
+            "rla4mor_tpu_torch.probes.bounds_probe",
+            "rla4mor_tpu_torch.models.wave",
             "rla4mor_tpu_torch.models.wave_stencil",
             "rla4mor_tpu_torch.models.semilinear",
             "rla4mor_tpu_torch.mor.semilinear_reductor",

@@ -459,8 +459,11 @@ def test_large_scale_parabolic_demo_matches_jax_flow(jitted_jax_projection):
     draws: the picks, max estimates to 1e-8, the held-out error and
     estimate to 1e-8; one block sketch a ``reduce()``; the estimate within
     [0.5, 2] of the exact l2 space-time residual; the served batch equals
-    per-parameter solves; ``bounds`` refuses. About 10 s: the JAX stencil
-    reductor compiles at every basis size."""
+    per-parameter solves. With ``bounds``: the l2 anchor (Jacobi-CG inverse
+    iteration, as the JAX demo) equals the dense lambda_min(A(1) | interior)
+    to 1e-7 on its safe side, certified, and the final-time bound is at
+    least the measured M-norm error. About 10 s: the JAX stencil reductor
+    compiles at every basis size."""
     from rla4mor_tpu.ops import StreamedGaussianEmbedding as JaxStreamed
 
     from rla4mor_tpu_torch.examples import large_scale_parabolic_demo as demo
@@ -483,7 +486,7 @@ def test_large_scale_parabolic_demo_matches_jax_flow(jitted_jax_projection):
                    embedding=lambda n, k: StreamedGaussianEmbedding.from_matrix(
                        omega, device="cpu"),
                    train=_to_torch(train), test=_to_torch([mu_t]), device="cpu",
-                   log=lambda line: None)
+                   bounds=True, log=lambda line: None)
     assert res["n"] == 289 and res["store_every"] == 1 and res["basis"] == ext
     assert res["reduce_calls"] == ext + 1
     assert _same_mus(res["selected_mus"], hist["selected_mus"])
@@ -493,8 +496,15 @@ def test_large_scale_parabolic_demo_matches_jax_flow(jitted_jax_projection):
     assert abs(held["estimate"] - float(eta[0])) < 1e-8 * float(eta[0])
     assert 0.5 <= held["est_over_exact"] <= 2.0
     assert res["serve_dev"] < 1e-12 and res["solver"]["breakdowns"] == 0
-    with pytest.raises(NotImplementedError, match="item 10"):
-        demo.run(grid=16, nt=10, bounds=True, device="cpu")
+    st = res["fom"].stencil
+    n = st.n_nodes ** 2
+    A = st.apply({"diffusion": torch.ones(4, dtype=torch.float64)},
+                 torch.eye(n, dtype=torch.float64).reshape(n, *st.solution_shape))
+    inner = st.rhs().reshape(-1) > 0
+    lam = float(torch.linalg.eigvalsh(A.reshape(n, n)[inner][:, inner])[0])
+    alpha = res["bounds"]["alpha_ref"]
+    assert res["bounds"]["certified"] and alpha <= lam and lam - alpha < 1e-7 * lam
+    assert held["bound"] >= held["error_M"] > 0
 
 
 def test_instationary_demo_matches_jax_flow(jax_demo):

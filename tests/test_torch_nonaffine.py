@@ -338,8 +338,11 @@ def test_large_scale_demo_nonaffine_on_the_cpu(capsys):
     indicator and margin over the batch (every candidate kept has a
     positive margin and surrogate minimum; the screened draws are listed),
     2 steps, the ROM
-    served; the readings in ``out['eim']``. ``--bounds`` with the family
-    names item 10; without a card, a call that names no device raises."""
+    served; the readings in ``out['eim']``. Its certificate (``--bounds``:
+    ``certify``): the unit-stiffness enclosure's lower edge the dense
+    lambda_min(K_1 | interior) on its safe side, certified, and finite
+    positive total bounds; without a card, a call that names no device
+    raises."""
     from rla4mor_tpu_torch.examples import large_scale_demo as demo
 
     res = demo.run(grid=GRID, steps=2, k=K, precond="mg", sketch="srht", device="cpu",
@@ -358,8 +361,16 @@ def test_large_scale_demo_nonaffine_on_the_cpu(capsys):
     assert int(res["state"].ncols) == 2 and res["cg_iters"][-1] < 300
     out = capsys.readouterr().out
     assert "EIM offline: 86 terms" in out and "EIM kappa indicator over the mu batch" in out
-    with pytest.raises(NotImplementedError, match="item 10"):
-        demo.main(["--cpu", "--family", "nonaffine", "--bounds"])
+    b = demo.certify(res, True, log=lambda line: None)
+    from rla4mor_tpu_torch.models import StencilThermalBlock
+
+    K1 = StencilThermalBlock((1, 1), GRID, dtype=torch.float64, device="cpu")
+    n = (GRID + 1) ** 2
+    A = K1.apply_term(0, torch.eye(n, dtype=torch.float64).reshape(n, GRID + 1, GRID + 1))
+    inner = K1.rhs().reshape(-1) > 0
+    lam = float(torch.linalg.eigvalsh(A.reshape(n, n)[inner][:, inner])[0])
+    assert b["certified"] and 0 < b["lam"][0] <= lam and lam - b["lam"][0] < 1e-2 * lam
+    assert bool(np.isfinite(b["bounds"]).all() and (b["bounds"] > 0).all())
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             demo.run(grid=GRID, steps=1, family="nonaffine")

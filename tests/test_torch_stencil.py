@@ -13,6 +13,7 @@ restriction is scaled by 4 (``jax_cycle_as_the_port``), so the cycle the
 port runs is the one compared.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -64,40 +65,57 @@ def port_cycle_as_the_jax(monkeypatch):
 
 @pytest.mark.parametrize("nx", [12, 16])
 def test_stencil_block_matches_jax(nx):
+    """Every apply of the block, its rhs, diagonal, output and flattened
+    LinOp views equal the JAX package's to 1e-12 (the JAX side in one
+    jitted program: eagerly, each of its primitives compiles at each grid)."""
     js, ts = _blocks(nx)
     rs = np.random.RandomState(nx)
     u = rs.normal(size=(nx + 1, nx + 1))
     kap = rs.uniform(0.1, 2.0, size=(nx, nx))
     jmu, tmu = {"diffusion": jnp.asarray(MU)}, {"diffusion": torch.tensor(MU)}
-    ju, tu = jnp.asarray(u), torch.tensor(u)
-    assert rel(tst.stencil_apply(tu, torch.tensor(kap)),
-               jst.stencil_apply(ju, jnp.asarray(kap))) < 1e-12
-    assert rel(tst.mass_apply(tu, 1 / nx), jst.mass_apply(ju, 1 / nx)) < 1e-12
-    assert np.array_equal(ts.kappa(tmu).numpy(), np.asarray(js.kappa(jmu)))
-    assert rel(ts.apply(tmu, tu), js.apply(jmu, ju)) < 1e-12
-    terms = ts.apply_terms(tu)
-    for t in range(4):
-        assert rel(ts.apply_term(t, tu), js.apply_term(t, ju)) < 1e-12
-        assert rel(terms[t], js.apply_term(t, ju)) < 1e-12
-    assert rel(ts.product_apply(tu), js.product_apply(ju)) < 1e-12
-    assert rel(ts.rhs(), js.rhs()) < 1e-12
-    assert rel(ts.jacobi_diag(tmu), js.jacobi_diag(jmu)) < 1e-12
-    assert rel(ts.output(tu), js.output(ju)) < 1e-12
-    # the flattened LinOp views on (n, m) columns: one batched call
+    tu = torch.tensor(u)
     U = rs.normal(size=((nx + 1) ** 2, 3))
     jaff, taff = js.affine_operator(), ts.affine_operator()
+
+    @jax.jit
+    def jax_side(ju, jkap, jU):
+        out = {"stencil": jst.stencil_apply(ju, jkap), "mass": jst.mass_apply(ju, 1 / nx),
+               "kappa": js.kappa(jmu), "apply": js.apply(jmu, ju),
+               "terms": [js.apply_term(t, ju) for t in range(4)],
+               "product": js.product_apply(ju), "rhs": js.rhs(),
+               "diag": js.jacobi_diag(jmu), "output": js.output(ju),
+               "linops": [jt.apply(jU) for jt in jaff.terms]}
+        if nx == 12:  # the rest once
+            out.update(one=jaff.terms[-1].apply(jU[:, 0]),
+                       product_linop=js.product_linop().apply(jU),
+                       mass_diag=jst.mass_diag(nx + 1, 1 / nx, jnp.float64),
+                       masks=jst.block_masks(nx, (2, 2), jnp.float64))
+        return out
+
+    want = jax_side(jnp.asarray(u), jnp.asarray(kap), jnp.asarray(U))
+    assert rel(tst.stencil_apply(tu, torch.tensor(kap)), want["stencil"]) < 1e-12
+    assert rel(tst.mass_apply(tu, 1 / nx), want["mass"]) < 1e-12
+    assert np.array_equal(ts.kappa(tmu).numpy(), np.asarray(want["kappa"]))
+    assert rel(ts.apply(tmu, tu), want["apply"]) < 1e-12
+    terms = ts.apply_terms(tu)
+    for t in range(4):
+        assert rel(ts.apply_term(t, tu), want["terms"][t]) < 1e-12
+        assert rel(terms[t], want["terms"][t]) < 1e-12
+    assert rel(ts.product_apply(tu), want["product"]) < 1e-12
+    assert rel(ts.rhs(), want["rhs"]) < 1e-12
+    assert rel(ts.jacobi_diag(tmu), want["diag"]) < 1e-12
+    assert rel(ts.output(tu), want["output"]) < 1e-12
+    # the flattened LinOp views on (n, m) columns: one batched call
     assert taff.coefficients == tuple(ProjectionCoefficient("diffusion", b)
                                       for b in range(4))
-    for jt, tt in zip(jaff.terms, taff.terms):
-        assert rel(tt.apply(torch.tensor(U)), jt.apply(jnp.asarray(U))) < 1e-12
-    if nx == 12:  # the rest once: the JAX side's eager compiles cost per grid
-        assert rel(tt.apply(torch.tensor(U[:, 0])), jt.apply(jnp.asarray(U[:, 0]))) < 1e-12
-        assert rel(ts.product_linop().apply(torch.tensor(U)),
-                   js.product_linop().apply(jnp.asarray(U))) < 1e-12
-        assert rel(tst.mass_diag(nx + 1, 1 / nx, device="cpu"),
-                   jst.mass_diag(nx + 1, 1 / nx, jnp.float64)) < 1e-12
+    for jt_out, tt in zip(want["linops"], taff.terms):
+        assert rel(tt.apply(torch.tensor(U)), jt_out) < 1e-12
+    if nx == 12:
+        assert rel(taff.terms[-1].apply(torch.tensor(U[:, 0])), want["one"]) < 1e-12
+        assert rel(ts.product_linop().apply(torch.tensor(U)), want["product_linop"]) < 1e-12
+        assert rel(tst.mass_diag(nx + 1, 1 / nx, device="cpu"), want["mass_diag"]) < 1e-12
         assert np.array_equal(tst.block_masks(nx, (2, 2), device="cpu").numpy(),
-                              np.asarray(jst.block_masks(nx, (2, 2), jnp.float64)))
+                              np.asarray(want["masks"]))
 
 
 def test_stencil_matches_assembled():

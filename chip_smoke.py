@@ -123,8 +123,9 @@ Phases, each printing one line (any failed check raises and exits non-zero):
    held-out checks at 4 parameters (1 for the 3-D block, which takes 2
    steps)
    against the family's own float64 solve (MG-BiCGStab or Jacobi-CG, tol
-   1e-10; the ROM output error reported, not held: these manifolds
-   converge more slowly) and one profiled step. ``[large
+   1e-10, the 3-D block's 1e-6 with a rigorous bound on the reference's own
+   output error beside; the ROM output error reported, not held: these
+   manifolds converge more slowly) and one profiled step. ``[large
    nonaffine]``: the Gaussian-bump family at grid 2048 made affine by the
    EIM fit of the JAX demo (125 training bumps, tol 1e-3, 4 reserve
    points), MG-CG on the surrogate, each step's block the snapshot and its
@@ -166,7 +167,7 @@ Phases, each printing one line (any failed check raises and exits non-zero):
 9. state estimation (``[estim]``), through the entry point
    ``rla4mor_tpu_torch.examples.inverse_problems_demo.run``:
    ``ThermalBlockFOM((3, 3), ESTIM_GRID)`` in float32 (n = 36,481), 200
-   training and ``ESTIM_TEST`` = 16 test states (host ``splu`` in a pool
+   training and ``ESTIM_TEST`` = 8 test states (host ``splu`` in a pool
    of threads), m = 50 observations, PBDW with a 20-mode POD, dictionary
    recovery of the 16 columns over 200 atoms (the LARS paths once, in
    float64), each column's path point selected by the manifold distance
@@ -292,7 +293,43 @@ Phases, each printing one line (any failed check raises and exits non-zero):
    positive over the batch, every beta_LB positive, finite bounds) and
    ``[lossy]`` (the complex bounds-only flow at ``INFSUP_GRID``; checks:
    certified, a finite positive bound at every draw);
-13. the kernels' JSON line (the bf16 instance a row of its own, with the
+14. the applications tier (``mor/uq.py``, ``mor/optimize.py``): ``[uq]``
+   and ``[uq parabolic]``: the entry point
+   ``rla4mor_tpu_torch.examples.uq_demo.run`` at the JAX demo's defaults in
+   float64 on the card (3x3 block at 40 intervals, 30 snapshots, Gaussian
+   k = 400 / 200; certified moments by MC and by Halton at n = 20,000 in
+   batches of 4096, Sobol n = 2048 by Halton, the exceedance at mean +
+   std; the parabolic composite at grid 16, nt 30, 4 extensions of 3
+   modes, Gaussian k = 150); it prints per method E[s], the bias bound, the
+   MC stderr, std, the variance bias bound and the certified solves/s,
+   Sobol's top three, the brackets with their nominal values and the
+   certified time loops/s; checks: every bias bound finite and >= 0, the
+   host FOM output within s_rom +- eta_s at 64 sampled parameters (1,521
+   DoF) and the FOM's final-time output within s_c +- eta_s at 8, p_lo <=
+   p_nominal <= p_hi; ``[optimize]``: ``optimize_demo.run`` at its defaults
+   in float64 (``certified_minimize``, 8 starts of 120 iterations, tol
+   1e-6; on the bump family at grid 16, tol 1e-10, the exact reductor:
+   ``trust_region_minimize`` against ``certified_minimize``; maximisation
+   and target tracking); checks: |s_FOM(mu*) - J*| <= bound (plus the
+   float64 rounding of the two outputs), both bump runs converged, the
+   trust region's FOM solves at most enrich-at-the-optimum's; the SRHT
+   kernel against its plain version at ``[uq thermal3d]``'s step block
+   ((274,625, 9) rows, k = 256); ``[uq thermal3d]``:
+   ``uq_demo.run_thermal3d`` (``StencilThermalBlock3D((2, 2, 2), 64)`` in
+   float32, 8 greedy steps of Jacobi-CG 1e-6 over 8 candidates, SRHT k =
+   256, ``state_to_rom``, the l2 anchor lambda_min(A(1)) by
+   ``l2_interior_scm``, min-theta from its certified lower value, the l2
+   dual norm h^3 sqrt(n), Halton moments at n = 20,480 in batches of 4096,
+   the exceedance at mean + std); checks: certified, alpha_ref > 0, SRHT
+   launches > 0 (counts set to 0 just before, read just after), the
+   float64 FOM output (Jacobi-CG 1e-10) within s +- eta_s at 4 sampled
+   parameters; ``[serving demo]``: ``online_serving_demo.run`` (grid 64, r
+   = 12, ``save_rom`` / ``load_rom``, batches 1 to 65536 in float32, the
+   hot swap); check: served = per-parameter solves at batch 16 (1e-4);
+   ``[sketched rb]``: ``sketched_rb_demo.run`` (grid 32, SRHT k = 300 on
+   the FWHT route, 15 extensions, 200 online solves); check: the max
+   estimate falls;
+15. the kernels' JSON line (the bf16 instance a row of its own, with the
    ``[bf16]`` path's bf16-input launches; the SRHT at each stencil
    family's block a row, with that phase's launches; the tiled Gaussian branch a row
    of its own, with ``[hwprng block]``'s tiled launches at the bench m =
@@ -302,7 +339,8 @@ Phases, each printing one line (any failed check raises and exits non-zero):
    branch at [estim]'s sketch with that path's launches; the SRHT at
    [helmholtz srht]'s complex column with that path's launches; the SRHT at
    [parabolic]'s, [wave]'s and [semilinear]'s widest blocks with those
-   paths' launches), the run's wall time, then the result line.
+   paths' launches; the SRHT at [uq thermal3d]'s step block with that
+   path's launches), the run's wall time, then the result line.
 
 Times are CUDA-event means over back-to-back calls after a warm-up (the
 wrapper's host time included where it is longer than the kernel's); an
@@ -399,6 +437,12 @@ NONAFFINE_TWO_GRID = 256
 # of them (not 4), to keep the script in its time limit
 FAMILY_HELD_OUT = {"thermal3d": 1}
 FAMILY_CG_MAXITER = 6000  # the 3-D float64 reference solve (Jacobi-CG)
+# the float64 reference solves stop at a relative residual of 1e-10; the 3-D
+# block's at 1e-6: its ROM output error is reported, not held, beside a
+# rigorous bound on the reference's own output error (the estimate is held to
+# the exact residual of U y, which needs no solve), and at 2^24 DoF its
+# Jacobi-CG to 1e-10 took 817 iterations, about 80 s of the script's clock
+THERMAL3D_REF_TOL = 1e-6
 # the bf16 offline path: 6 greedy extensions; the padded path 6 (4 leave the
 # ROM 8.1e-2 off at a held-out parameter, CPU float64 at grid 128, above the
 # 5e-2 output check); the strong greedy 5 extensions over 6 solved parameters
@@ -429,12 +473,13 @@ PRECOND_N = (PRECOND_GRID + 1) ** 2  # 1,050,625 stencil unknowns
 PRECOND_DIRECTIONS = 1
 PRECOND_HW_SEED = 21
 # [estim]: examples/inverse_problems_demo.py's run() on ThermalBlockFOM((3, 3),
-# 192), n = 191^2 = 36,481: 200 training and 16 test states (the demo's 32
-# halved: the LARS paths and the test solves take half the time, which the
-# script's time limit needs; a run with 32 took 1,187 s on a slow machine),
+# 192), n = 191^2 = 36,481: 200 training and 8 test states (the demo's 32
+# cut to 16, then to 8 for the applications tier's phases: the LARS paths and
+# the test solves scale with them, which the script's time limit needs; a
+# run with 16 took 1,168.5 s on a slow machine with those phases),
 # m = 50 observations, 200 atoms, the residual sketch of the K + m = 250
 # columns at k = 256 through each embedding
-ESTIM_GRID, ESTIM_TEST = 192, 16
+ESTIM_GRID, ESTIM_TEST = 192, 8
 ESTIM_N, ESTIM_COLS, ESTIM_K = (ESTIM_GRID - 1) ** 2, 250, 256
 # [helmholtz]: examples/helmholtz_demo.py's run() in complex128 at grid 48 (n
 # = 2,209): its SCM solves a dense n x n eigenproblem a box term and an
@@ -489,6 +534,11 @@ WAVE_BLOCK = 5 * WAVE_EXT * WAVE_MODES + 1
 # 193-194 s for its 6 defended anchors (the k2 preconditioner's nested CG,
 # before its chunks replayed from CUDA graphs), over the script's time limit
 INFSUP_GRID, INFSUP_STEPS = 127, 4
+# the applications tier: [uq thermal3d] is the JAX package's uq_thermal3d
+# composition at its widths, StencilThermalBlock3D((2, 2, 2), 64): 65^3 =
+# 274,625 nodes, 8 greedy steps, SRHT k = 256 on the (9, n) step block
+UQ3D_GRID, UQ3D_STEPS = 64, 8
+UQ3D_N, UQ3D_BLOCK = (UQ3D_GRID + 1) ** 3, 9
 TOL = {torch.float64: 1e-12, torch.float32: 1e-4}
 TOL_NARROW = 8e-3  # 2-byte output against the float32 sums: one bf16 rounding
 HBM_BYTES_PER_S = 3.35e12
@@ -508,9 +558,11 @@ def phase(title: str, /, **fields) -> None:
           flush=True)
 
 
-def cuda_ms(fn, reps: int) -> float:
-    """Mean device time of ``fn`` over ``reps`` launches (after a warm-up)."""
-    fn()
+def cuda_ms(fn, reps: int, warm: bool = False) -> float:
+    """Mean device time of ``fn`` over ``reps`` launches after a warm-up
+    (``warm``: the caller's last call of ``fn`` was one)."""
+    if not warm:
+        fn()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -823,8 +875,9 @@ def gaussian_sketch_row(label, x, k, dist, reps, gen, rates: tuple[float, float]
            "rel_err": err / plain.abs().max().item()}
     del out, plain
     row["ms"] = cuda_ms(lambda: gcu.gaussian_sketch(x, k, 3, GAUSS_W, dist), reps)
+    # the check's plain call warmed it up (at the bench shape a call is 0.7-4 s)
     row["plain_ms"] = cuda_ms(lambda: gcu.gaussian_sketch_plain(x, k, 3, GAUSS_W, dist),
-                              max(1, reps // 5))
+                              max(1, reps // 5), warm=True)
     omega = torch.randn((k, n), generator=gen, device=x.device) / math.sqrt(k)
     row["library_ms"] = cuda_ms(lambda: torch.matmul(omega, x), reps)
     del omega
@@ -1398,10 +1451,11 @@ def hwprng_block_phase(fom, device, U_strong) -> dict:
             "residual_lhs_blocked_vs_single_rel": rels["residual_lhs"]}
 
 
-def large_kernel_rows(device, n: int, block: int, label: str = "large") -> list[dict]:
+def large_kernel_rows(device, n: int, widths, label: str = "large") -> list[dict]:
     """The SRHT kernel against its plain version at a large path's shapes:
-    the rhs (m = 1) and the step's (1 + T, n) block (m = ``block``) in its
-    transposed rows view, through the path's embedding (seed 0). The
+    a row for each width m of ``widths`` (the rhs, m = 1; the step's
+    (1 + T, n) block, m = 1 + T) in its transposed rows view, through the
+    path's embedding (seed 0). The
     library yardstick is one product with the explicit (k, n) operator,
     built on the card and freed after (17.2 GB in float32 at n = 2^24)."""
     from rla4mor_tpu_torch.ops.embeddings import SrhtEmbedding
@@ -1411,7 +1465,7 @@ def large_kernel_rows(device, n: int, block: int, label: str = "large") -> list[
     gen = torch.Generator(device=device).manual_seed(n)
     S = explicit_srht(signs, samp, n, LARGE_K, torch.float32, device)
     rows = []
-    for m in (1, block):
+    for m in widths:
         x = torch.randn((m, n), generator=gen, device=device).T  # rows layout
         rows.append(compare(f"{label} n={n} m={m} k={LARGE_K} rows", x, LARGE_K, signs,
                             samp, reps=50, kernel=lambda x=x: emb.apply_random(x),
@@ -1422,10 +1476,39 @@ def large_kernel_rows(device, n: int, block: int, label: str = "large") -> list[
     return rows
 
 
+def q1_lambda_min_3d(num_intervals: int) -> float:
+    """lambda_min of the trilinear (Q1) stiffness of the unit cube with unit
+    coefficient on the interior nodes, h times the element sums (the 3-D
+    block's A(1)): the tensor-product formula at the lowest mode, 3 K(t)
+    M(t)^2 with K = (2/h)(1 - cos t), M = (h/3)(2 + cos t), t = pi h;
+    1 - cos t as 2 sin^2(t/2) (no cancellation), and a 1e-12 pad for the
+    rounding. Equals the dense eigensolve to 6e-15 at 4-8 intervals."""
+    h = 1.0 / num_intervals
+    t = math.pi * h
+    lam = 3.0 * (4.0 / h) * math.sin(t / 2) ** 2 * (h / 3.0) ** 2 * (2.0 + math.cos(t)) ** 2
+    return lam * (1.0 - 1e-12)
+
+
+def thermal3d_ref_out_err_bound(fom64, mu, x, s_ref: float) -> float:
+    """A rigorous bound on the float64 reference's own relative output
+    error: |l(x - x*)| <= ||l|| ||b - A x|| / lambda_min(A(mu)), with
+    ||l|| <= h^3 sqrt(n) (the mean-value output) and lambda_min(A(mu)) >=
+    min(mu) lambda_min(A(1)) (A(mu) - min(mu) A(1) = sum (mu_b - min) A_b,
+    each A_b PSD), over |s_ref|."""
+    from rla4mor_tpu_torch.models.stencil3d import interior_mask3
+
+    mask = interior_mask3(fom64.n_nodes, torch.float64, x.device)
+    res = float(torch.linalg.vector_norm((fom64.apply(mu, x) - fom64.rhs()) * mask))
+    lam = float(torch.as_tensor(mu["diffusion"]).min()) * q1_lambda_min_3d(
+        fom64.num_intervals)
+    return fom64.h ** 3 * math.sqrt(fom64.n_dof) * res / lam / abs(s_ref)
+
+
 def reference_solve(fom64, mu, family: str):
     """The float64 solve the held-out checks compare with: MG-CG (thermal,
     the nonaffine family's surrogate and its exact bump operator),
-    MG-BiCGStab (advection, Helmholtz) or Jacobi-CG (3-D), tol 1e-10."""
+    MG-BiCGStab (advection, Helmholtz) or Jacobi-CG (3-D), tol 1e-10 (the
+    3-D block's ``THERMAL3D_REF_TOL``)."""
     if family == "thermal":
         return fom64.solve_cg_result(mu, tol=1e-10, maxiter=300, precond="mg")
     if family == "nonaffine":
@@ -1435,7 +1518,7 @@ def reference_solve(fom64, mu, family: str):
         return cg(lambda v: fom64.apply(mu, v), fom64.rhs(), tol=1e-10, maxiter=300,
                   precond=preconditioner(fom64, mu, "mg"))
     if family == "thermal3d":
-        return fom64.solve_cg_result(mu, tol=1e-10, maxiter=FAMILY_CG_MAXITER)
+        return fom64.solve_cg_result(mu, tol=THERMAL3D_REF_TOL, maxiter=FAMILY_CG_MAXITER)
     return fom64.solve_bicgstab_result(mu, tol=1e-10, maxiter=300, precond="mg")
 
 
@@ -1483,6 +1566,9 @@ def large_held_out(res: dict, device, label: str) -> list[dict]:
                      "est_over_exact": est / exact, "checked": exact > 1e-3 * bnorm,
                      "f64_iters": solve.iters,
                      "f64_rel_res": float(solve.residual_norm) / bnorm})
+        if family == "thermal3d":
+            rows[-1]["ref_out_err_bound"] = thermal3d_ref_out_err_bound(fom64, mu, solve.x,
+                                                                         s_fom)
         if certificate is not None:
             # the rigorous check: the float64 true residual over the
             # certified stability constant against the float64 error
@@ -2648,6 +2734,160 @@ def lossy_phase(device) -> dict:
     return out
 
 
+def uq_phase(device) -> tuple[dict, dict]:
+    """[uq] and [uq parabolic]: ``uq_demo.run`` at the JAX demo's defaults on
+    the card in float64 (3x3 block at 40 intervals, 30 snapshots, Gaussian
+    k = 400 / 200; n = 20,000 by MC and by Halton in batches of 4096, Sobol
+    n = 2048, the exceedance at mean + std; the parabolic composite at grid
+    16, nt 30, 4 extensions of 3 modes, Gaussian k = 150). Checks: every bias
+    bound finite and >= 0; the host FOM output within s_rom +- eta_s at 64
+    sampled parameters (1,521 DoF) and, at the final time, at 8 for the
+    parabolic output; p_lo <= p_nominal <= p_hi (the demo raises on each)."""
+    from rla4mor_tpu_torch.examples import uq_demo
+
+    t0 = time.perf_counter()
+    res = uq_demo.run(device=device, log=lambda line: print(f"[uq] {line}", flush=True))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    out = {"n_dof": res["n_dof"], "r": res["r"], "offline_s": res["offline_s"]}
+    for method, m in res["moments"].items():
+        check(math.isfinite(m["bias_bound"]) and m["bias_bound"] >= 0
+              and math.isfinite(m["var_bias_bound"]) and m["var_bias_bound"] >= 0,
+              f"uq {method}: bias bounds {m['bias_bound']}, {m['var_bias_bound']}")
+        out.update({f"{method}_{key}": m[key] for key in (
+            "mean", "bias_bound", "mc_stderr", "std", "var_bias_bound", "solves_per_s")})
+    fc = res["fom_check"]
+    check(fc["max_err_over_eta"] <= 1.0, f"uq: |s_fom - s_rom| / eta_s {fc}")
+    exc = res["exceedance"]
+    check(exc["p_lo"] <= exc["p_nominal"] <= exc["p_hi"], f"uq: exceedance {exc}")
+    out.update(fom_check_samples=fc["samples"], max_err_over_eta=fc["max_err_over_eta"],
+               sobol_top=[f"{name}:S={s1:.3f}:T={st:.3f}" for name, s1, st
+                          in res["sobol"]["top"]], sobol_s=res["sobol"]["s"],
+               threshold=exc["threshold"], p_lo=exc["p_lo"], p_hi=exc["p_hi"],
+               p_nominal=exc["p_nominal"])
+    par = res["parabolic"]
+    check(math.isfinite(par["bias_bound"]) and par["bias_bound"] >= 0,
+          f"uq parabolic: bias bound {par['bias_bound']}")
+    check(par["max_err_over_eta"] <= 1.0 and par["fom_check_samples"] == 8,
+          f"uq parabolic: |s_fom(T) - s_c| / eta_s {par['max_err_over_eta']}")
+    check(par["p_lo"] <= par["p_nominal"] <= par["p_hi"], f"uq parabolic: bracket {par}")
+    parabolic = {key: par[key] for key in (
+        "n_dof", "nt", "bases", "mean", "bias_bound", "std", "loops_per_s", "threshold",
+        "p_lo", "p_hi", "p_nominal", "fom_check_samples", "max_err_over_eta")}
+    out["wall_s"] = wall
+    return out, parabolic
+
+
+def optimize_phase(device) -> dict:
+    """[optimize]: ``optimize_demo.run`` at the JAX demo's defaults on the card
+    in float64 (3x3 block at 40 intervals, tol 1e-6, Gaussian k = 300 / 150,
+    8 starts of 120 iterations; the bump family at grid 16, tol 1e-10, the
+    exact reductor). Checks: |s_FOM(mu*) - J*| <= bound (with the float64
+    rounding of the two outputs, 1e-12 |s|); both bump runs converge; the
+    trust region spends no more FOM solves than enrich-at-the-optimum."""
+    from rla4mor_tpu_torch.examples import optimize_demo as demo
+
+    t0 = time.perf_counter()
+    res = demo.run(device=device, log=lambda line: print(f"[optimize] {line}", flush=True))
+    torch.cuda.synchronize()
+    bump = res["bump"]
+    check(abs(res["s_fom"] - res["value"]) <= res["bound"] + demo.ROUNDING * abs(res["s_fom"]),
+          f"optimize: |s_fom - J*| = {abs(res['s_fom'] - res['value']):.3e} > bound "
+          f"{res['bound']:.3e}")
+    check(bump["tr"]["converged"] and bump["cm"]["converged"],
+          f"optimize: bump runs converged {bump['tr']['converged']}, "
+          f"{bump['cm']['converged']}")
+    check(bump["tr"]["fom_solves"] <= bump["cm"]["fom_solves"],
+          f"optimize: trust region {bump['tr']['fom_solves']} FOM solves > "
+          f"{bump['cm']['fom_solves']}")
+    return {"n_dof": res["n_dof"], "J": res["value"], "bound": res["bound"],
+            "converged": res["converged"], "n_enrichments": res["n_enrichments"],
+            "basis_per_round": [h["basis_size"] for h in res["history"]],
+            "bound_per_round": [h["bound"] for h in res["history"]], "s_fom": res["s_fom"],
+            "minimize_s": res["s"], "bump_terms": bump["terms"],
+            "tr_J": bump["tr"]["value"], "tr_bound": bump["tr"]["bound"],
+            "tr_fom_solves": bump["tr"]["fom_solves"], "tr_s": bump["tr"]["s"],
+            "cm_J": bump["cm"]["value"], "cm_bound": bump["cm"]["bound"],
+            "cm_fom_solves": bump["cm"]["fom_solves"], "cm_s": bump["cm"]["s"],
+            "range": list(res["range"]), "tracking_residual": res["tracking_residual"],
+            "wall_s": time.perf_counter() - t0}
+
+
+def uq_thermal3d_phase(device) -> dict:
+    """[uq thermal3d]: ``uq_demo.run_thermal3d`` at the JAX recipe's widths
+    (``StencilThermalBlock3D((2, 2, 2), UQ3D_GRID)`` in float32, 274,625
+    nodes; ``UQ3D_STEPS`` greedy steps, Jacobi-CG 1e-6 / 3000, SRHT k = 256;
+    the l2 anchor by ``l2_interior_scm``; Halton moments at n = 20,480 in
+    batches of 4096; the exceedance at mean + std). Checks: the anchor
+    certified, alpha_ref > 0, SRHT launches > 0 (counts set to 0 just before,
+    read just after), the float64 FOM output (Jacobi-CG 1e-10) within s +-
+    eta_s at 4 sampled parameters (the demo raises)."""
+    from rla4mor_tpu_torch.examples import uq_demo
+    from rla4mor_tpu_torch.ops import srht_cuda
+
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    srht_cuda.srht_onepass.launches = 0
+    res = uq_demo.run_thermal3d(grid=UQ3D_GRID, steps=UQ3D_STEPS, device=device,
+                                log=lambda line: print(f"[uq thermal3d] {line}", flush=True))
+    torch.cuda.synchronize()
+    launches = srht_cuda.srht_onepass.launches
+    check(res["certified"] and res["alpha_ref"] > 0,
+          f"uq thermal3d: alpha_ref {res['alpha_ref']:.3e}, certified={res['certified']}")
+    check(res["stability_certified"], "uq thermal3d: the UQ result lost the SCM's verdict")
+    check(launches > 0, "uq thermal3d: no SRHT kernel launch on the path")
+    check(res["max_err_over_eta"] <= 1.0 and res["fom_check_samples"] == 4,
+          f"uq thermal3d: |s_fom - s| / eta_s {res['max_err_over_eta']}")
+    check(res["p_lo"] <= res["p_nominal"] <= res["p_hi"], f"uq thermal3d: bracket {res}")
+    out = {key: res[key] for key in (
+        "n_dof", "r", "k", "step_s", "cg_iters", "greedy_s", "anchor_s", "lambda", "radius",
+        "alpha_ref", "certified", "anchor_runs", "mean", "std", "bias_bound",
+        "var_bias_bound", "uq_s", "samples_per_s", "batch", "samples", "threshold", "p_lo",
+        "p_hi", "p_nominal", "max_err_over_eta")}
+    out.update(srht_launches=launches, phase_s=time.perf_counter() - t0)
+    del res
+    torch.cuda.empty_cache()
+    return out
+
+
+def serving_demo_phase(device) -> dict:
+    """[serving demo]: ``online_serving_demo.run`` at its defaults (grid 64,
+    20 snapshots, r = 12, Gaussian k = 200, truncation_rtol 3e-4; batches 1,
+    16, 256, 4096 and 65536 served in float32; the hot swap). Checks: at batch
+    16 the served outputs equal per-parameter solves to 1e-4; the swapped
+    model has the shipped one's shapes (the demo raises)."""
+    from rla4mor_tpu_torch.examples import online_serving_demo as demo
+
+    res = demo.run(device=device, log=lambda line: print(f"[serving demo] {line}",
+                                                         flush=True))
+    check(res["check_dev"] is not None and res["check_dev"] <= 1e-4,
+          f"serving demo: served vs solved {res['check_dev']}")
+    out = {"n_dof": res["n_dof"], "r": res["r"], "file_kb": res["file_kb"],
+           "swap_ms": res["swap_ms"], "check_dev": res["check_dev"]}
+    for row in res["rows"]:
+        out[f"ms[{row['batch']}]"] = row["ms"]
+        out[f"mu_per_s[{row['batch']}]"] = row["mu_per_s"]
+    return out
+
+
+def sketched_rb_phase(device) -> dict:
+    """[sketched rb]: ``sketched_rb_demo.run`` at its defaults (2x2 block at
+    grid 32, SRHT k = 300 (n = 961: the FWHT route, no kernel), online
+    Gaussian 150, 15 extensions over 100 training parameters, 200 online
+    solves). Checks: finite estimates, the last max estimate below the
+    first."""
+    from rla4mor_tpu_torch.examples import sketched_rb_demo as demo
+
+    res = demo.run(device=device, log=lambda line: print(f"[sketched rb] {line}",
+                                                         flush=True))
+    est = res["max_estimates"]
+    check(all(math.isfinite(e) for e in est) and est[-1] < est[0],
+          f"sketched rb: max estimates {est}")
+    return {"n_dof": res["n_dof"], "basis": res["basis"], "greedy_s": res["greedy_s"],
+            "online_ms": res["online_ms"], "rel_errors": res["rel_errors"],
+            "estimates": res["estimates"]}
+
+
 def build_all(sources) -> dict:
     """nvcc of every source, all started together -> {source: seconds}."""
     from rla4mor_tpu_torch.utils import nvcc
@@ -2738,7 +2978,7 @@ def main(argv=None) -> int:
     del fom, U_strong
 
     # 7. the large slice at full width
-    large_rows = large_kernel_rows(device, (LARGE_GRID + 1) ** 2, 5)
+    large_rows = large_kernel_rows(device, (LARGE_GRID + 1) ** 2, (1, 5))
     large = large_phase(device, LARGE_GRID, "large")
     phase("large", **large)
     torch.cuda.empty_cache()
@@ -2753,8 +2993,7 @@ def main(argv=None) -> int:
         n = (grid + 1) ** (3 if family == "thermal3d" else 2)
 
         def kernel_row(m):
-            return next(r for r in large_kernel_rows(device, n, m, label)
-                        if f" m={m} " in r["label"])
+            return large_kernel_rows(device, n, (m,), label)[0]
 
         row = None if width is None else kernel_row(width)
         res = large_phase(device, grid, label, family, steps, bounds)
@@ -2822,6 +3061,23 @@ def main(argv=None) -> int:
     lossy = lossy_phase(device)
     phase("lossy", **lossy, card=smi)
 
+    # 14. the applications tier: certified UQ and optimisation on the host
+    # models in float64, the SRHT kernel at [uq thermal3d]'s step block, the
+    # greedy-shipped 3-D ROM certified and sampled, serving and the sketched
+    # RB demo
+    uq, uq_par = uq_phase(device)
+    phase("uq", **uq, card=smi)
+    phase("uq parabolic", **uq_par, card=smi)
+    opt = optimize_phase(device)
+    phase("optimize", **opt, card=smi)
+    uq3d_row = large_kernel_rows(device, UQ3D_N, (UQ3D_BLOCK,), "uq thermal3d")[0]
+    uq3d = uq_thermal3d_phase(device)
+    phase("uq thermal3d", **uq3d, card=smi)
+    serving = serving_demo_phase(device)
+    phase("serving demo", **serving, card=smi)
+    srb = sketched_rb_phase(device)
+    phase("sketched rb", **srb, card=smi)
+
     # 12. result
     main_row = next(r for r in rows if r["label"].startswith("slice")
                     and r["dtype"] == "float32" and "m=1 " in r["label"])
@@ -2839,7 +3095,8 @@ def main(argv=None) -> int:
                     + padded["resume_srht_launches"] + strong["srht_launches"]
                     + large_launches + family_launches + estim["srht_launches"]
                     + helm_srht["srht_launches"] + para["srht_launches"]
-                    + wave["srht_launches"] + semi["srht_launches"])
+                    + wave["srht_launches"] + semi["srht_launches"]
+                    + uq3d["srht_launches"])
     print(json.dumps({"kernels": [
         kernel_entry("srht_onepass", "rla4mor_tpu_torch/csrc/srht_onepass.cu",
                      "rla4mor_tpu/ops/srht_pallas.py:580", f32_launches, main_row),
@@ -2925,6 +3182,13 @@ def main(argv=None) -> int:
                      "rla4mor_tpu/ops/srht_pallas.py:580", semi["srht_launches"], semi_row,
                      note="the [semilinear] path's launch (the residual block of the "
                      "POD-DEIM fit), a subset of the first row's"),
+        # [uq thermal3d]: the greedy-shipped 3-D ROM, one launch for the rhs
+        # and one a step on the (9, 274,625) block of the snapshot and its 8
+        # terms
+        kernel_entry("srht_onepass", "rla4mor_tpu_torch/csrc/srht_onepass.cu",
+                     "rla4mor_tpu/ops/srht_pallas.py:487", uq3d["srht_launches"], uq3d_row,
+                     note="the [uq thermal3d] path's launches (the rhs, then the step "
+                     "block of 1 + 8 rows a step), a subset of the first row's"),
     ]}), flush=True)
     phase("wall", s=time.perf_counter() - t_start)
     print(json.dumps({"ok": True, "device": {

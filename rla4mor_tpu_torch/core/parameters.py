@@ -74,6 +74,17 @@ class ParameterSpace:
                         for name, size in self.shapes})
         return out
 
+    def parse(self, x) -> Mu:
+        """A flat coordinate vector (d,) as a Mu, or rows (..., d) as a
+        batched Mu; the coordinates in the order of the sorted names. The
+        leaves are views of ``x``, so gradients flow back to it."""
+        x = torch.as_tensor(x)
+        mu, off = {}, 0
+        for name, size in self.shapes:
+            mu[name] = x[..., off:off + size]
+            off += size
+        return mu
+
     def sample_uniformly(self, counts_per_dim: int, device=None, dtype=None) -> list[Mu]:
         """Tensor grid of ``counts_per_dim`` points an axis over every
         parameter entry, in the JAX package's order (``indexing="ij"``: the
@@ -167,6 +178,23 @@ class ExpressionCoefficient(Coefficient):
 
 
 @dataclass(frozen=True)
+class VectorEntryCoefficient(Coefficient):
+    """theta(mu) = vector(mu)[..., index]: one entry of a vector-valued
+    function that a tuple of coefficients shares (the EIM / MDEIM surrogates'
+    thetas, one magic-point solve per Mu). :func:`eval_coefficients`
+    evaluates a tuple of entries 0, 1, ... of one such function by one call
+    of it. ``vector`` takes part in equality by its identity, as
+    :class:`ExpressionCoefficient`'s ``fn`` does."""
+
+    vector: Callable[[Mu], torch.Tensor]
+    index: int
+    name: str = field(default="entry", compare=False)
+
+    def __call__(self, mu):
+        return torch.as_tensor(self.vector(mu))[..., self.index]
+
+
+@dataclass(frozen=True)
 class ConjugateCoefficient(Coefficient):
     """conj(inner(mu)): the coefficient of an adjoint term, so the adjoint
     conjugates complex-valued coefficients."""
@@ -228,6 +256,13 @@ def eval_coefficients(coefficients: Sequence[Coefficient], mu: Mu | None,
     if device is None:
         device = leaf.device if leaf is not None else resolve_device(None)
     batch = () if leaf is None else leaf.shape[:-1]
+    vector = _shared_vector(coefficients)
+    if vector is not None:
+        # the tuple's values are the leading entries of one shared vector
+        v = torch.as_tensor(vector(mu))[..., :len(coefficients)]
+        if v.is_complex() and not dtype.is_complex:
+            dtype = torch.promote_types(dtype, torch.complex64)
+        return v.to(device=device, dtype=dtype).expand(*batch, len(coefficients))
     raw = [c(mu) for c in coefficients]
     if not dtype.is_complex and any(
             v.is_complex() if isinstance(v, torch.Tensor) else isinstance(v, complex)
@@ -235,3 +270,14 @@ def eval_coefficients(coefficients: Sequence[Coefficient], mu: Mu | None,
         dtype = torch.promote_types(dtype, torch.complex64)
     vals = [torch.as_tensor(v, dtype=dtype, device=device).expand(batch) for v in raw]
     return torch.stack(vals, dim=-1)
+
+
+def _shared_vector(coefficients: Sequence[Coefficient]):
+    """The vector function of a tuple of :class:`VectorEntryCoefficient`
+    whose entries are 0, 1, ... of one function, else None."""
+    if not all(isinstance(c, VectorEntryCoefficient) for c in coefficients) or not coefficients:
+        return None
+    vector = coefficients[0].vector
+    if any(c.vector is not vector or c.index != q for q, c in enumerate(coefficients)):
+        return None
+    return vector

@@ -47,8 +47,11 @@ def bump_host_fom(nx: int = 12, n_train_per_dim: int = 6, n_train_random: int = 
     thetas: the exact entries, O(n_terms) a parameter. The random draws
     come from the port's sampler (stream ``TRAIN_SEED``), other draws than
     the JAX package's at the same seed. Attributes beyond StationaryFOM: ``kappa_field(mu)`` (per-element
-    coefficients, on the host in float64), ``exact_assemble(mu)`` (the
-    exact csr), ``num_intervals``, ``h1_0_product``, ``mdeim_op``."""
+    coefficients on the Mu's device, float64 or wider), ``exact_assemble(mu)``
+    (the exact csr, on the host), ``num_intervals``, ``h1_0_product``,
+    ``mdeim_op``. The thetas of a Mu are computed on its device (the field,
+    the magic entries and the MDEIM solve), so an online loop on the card
+    never waits for the host."""
     from rla4mor_tpu_torch.mor.eim import mdeim
 
     n_nodes = (nx + 1) ** 2
@@ -63,11 +66,16 @@ def bump_host_fom(nx: int = 12, n_train_per_dim: int = 6, n_train_random: int = 
     restrict = sps.coo_matrix((np.ones(interior.size), (np.arange(interior.size), interior)),
                               shape=(interior.size, n_nodes)).tocsr()
 
+    centres = {}  # the element centres by device
+
     def kappa_field(mu: Mu) -> torch.Tensor:
-        return field({key: torch.as_tensor(v).cpu() for key, v in mu.items()}, X, Y)
+        dev = torch.as_tensor(next(iter(mu.values()))).device
+        if dev not in centres:
+            centres[dev] = (X.to(dev), Y.to(dev))
+        return field(mu, *centres[dev])
 
     def exact_assemble(mu: Mu) -> sps.csr_matrix:
-        w = kappa_field(mu).numpy()
+        w = kappa_field(mu).cpu().numpy()
         A = _assemble(el_nodes, _K_EL, n_nodes, w.ravel())
         Ai = (restrict @ A @ restrict.T).tocsr()
         Ai.sort_indices()
@@ -100,13 +108,16 @@ def bump_host_fom(nx: int = 12, n_train_per_dim: int = 6, n_train_random: int = 
         for j, (e, k) in enumerate(contrib[(int(r), int(c))]):
             elem_idx[p, j] = e
             kel_w[p, j] = k
-    elem_idx_t = torch.as_tensor(elem_idx)
-    kel_w_t = torch.as_tensor(kel_w)
+    tables = {}  # (element ids, weights) by device
 
     def entries(mu):
         kappa = kappa_field(mu)
+        if kappa.device not in tables:
+            tables[kappa.device] = (torch.as_tensor(elem_idx).to(kappa.device),
+                                    torch.as_tensor(kel_w).to(kappa.device))
+        idx, wgt = tables[kappa.device]
         kappa = kappa.reshape(kappa.shape[:-2] + (-1,))  # (..., n_el)
-        return (kappa[..., elem_idx_t] * kel_w_t).sum(dim=-1)
+        return (kappa[..., idx] * wgt).sum(dim=-1)
 
     operator = op.affine_op(entries, device=device, dtype=dtype)
 

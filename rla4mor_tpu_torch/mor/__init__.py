@@ -67,6 +67,31 @@ from rla4mor_tpu_torch.mor.eim import (
     mdeim,
     theta_coefficients,
 )
+from rla4mor_tpu_torch.mor.optimize import (
+    CertifiedOptimum,
+    ConstantDualNorm,
+    MinimizeResult,
+    OutputDualNorm,
+    TrustRegionResult,
+    certified_minimize,
+    make_objective,
+    minimize_output,
+    minimize_scalar,
+    output_error_bound,
+    output_gradient,
+    trust_region_minimize,
+)
+from rla4mor_tpu_torch.mor.uq import (
+    CertifiedSobolResult,
+    ExceedanceResult,
+    SobolResult,
+    UqResult,
+    certified_moments,
+    certified_sobol_indices,
+    exceedance_probability,
+    sample_mu_batched,
+    sobol_indices,
+)
 from rla4mor_tpu_torch.mor.semilinear_reductor import (
     SemilinearInstationaryROM,
     SemilinearReductor,
@@ -91,4 +116,10 @@ __all__ = ["ClassicalReductor", "GramResidualEstimator", "SketchedReductor",
            "load_instationary_reductor_state", "save_primal_dual_reductor",
            "load_primal_dual_reductor_state", "save_wave_reductor",
            "load_wave_reductor_state", "SemilinearResidualEstimator", "SemilinearROM",
-           "SemilinearInstationaryROM", "SemilinearReductor"]
+           "SemilinearInstationaryROM", "SemilinearReductor", "CertifiedOptimum",
+           "ConstantDualNorm", "MinimizeResult", "OutputDualNorm", "TrustRegionResult",
+           "certified_minimize", "make_objective", "minimize_output", "minimize_scalar",
+           "output_error_bound", "output_gradient", "trust_region_minimize",
+           "CertifiedSobolResult", "ExceedanceResult", "SobolResult", "UqResult",
+           "certified_moments", "certified_sobol_indices", "exceedance_probability",
+           "sample_mu_batched", "sobol_indices"]

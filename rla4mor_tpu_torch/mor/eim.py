@@ -327,12 +327,12 @@ def eim_rebuild(G_sel, n_reserve: int = 0) -> EimInterpolant:
 
 
 def theta_coefficients(interpolant: EimInterpolant, entries_fn, name: str = "eim_theta"):
-    """Tuple of ``ExpressionCoefficient`` theta_q(mu) for the affine
+    """Tuple of ``VectorEntryCoefficient`` theta_q(mu) for the affine
     surrogate of ``interpolant``: ``entries_fn(mu)`` gives the quantity at
     the active magic points, (M,) for one Mu or (B, M) for a batched one.
     All M coefficients share one solve per Mu object (keyed on the identity
     of its leaves, held strongly, so a new Mu always misses)."""
-    from rla4mor_tpu_torch.core.parameters import ExpressionCoefficient
+    from rla4mor_tpu_torch.core.parameters import VectorEntryCoefficient
 
     cache: dict = {}
 
@@ -347,10 +347,8 @@ def theta_coefficients(interpolant: EimInterpolant, entries_fn, name: str = "eim
             cache.update(key=key, refs=tuple(mu.values()), theta=theta)
         return cache["theta"]
 
-    def coefficient(q):
-        return ExpressionCoefficient(lambda mu: theta_full(mu)[..., q], name=f"{name}[{q}]")
-
-    return tuple(coefficient(q) for q in range(interpolant.n_terms))
+    return tuple(VectorEntryCoefficient(theta_full, q, name=f"{name}[{q}]")
+                 for q in range(interpolant.n_terms))
 
 
 class MdeimOperator:
@@ -407,18 +405,23 @@ class MdeimOperator:
 
     def affine_op(self, entries_fn, device=None, dtype=None):
         """``AffineOp`` over ``HostSparseOp`` terms (results on ``device``)
-        with shared-solve theta coefficients; ``entries_fn(mu)`` gives the
-        active magic entries, (M,) or (B, M). Cached per ``entries_fn``."""
+        with shared-solve theta coefficients, solved on ``device``;
+        ``entries_fn(mu)`` gives the active magic entries, (M,) or (B, M).
+        Cached per ``entries_fn``."""
         cached = getattr(self, "_affine_cache", None)
         if cached is not None and cached[0] is entries_fn:
             return cached[1]
         from rla4mor_tpu_torch.core.affine import AffineOp
         from rla4mor_tpu_torch.core.linops import HostSparseOp
+        from rla4mor_tpu_torch.utils.config import resolve_device
 
+        # the magic-point solve on the terms' device, where entries_fn's
+        # values are expected
+        interpolant = self.interpolant.to(device=resolve_device(device))
         op = AffineOp(
             tuple(HostSparseOp(self.term_matrix(q), device=device, dtype=dtype)
                   for q in range(self.n_terms)),
-            theta_coefficients(self.interpolant, entries_fn, name="mdeim_theta"))
+            theta_coefficients(interpolant, entries_fn, name="mdeim_theta"))
         self._affine_cache = (entries_fn, op)
         return op
 

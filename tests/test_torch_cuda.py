@@ -905,3 +905,74 @@ def test_column_cg_graph_matches_the_eager_one(cuda, dtype):
         assert torch.equal(a.residual_norm, b.residual_norm)
     assert len(graphed._graphs) == 1
     assert int(a.iters.max()) <= 60
+
+
+def _exact_thermal_rom(tmp_path, cuda):
+    """A CPU float64 exact-sketch ROM of the 2x2 thermal block (grid 16, 6
+    snapshots) and its copy on the card in float64 (``save_rom`` /
+    ``load_rom``), with the FOM, the coercivity and the output dual norm."""
+    from rla4mor_tpu_torch.models import ThermalBlockFOM
+    from rla4mor_tpu_torch.mor import (
+        MinThetaCoercivity,
+        OutputDualNorm,
+        SketchedReductor,
+        load_rom,
+        save_rom,
+    )
+
+    fom = ThermalBlockFOM((2, 2), 16, device="cpu")
+    Ru = fom.h1_0_product
+    theta = temb.IdentityEmbedding(fom.solution_dim, sqrt_product=Ru.sqrt, device="cpu")
+    red = SketchedReductor(fom, embedding_primal=theta,
+                           embedding_online=temb.IdentityEmbedding(theta.range_dim,
+                                                                   device="cpu"),
+                           product=Ru, orthonormalize=True, log_level=30)
+    red.extend_basis(fom.solve_many(fom.parameter_space.sample_randomly(6, seed=7,
+                                                                        device="cpu")))
+    rom = red.reduce()
+    save_rom(rom, tmp_path / "rom.npz")
+    card = load_rom(tmp_path / "rom.npz", device=cuda, dtype=torch.float64)
+    alpha = MinThetaCoercivity(fom, {"diffusion": torch.ones(4, dtype=torch.float64)})
+    return fom, rom, card, alpha, OutputDualNorm(fom, product=Ru)
+
+
+def test_batched_pgd_on_the_card_matches_the_cpu(cuda, tmp_path):
+    """The batched multi-start PGD (autograd through the batched reduced
+    solve, the masked Armijo loop) on the card in float64 takes the CPU's
+    steps: every start's final iterate and value to 1e-10 (values at a zero
+    minimum to 1e-14 absolute)."""
+    from rla4mor_tpu_torch.mor import minimize_output
+
+    fom, rom, card, _, _ = _exact_thermal_rom(tmp_path, cuda)
+    x0 = torch.tensor([[0.2, 0.2, 0.2, 0.2], [0.9, 0.3, 0.6, 0.4], [0.5, 0.5, 0.5, 0.5]],
+                      dtype=torch.float64)
+    target = 0.06
+    for objective in (None, lambda s, mu: (s[..., 0].real - target) ** 2):
+        want = minimize_output(rom, fom.parameter_space, objective=objective, x0=x0,
+                               iters=40)
+        got = minimize_output(card, fom.parameter_space, objective=objective,
+                              x0=x0.to(cuda), iters=40)
+        assert got.xs.device.type == "cuda"
+        assert (got.xs.cpu() - want.xs).abs().max().item() <= 1e-10
+        # the tracking values are rounding noise at their zero minimum
+        assert torch.allclose(got.values.cpu(), want.values, rtol=1e-10, atol=1e-14)
+
+
+def test_certified_moments_on_the_card_match_the_cpu(cuda, tmp_path):
+    """certified_moments and the exceedance bracket over the ROM on the card in
+    float64 equal the CPU's to 1e-10 (the same Halton and MC samples, the
+    batched solve and certificate on the card)."""
+    from rla4mor_tpu_torch.mor import certified_moments, exceedance_probability
+
+    fom, rom, card, alpha, dual = _exact_thermal_rom(tmp_path, cuda)
+    space = fom.parameter_space
+    for method in ("mc", "halton"):
+        kw = dict(n=300, key=5, method=method, batch=128)
+        want = certified_moments(rom, space, alpha, dual, **kw)
+        got = certified_moments(card, space, alpha, dual, **kw)
+        for f in ("mean", "std", "bias_bound", "var_bias_bound"):
+            assert abs(getattr(got, f) - getattr(want, f)) <= 1e-10 * abs(getattr(want, f))
+        e_want = exceedance_probability(rom, space, alpha, dual, threshold=want.mean, **kw)
+        e_got = exceedance_probability(card, space, alpha, dual, threshold=want.mean, **kw)
+        assert (e_got.p_lo, e_got.p_hi, e_got.p_nominal) == (e_want.p_lo, e_want.p_hi,
+                                                             e_want.p_nominal)

@@ -59,8 +59,14 @@ def test_port_imports_no_jax_and_builds_nothing():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     names = set(proc.stdout.split())
-    assert len(names) >= 76  # every module of the slices
-    assert {"rla4mor_tpu_torch.mor.scm_matfree",
+    assert len(names) >= 82  # every module of the slices
+    assert {"rla4mor_tpu_torch.mor.uq",
+            "rla4mor_tpu_torch.mor.optimize",
+            "rla4mor_tpu_torch.examples.uq_demo",
+            "rla4mor_tpu_torch.examples.optimize_demo",
+            "rla4mor_tpu_torch.examples.online_serving_demo",
+            "rla4mor_tpu_torch.examples.sketched_rb_demo",
+            "rla4mor_tpu_torch.mor.scm_matfree",
             "rla4mor_tpu_torch.probes.bounds_probe",
             "rla4mor_tpu_torch.models.wave",
             "rla4mor_tpu_torch.models.wave_stencil",

@@ -125,7 +125,8 @@ Phases, each printing one line (any failed check raises and exits non-zero):
    against the family's own float64 solve (MG-BiCGStab or Jacobi-CG, tol
    1e-10, the 3-D block's 1e-6 with a rigorous bound on the reference's own
    output error beside; the ROM output error reported, not held: these
-   manifolds converge more slowly) and one profiled step. ``[large
+   manifolds converge more slowly) and one profiled step (the Helmholtz and
+   3-D families' with its solve capped: ``PROFILE_SOLVER_CAP``). ``[large
    nonaffine]``: the Gaussian-bump family at grid 2048 made affine by the
    EIM fit of the JAX demo (125 training bumps, tol 1e-3, 4 reserve
    points), MG-CG on the surrogate, each step's block the snapshot and its
@@ -329,7 +330,28 @@ Phases, each printing one line (any failed check raises and exits non-zero):
    ``[sketched rb]``: ``sketched_rb_demo.run`` (grid 32, SRHT k = 300 on
    the FWHT route, 15 extensions, 200 online solves); check: the max
    estimate falls;
-15. the kernels' JSON line (the bf16 instance a row of its own, with the
+15. the DoF-sharded path: ``[kernel] label=sharded ...``: the SRHT kernel
+   with a ``block_offset`` against its plain version at a rank's block,
+   (2^21, 5) rows, k = 256, float32, at offsets 0, 1,024 and 1,026 blocks
+   of 2^11 (1e-5 relative); ``[sharded]``: ``large_scale_demo.run(ranks=2,
+   backend="gloo")`` with both ranks on the card (``SHARDED_GRID`` = 2047,
+   n = 2^22, Jacobi-CG 1e-7 / 6,000, SRHT k = 256, ``SHARDED_STEPS`` = 3
+   steps), each step's seconds and its collectives' host seconds (their
+   share: the two ranks time-share one card, so these are not scaling
+   numbers); checks: the ranks' states and estimates identical, step 1's
+   sharded sketch within 1e-5 of the one-device sketch of the gathered
+   block, each rank's slab apply of a random grid equal to the one-device
+   apply (1e-6) and 100 Jacobi-CG iterations on the slabs within 1e-3 of
+   the one-device iterations, the median estimate falls (the max is
+   reported: the float32 Jacobi snapshots leave it at its floor), each
+   rank's SRHT launches 1 + 1 a step;
+   ``[multichip dryrun]``: ``examples/multichip_dryrun.py::dryrun`` in the
+   same group (the thermal step twice, mu-sharded serving, a row-sharded
+   LOBPCG anchor, the advection BiCGStab step with the exact score);
+   ``[sharded nccl]``: this process as the one rank of an NCCL group, one
+   step at grid 1023, its state and estimates within 1e-6 of the mesh-less
+   step's, 2 SRHT launches;
+16. the kernels' JSON line (the bf16 instance a row of its own, with the
    ``[bf16]`` path's bf16-input launches; the SRHT at each stencil
    family's block a row, with that phase's launches; the tiled Gaussian branch a row
    of its own, with ``[hwprng block]``'s tiled launches at the bench m =
@@ -340,7 +362,9 @@ Phases, each printing one line (any failed check raises and exits non-zero):
    [helmholtz srht]'s complex column with that path's launches; the SRHT at
    [parabolic]'s, [wave]'s and [semilinear]'s widest blocks with those
    paths' launches; the SRHT at [uq thermal3d]'s step block with that
-   path's launches), the run's wall time, then the result line.
+   path's launches; the SRHT at the sharded rank's block, with every
+   rank's launches of [sharded] and [sharded nccl]), the run's wall time,
+   then the result line.
 
 Times are CUDA-event means over back-to-back calls after a warm-up (the
 wrapper's host time included where it is longer than the kernel's); an
@@ -389,8 +413,10 @@ Imports no JAX. Needs the repository (it imports ``rla4mor_tpu_torch``).
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -423,6 +449,12 @@ LARGE_K, LARGE_STEPS = 256, 8
 # [large thermal3d] takes 2 weak-greedy steps, not 4 (4.4-4.6 s a step), to
 # keep the script in its time limit with the certified phases
 THERMAL3D_STEPS = 2
+# every family's path ends with one profiled step; the Helmholtz and 3-D
+# families' profiled step caps its solve at this many iterations (the whole
+# step's 42,230 and 68,755 device events took their phases from 8.1 and 16.8
+# s to 38.9 and 91.7 s on an H100, time the script's limit needs for the
+# sharded phases): the same step with fewer solver iterations
+PROFILE_SOLVER_CAP = {"helmholtz": 2, "thermal3d": 64}
 FAMILY_PHASES = (  # (family, grid, steps, 1 + T (None: known after the EIM fit), bounds)
     ("advection", LARGE_GRID, LARGE_STEPS, 4, True),
     ("helmholtz", LARGE_GRID, 4, 3, False),
@@ -538,6 +570,29 @@ INFSUP_GRID, INFSUP_STEPS = 127, 4
 # composition at its widths, StencilThermalBlock3D((2, 2, 2), 64): 65^3 =
 # 274,625 nodes, 8 greedy steps, SRHT k = 256 on the (9, n) step block
 UQ3D_GRID, UQ3D_STEPS = 64, 8
+# [sharded]: large_scale_demo.run(ranks=2, backend="gloo") with both ranks on
+# cuda:0, at the JAX demo's widths: grid 2047 (n = 2^22 = 4,194,304, 1,024
+# node rows a rank), Jacobi-CG 1e-7 / 6,000, SRHT k = 256, float32,
+# SHARDED_STEPS random steps; then the multi-chip dryrun in the same group.
+# The two ranks time-share one card, so its times are not scaling numbers.
+# [kernel] label=sharded: the block-offset kernel at a rank's block, n_local =
+# 2^21 rows of m = 5, at SHARDED_OFFSETS blocks of 2^11 (1,026: rank 1's first
+# block in the flat layout of n = 4,198,401 on 2 ranks, 2,052 padded blocks),
+# held to 1e-5 of the plain version. [sharded nccl]: a one-rank NCCL group in
+# this process (no spawn: its ranks' start-up cost 14 s), one step at
+# SHARDED_NCCL_GRID, against the mesh-less step to 1e-6
+# 3 steps, not the JAX demo's 4, to keep the script in its time limit: 33-38
+# s a step on an H100 (2 ranks time-sharing the card, 5,118-5,531 CG
+# iterations, 57% of it in gloo's collectives through host memory)
+SHARDED_GRID, SHARDED_STEPS, SHARDED_RANKS = 2047, 3, 2
+SHARDED_N_LOCAL, SHARDED_M, SHARDED_OFFSETS, SHARDED_TOL = 1 << 21, 5, (0, 1024, 1026), 1e-5
+SHARDED_NCCL_GRID, SHARDED_NCCL_TOL = 1023, 1e-6
+# [sharded]'s one-device checks at grid 2047 (large_scale_demo.slab_check):
+# the 2-rank slab apply of a random grid against the one-device apply (the
+# same operations), and 100 Jacobi-CG iterations from zero on the slabs
+# against 100 on the whole grid (float32 inner products summed in another
+# order: 1.8e-5 apart on 2 CPU ranks at grid 255)
+SHARDED_APPLY_TOL, SHARDED_SOLVE_TOL = 1e-6, 1e-3
 UQ3D_N, UQ3D_BLOCK = (UQ3D_GRID + 1) ** 3, 9
 TOL = {torch.float64: 1e-12, torch.float32: 1e-4}
 TOL_NARROW = 8e-3  # 2-byte output against the float32 sums: one bf16 rounding
@@ -619,18 +674,21 @@ def philox_calls(k: int, n: int, dist: str) -> int:
 
 
 def compare(label, x_cols, k, signs, sampling, reps, kernel, library=None, out_dtype=None,
-            library_note=None):
+            library_note=None, block_offset=0, tol=None):
     """``kernel()`` (a call that launches the kernel on ``x_cols``, emitting
     ``out_dtype``, default x's) against the plain version on the same input;
     returns the row of numbers. Output in the sums' dtype is held to
     ``TOL``, 2-byte output to ``TOL_NARROW`` against the plain version's
-    float32 sums."""
+    float32 sums. ``block_offset``: x's rows start at that 2^11-row block of
+    a longer vector (a rank's rows of the sharded SRHT); ``tol`` overrides
+    the tolerance."""
     from rla4mor_tpu_torch.ops import srht_cuda
 
     out_dtype = x_cols.dtype if out_dtype is None else out_dtype
     acc = srht_cuda.accumulator_dtype(x_cols.dtype)
     out = kernel()
-    plain = srht_cuda.srht_onepass_plain(x_cols, k, signs, sampling, acc)
+    plain = srht_cuda.srht_onepass_plain(x_cols, k, signs, sampling, acc,
+                                         block_offset=block_offset)
     torch.cuda.synchronize()
     check(out.dtype == out_dtype, f"{label}: kernel emitted {out.dtype}, not {out_dtype}")
     scale = plain.abs().max().item()
@@ -639,7 +697,8 @@ def compare(label, x_cols, k, signs, sampling, reps, kernel, library=None, out_d
            "out": str(out_dtype).replace("torch.", ""),
            "max_abs_err": err, "rel_err": err / scale}
     if x_cols.dtype == torch.float32:
-        ref = srht_cuda.srht_onepass_plain(x_cols.double(), k, signs, sampling)
+        ref = srht_cuda.srht_onepass_plain(x_cols.double(), k, signs, sampling,
+                                           block_offset=block_offset)
         s64 = ref.abs().max().item()
         row["plain_f32_vs_f64"] = (plain.double() - ref).abs().max().item() / s64
         row["kernel_f32_vs_f64"] = (out.double() - ref).abs().max().item() / s64
@@ -650,7 +709,8 @@ def compare(label, x_cols, k, signs, sampling, reps, kernel, library=None, out_d
     row["ms"] = cuda_ms(kernel, reps)
     row["graph_ms"] = graph_ms(kernel, reps)
     row["plain_ms"] = cuda_ms(
-        lambda: srht_cuda.srht_onepass_plain(x_cols, k, signs, sampling, out_dtype), reps)
+        lambda: srht_cuda.srht_onepass_plain(x_cols, k, signs, sampling, out_dtype,
+                                             block_offset=block_offset), reps)
     row["library_ms"] = None if library is None else cuda_ms(library, reps)
     if library_note:
         row["library"] = library_note
@@ -672,7 +732,8 @@ def compare(label, x_cols, k, signs, sampling, reps, kernel, library=None, out_d
     row["bound_ms"], row["bound_by"] = bound(nbytes + n + 4 * k + k * m * out_size, ops, acc)
     row["share"] = row["bound_ms"] / row["ms"]
     phase("kernel bf16" if size == 2 else "kernel", **row)
-    tol = TOL[acc] if out_dtype == acc else TOL_NARROW
+    if tol is None:
+        tol = TOL[acc] if out_dtype == acc else TOL_NARROW
     check(row["rel_err"] <= tol,
           f"{label} {row['dtype']} -> {row['out']}: kernel vs plain {row['rel_err']:.3e} > "
           f"{tol:.0e}")
@@ -680,16 +741,18 @@ def compare(label, x_cols, k, signs, sampling, reps, kernel, library=None, out_d
 
 
 def explicit_srht(signs, sampling, n: int, k: int, dtype, device,
-                  chunk: int = 1 << 20) -> torch.Tensor:
+                  chunk: int = 1 << 20, row0: int = 0) -> torch.Tensor:
     """The (k, n) SRHT matrix built on the card, column chunk by chunk:
-    S[s, i] = signs[i] (-1)^popcount(sampling[s] & i) / sqrt(k) (the
-    library yardstick's operand; the port never forms it)."""
+    S[s, i] = signs[i] (-1)^popcount(sampling[s] & (row0 + i)) / sqrt(k) (the
+    library yardstick's operand; the port never forms it; ``row0``: the
+    global index of column 0, a rank's rows of the sharded SRHT)."""
     S = torch.empty((k, n), dtype=dtype, device=device)
     samp = sampling.to(device=device, dtype=torch.int64)[:, None]
     sg = signs.to(device=device, dtype=dtype)
     for c0 in range(0, n, chunk):
         c1 = min(n, c0 + chunk)
-        a = samp & torch.arange(c0, c1, device=device, dtype=torch.int64)[None, :]
+        a = samp & torch.arange(row0 + c0, row0 + c1, device=device,
+                                dtype=torch.int64)[None, :]
         for shift in (32, 16, 8, 4, 2, 1):  # parity folds into bit 0
             a ^= a >> shift
         S[:, c0:c1] = (1 - 2 * (a & 1)).to(dtype) * sg[c0:c1] / math.sqrt(k)
@@ -1698,7 +1761,8 @@ def bounds_checks(b: dict, label: str) -> dict:
 def large_phase(device, grid: int, label: str, family: str = "thermal",
                 steps: int = LARGE_STEPS, bounds: bool = False) -> dict:
     """A large path once through the entry point (``steps`` weak-greedy
-    steps of ``family``), its checks and one profiled step. The thermal
+    steps of ``family``), its checks and one profiled step (its solve
+    capped for the ``PROFILE_SOLVER_CAP`` families). The thermal
     family's ROM output is held to 5e-2 at the held-out parameters; the
     other families' manifolds converge more slowly, and their output
     error is reported only. ``bounds``: the run certifies its ROM
@@ -1780,12 +1844,19 @@ def large_phase(device, grid: int, label: str, family: str = "thermal",
               f"{label}: ellipticity margin {margins} at the held-out parameters")
         eim["held_out_margin_min"] = min(margins)
         eim["out_rel_err_exact_op"] = [row["out_rel_err_exact_op"] for row in rows]
+    cap = PROFILE_SOLVER_CAP.get(family)
+    step = res["step"]
+    if cap is not None:  # the same step, its solve capped
+        from rla4mor_tpu_torch.parallel import make_sharded_greedy_step
+
+        step = make_sharded_greedy_step(res["fom"], **dict(res["step_kw"], cg_maxiter=cap))[1]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(device)
-    prof = demo.profile_step(res["step"], state, res["mus"][-1], res["mu_batch"], top=10)
+    prof = demo.profile_step(step, state, res["mus"][-1], res["mu_batch"], top=10)
     peak_gb["profiled_step"] = torch.cuda.max_memory_allocated(device) / 1e9
     phase(f"{label} profile", wall_s=prof["wall_s"], busy_s=prof["busy_s"],
-          idle_share=prof["idle_share"], device_events=prof["device_events"])
+          idle_share=prof["idle_share"], device_events=prof["device_events"],
+          solver_iters=step.last_solve.iters, solver_cap=cap)
     for row in prof["top"]:
         phase(f"{label} profile top", ms=row["ms"], calls=row["calls"],
               name=row["name"].replace(" ", "_"))
@@ -1807,8 +1878,10 @@ def large_phase(device, grid: int, label: str, family: str = "thermal",
         "f64_iters": [row["f64_iters"] for row in rows],
         "profile_idle_share": prof["idle_share"], "profile_wall_s": prof["wall_s"],
         "profile_busy_s": prof["busy_s"], "profile_device_events": prof["device_events"],
+        "profile_solver_cap": cap,
         # the profiled step's device time over an unprofiled step's wall time
-        "idle_share_unprofiled": (None if prof["busy_s"] is None
+        # (not for a capped profile: the steps differ)
+        "idle_share_unprofiled": (None if prof["busy_s"] is None or cap is not None
                                   else 1.0 - prof["busy_s"] / after_first),
         "srht_launches_by_width": widths, "peak_gb": peak_gb,
         "phase_s": time.perf_counter() - t_phase,
@@ -2888,6 +2961,165 @@ def sketched_rb_phase(device) -> dict:
             "estimates": res["estimates"]}
 
 
+def sharded_kernel_rows(device) -> list[dict]:
+    """The block-offset SRHT kernel against its plain version at a rank's
+    block of the sharded path: (n_local, m) = (2^21, 5) in the rows layout,
+    k = 256, float32, each rank's slice of the signs of the plan of n =
+    4,198,401 (zero past n), at ``SHARDED_OFFSETS``; the library yardstick
+    is the product with the explicit (k, n_local) operator of those rows."""
+    from rla4mor_tpu_torch.ops import srht_cuda
+    from rla4mor_tpu_torch.ops.fwht import _srht_plan
+
+    n_true = (LARGE_GRID + 1) ** 2
+    signs, sampling, _ = _srht_plan(0, n_true, LARGE_K)
+    samp = sampling.to(device, torch.int32)
+    gen = torch.Generator(device=device).manual_seed(SHARDED_N_LOCAL)
+    x = torch.randn((SHARDED_M, SHARDED_N_LOCAL), generator=gen, device=device).T
+    rows = []
+    for off in SHARDED_OFFSETS:
+        r0 = off << 11
+        sg = torch.zeros(SHARDED_N_LOCAL, dtype=torch.int8)
+        part = signs[r0:r0 + SHARDED_N_LOCAL]
+        sg[:part.numel()] = part
+        sg = sg.to(device)
+        S = explicit_srht(sg, samp, SHARDED_N_LOCAL, LARGE_K, torch.float32, device, row0=r0)
+        rows.append(compare(
+            f"sharded n_local={SHARDED_N_LOCAL} m={SHARDED_M} k={LARGE_K} rows "
+            f"block_offset={off}", x, LARGE_K, sg, samp, reps=50,
+            kernel=lambda sg=sg, off=off: srht_cuda.srht_onepass(
+                x, LARGE_K, sg, samp, block_offset=off),
+            library=lambda S=S: torch.matmul(S, x), block_offset=off, tol=SHARDED_TOL))
+        del S
+    torch.cuda.empty_cache()
+    return rows
+
+
+def sharded_phase(device) -> dict:
+    """[sharded]: the DoF-sharded greedy through ``large_scale_demo.run(ranks=2,
+    backend="gloo")``, both ranks on the card, and the multi-chip dryrun in
+    the same group (``also``). Checks: the ranks' states and estimates
+    identical, step 1's sharded sketch within 1e-5 of the one-device sketch
+    of the gathered block, each rank's slab apply of a random grid and 100
+    Jacobi-CG iterations within ``SHARDED_APPLY_TOL`` / ``SHARDED_SOLVE_TOL``
+    of the one-device ones, ``ncols`` = steps, the median estimate falls,
+    each rank's SRHT launches 1 (the rhs) + 1 a step (counted by the rank
+    from 0 at its start, less the one-device checks'), the dryrun's checks."""
+    from rla4mor_tpu_torch.examples import large_scale_demo as demo
+    from rla4mor_tpu_torch.examples import multichip_dryrun
+
+    t0 = time.perf_counter()
+    ranks = demo.run(grid=SHARDED_GRID, steps=SHARDED_STEPS, k=LARGE_K, sketch="srht",
+                     ranks=SHARDED_RANKS, backend="gloo", device=device, check_one_device=True,
+                     also=multichip_dryrun.dryrun,
+                     log=functools.partial(print, "[sharded]", flush=True))
+    wall_s = time.perf_counter() - t0
+    check(sorted(ranks) == list(range(SHARDED_RANKS)), f"[sharded]: ranks {sorted(ranks)}")
+    first = ranks[0]
+    for r, res in ranks.items():
+        for key in ("srb", "res_lhs", "res_rhs", "ncols", "out"):
+            check(torch.equal(res["state"][key], first["state"][key]),
+                  f"[sharded]: rank {r}'s state {key} differs from rank 0's")
+            check(bool(torch.isfinite(res["state"][key].double()).all()),
+                  f"[sharded]: state {key} not finite")
+        for a, b in zip(res["estimates"], first["estimates"]):
+            check(torch.equal(a, b) and bool(torch.isfinite(a).all()),
+                  f"[sharded]: rank {r}'s estimates")
+        check(res["sketch_check"]["rel_err"] <= SHARDED_TOL,
+              f"[sharded]: rank {r}'s sharded sketch vs one-device "
+              f"{res['sketch_check']['rel_err']:.3e} > {SHARDED_TOL:.0e}")
+        slab = res["slab_check"]
+        check(slab["apply_rel_err"] <= SHARDED_APPLY_TOL,
+              f"[sharded]: rank {r}'s slab apply vs one-device "
+              f"{slab['apply_rel_err']:.3e} > {SHARDED_APPLY_TOL:.0e}")
+        check(slab["solve_rel_err"] <= SHARDED_SOLVE_TOL and slab["iters"][0] == slab["iters"][1],
+              f"[sharded]: rank {r}'s {slab['iters']} Jacobi-CG iterations vs one-device "
+              f"{slab['solve_rel_err']:.3e} > {SHARDED_SOLVE_TOL:.0e}")
+        check(res["srht_launches"] == 1 + SHARDED_STEPS,
+              f"[sharded]: rank {r} launched the SRHT {res['srht_launches']} times, not "
+              f"1 + {SHARDED_STEPS}")
+        for key in ("srb", "res_lhs", "res_rhs", "out"):
+            check(torch.equal(res["also"]["state"][key], first["also"]["state"][key]),
+                  f"[multichip dryrun]: rank {r}'s state {key}")
+    check(int(first["state"]["ncols"]) == SHARDED_STEPS,
+          f"[sharded]: ncols {int(first['state']['ncols'])}")
+    # the median estimate must fall, as [large]'s: the float32 Jacobi-CG
+    # snapshots at 2^22 DoF end 0.54-0.61 of ||b|| off in float64 (their
+    # recursive residual 1e-7), and at that floor the max of the 8 random
+    # candidates follows the rounding: on an H100, over the demo's 4 steps,
+    # one device's fell (4.11e-3 to 3.51e-3) and 2 ranks' rose (4.31e-3 to
+    # 5.01e-3) on the same seeds, while both medians fell 2.5-3x
+    max_est = [float(e.max()) for e in first["estimates"]]
+    med = first["median_est"]
+    check(med[-1] < med[0], f"[sharded]: median estimate did not fall: {med}")
+    dry = first["also"]
+    phase("multichip dryrun", mesh=dry["mesh"].replace(" ", ""), grid=dry["grid"],
+          median_est=float(dry["estimates"].median()), anchor=dry["anchor"],
+          anchor_radius=dry["anchor_radius"], anchor_iters=dry["anchor_iters"],
+          bicgstab_iters=dry["bicgstab_iters"], s=dry["seconds"])
+    out = {"ranks": SHARDED_RANKS, "n": first["n"], "grid": first["grid"], "wall_s": wall_s,
+           "setup_s": first["setup_s"], "step_s": first["step_s"], "comm_s": first["comm_s"],
+           "comm_share": sum(first["comm_s"]) / sum(first["step_s"]),
+           "cg_iters": first["cg_iters"], "rec_res": first["rec_res"],
+           "true_res": first["true_res"], "median_est": first["median_est"],
+           "max_est": max_est, "sketch_rel_err": first["sketch_check"]["rel_err"],
+           "apply_rel_err": max(res["slab_check"]["apply_rel_err"] for res in ranks.values()),
+           "solve_rel_err": max(res["slab_check"]["solve_rel_err"] for res in ranks.values()),
+           "solve_check_iters": first["slab_check"]["iters"][0],
+           "requests_per_s": first["requests_per_s"],
+           "srht_launches": sum(res["srht_launches"] for res in ranks.values()),
+           "collectives": first["comm"]["calls"], "host_copies": first["comm"]["host_copies"],
+           "comm_s_total": first["comm"]["seconds"]}
+    return out
+
+
+def sharded_nccl_phase(device) -> dict:
+    """[sharded nccl]: one step of ``large_scale_demo.run`` as the one rank of
+    an NCCL group joined by this process (``launch.init_rank``, a ``("dof",
+    "mu")`` mesh of (1, 1)), against the mesh-less ``run``: states and
+    estimates to ``SHARDED_NCCL_TOL`` relative."""
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+
+    from rla4mor_tpu_torch.examples import large_scale_demo as demo
+    from rla4mor_tpu_torch.ops import srht_cuda
+    from rla4mor_tpu_torch.parallel import launch, make_mesh
+
+    def quiet(line):
+        return None
+
+    kw = dict(grid=SHARDED_NCCL_GRID, steps=1, k=LARGE_K, sketch="srht", device=device)
+    tmp = tempfile.mkdtemp(prefix="rla4mor_nccl_")
+    t0 = time.perf_counter()
+    try:
+        launch.init_rank("nccl", device, 0, 1, "file://" + os.path.join(tmp, "rendezvous"))
+        check(dist.get_backend() == "nccl", f"[sharded nccl]: backend {dist.get_backend()}")
+        mesh = make_mesh(("dof", "mu"), (1, 1), device=device)
+        launches = srht_cuda.srht_onepass.launches
+        one = demo.run(**kw, mesh=mesh, log=functools.partial(print, "[sharded nccl]",
+                                                               flush=True))
+        launches = srht_cuda.srht_onepass.launches - launches
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    nccl_s = time.perf_counter() - t0
+    ref = demo.run(**kw, log=quiet)
+    errs = {}
+    for key in ("srb", "res_lhs", "res_rhs", "out"):
+        errs[key] = rel_max(getattr(one["state"], key), getattr(ref["state"], key))
+    errs["estimates"] = rel_max(one["estimates"][0], ref["estimates"][0])
+    for key, err in errs.items():
+        check(err <= SHARDED_NCCL_TOL, f"[sharded nccl]: {key} off the mesh-less step by "
+              f"{err:.3e} > {SHARDED_NCCL_TOL:.0e}")
+    check(launches == 2, f"[sharded nccl]: {launches} SRHT launches, not 1 + 1")
+    return {"grid": one["grid"], "n": one["n"], "wall_s": nccl_s, "step_s": one["step_s"],
+            "meshless_step_s": ref["step_s"], "cg_iters": one["cg_iters"],
+            "meshless_cg_iters": ref["cg_iters"], "srht_launches": launches,
+            **{f"rel_err_{k}": v for k, v in errs.items()}}
+
+
 def build_all(sources) -> dict:
     """nvcc of every source, all started together -> {source: seconds}."""
     from rla4mor_tpu_torch.utils import nvcc
@@ -3078,6 +3310,15 @@ def main(argv=None) -> int:
     srb = sketched_rb_phase(device)
     phase("sketched rb", **srb, card=smi)
 
+    # 15. the DoF-sharded path: the block-offset kernel at a rank's block,
+    # the sharded greedy on 2 gloo ranks sharing the card with the dryrun
+    # in the same group, then one NCCL rank against the mesh-less step
+    sharded_rows = sharded_kernel_rows(device)
+    sharded = sharded_phase(device)
+    phase("sharded", **sharded, card=smi)
+    sharded_nccl = sharded_nccl_phase(device)
+    phase("sharded nccl", **sharded_nccl, card=smi)
+
     # 12. result
     main_row = next(r for r in rows if r["label"].startswith("slice")
                     and r["dtype"] == "float32" and "m=1 " in r["label"])
@@ -3096,7 +3337,9 @@ def main(argv=None) -> int:
                     + large_launches + family_launches + estim["srht_launches"]
                     + helm_srht["srht_launches"] + para["srht_launches"]
                     + wave["srht_launches"] + semi["srht_launches"]
-                    + uq3d["srht_launches"])
+                    + uq3d["srht_launches"] + sharded["srht_launches"]
+                    + sharded_nccl["srht_launches"])
+    sharded_row = next(r for r in sharded_rows if r["label"].endswith("block_offset=1026"))
     print(json.dumps({"kernels": [
         kernel_entry("srht_onepass", "rla4mor_tpu_torch/csrc/srht_onepass.cu",
                      "rla4mor_tpu/ops/srht_pallas.py:580", f32_launches, main_row),
@@ -3189,6 +3432,16 @@ def main(argv=None) -> int:
                      "rla4mor_tpu/ops/srht_pallas.py:487", uq3d["srht_launches"], uq3d_row,
                      note="the [uq thermal3d] path's launches (the rhs, then the step "
                      "block of 1 + 8 rows a step), a subset of the first row's"),
+        # [sharded] and [sharded nccl]: each rank's rows of the (5, n) block
+        # with their block offset, every rank's launches; the row at rank 1's
+        # unaligned offset of the 2-rank layout of n = 4,198,401
+        kernel_entry("srht_onepass", "rla4mor_tpu_torch/csrc/srht_onepass.cu",
+                     "rla4mor_tpu/ops/srht_pallas.py:580",
+                     sharded["srht_launches"] + sharded_nccl["srht_launches"], sharded_row,
+                     note="the sharded paths' launches, every rank's (a rank's rows with "
+                     "their block offset; the JAX mesh path computes this through its XLA "
+                     "twin srht_sketch_sharded_flat, rla4mor_tpu/parallel/"
+                     "sharded_sketch.py:195), a subset of the first row's"),
     ]}), flush=True)
     phase("wall", s=time.perf_counter() - t_start)
     print(json.dumps({"ok": True, "device": {

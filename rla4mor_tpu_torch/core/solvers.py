@@ -6,6 +6,12 @@ as one ``lax.while_loop``; here they are eager PyTorch loops on the
 operand's device. The stopping rules are the JAX package's, evaluated in
 the operand's dtype, and the residual test is read on the host once an
 iteration, so the iteration counts equal the JAX ones.
+
+Given a process ``group`` (the ``"dof"`` axis of a mesh, whose ranks each
+hold their rows of the operands), ``cg`` and ``bicgstab`` sum their inner
+products over it with ``all_reduce`` (``parallel/mesh.py``); the JAX
+package's compiler inserts the same reductions where it shards the
+iteration.
 """
 
 from __future__ import annotations
@@ -22,13 +28,23 @@ class CGResult(NamedTuple):
     residual_norm: torch.Tensor
 
 
-def _vdot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """sum(conj(a) * b) over all entries (``jnp.vdot`` flattens)."""
-    return torch.vdot(a.reshape(-1), b.reshape(-1))
+def _vdot(a: torch.Tensor, b: torch.Tensor, group=None) -> torch.Tensor:
+    """sum(conj(a) * b) over all entries (``jnp.vdot`` flattens), summed over
+    ``group``'s ranks when given."""
+    d = torch.vdot(a.reshape(-1), b.reshape(-1))
+    return d if group is None else _group_sum(d, group)
 
 
-def _norm(a: torch.Tensor) -> torch.Tensor:
-    return torch.linalg.vector_norm(a)
+def _norm(a: torch.Tensor, group=None) -> torch.Tensor:
+    if group is None:
+        return torch.linalg.vector_norm(a)
+    return torch.sqrt(_vdot(a, a, group).real)
+
+
+def _group_sum(t: torch.Tensor, group) -> torch.Tensor:
+    from rla4mor_tpu_torch.parallel.mesh import all_reduce
+
+    return all_reduce(t.clone(), group)
 
 
 def cg(
@@ -38,34 +54,46 @@ def cg(
     precond: Optional[Callable] = None,
     tol: float = 1e-8,
     maxiter: int = 1000,
+    group=None,
 ) -> CGResult:
     """Preconditioned conjugate gradients for an SPD ``matvec``.
 
-    Iterates while ``||r|| > tol * max(||b||, 1e-30)`` and ``k < maxiter``."""
+    Iterates while ``||r|| > tol * max(||b||, 1e-30)`` and ``k < maxiter``.
+    ``group``: the process group over which the ranks hold their rows of
+    ``b`` (and ``matvec`` exchanges what it needs itself); the sharded
+    iteration reduces r.z and ||r||^2 together, and p.Ap, two reductions an
+    iteration."""
     x = torch.zeros_like(b) if x0 is None else x0
     M = precond if precond is not None else (lambda r: r)
 
-    bnorm = _norm(b)
+    def rz_rnorm(r, z):  # r.z and ||r||, one reduction over the group
+        if group is None:
+            return _vdot(r, z).real, _norm(r)
+        rz, rr = _group_sum(torch.stack([_vdot(r, z).real, _vdot(r, r).real]),
+                            group).unbind(0)
+        return rz, torch.sqrt(rr)
+
+    bnorm = _norm(b, group)
     r = b - matvec(x)
     z = M(r)
     p = z
-    rz = _vdot(r, z).real
+    rz, rnorm = rz_rnorm(r, z)
     # dtype-aware breakdown floor: 1e-300 would underflow to zero in float32
-    tiny = torch.finfo(r.dtype).tiny
+    tiny = torch.finfo(r.real.dtype).tiny
     thresh = tol * torch.clamp(bnorm, min=1e-30)
     k = 0
-    while k < maxiter and bool(_norm(r) > thresh):
+    while k < maxiter and bool(rnorm > thresh):
         Ap = matvec(p)
-        alpha = rz / torch.clamp(_vdot(p, Ap).real, min=tiny)
+        alpha = rz / torch.clamp(_vdot(p, Ap, group).real, min=tiny)
         x = x + alpha * p
         r = r - alpha * Ap
         z = M(r)
-        rz_new = _vdot(r, z).real
+        rz_new, rnorm = rz_rnorm(r, z)
         beta = rz_new / torch.clamp(rz, min=tiny)
         p = z + beta * p
         rz = rz_new
         k += 1
-    return CGResult(x, k, _norm(r))
+    return CGResult(x, k, rnorm)
 
 
 def _colnorm(a: torch.Tensor) -> torch.Tensor:
@@ -194,15 +222,18 @@ def bicgstab(
     precond: Optional[Callable] = None,
     tol: float = 1e-8,
     maxiter: int = 1000,
+    group=None,
 ) -> CGResult:
     """Preconditioned BiCGStab (van der Vorst) for a nonsymmetric ``matvec``,
     with the JAX package's breakdown guards: on a non-finite scalar or
     residual the last finite iterate is kept and the loop ends (the count
-    then reads ``maxiter``, as there)."""
+    then reads ``maxiter``, as there). ``group``: as :func:`cg`'s; the
+    sharded iteration reduces (t.s, t.t) together and ||r||^2 with the next
+    rhat.r, three reductions an iteration."""
     x = torch.zeros_like(b) if x0 is None else x0
     M = precond if precond is not None else (lambda r: r)
 
-    bnorm = _norm(b)
+    bnorm = _norm(b, group)
     r = b - matvec(x)
     rhat = r  # fixed shadow residual
     tiny = torch.finfo(r.real.dtype).tiny
@@ -210,26 +241,39 @@ def bicgstab(
     def safe(d):
         return torch.where(d.abs() > tiny, d, torch.full_like(d, tiny))
 
+    def dots(*pairs):  # the inner products of the pairs, one reduction a call
+        d = [_vdot(a, c) for a, c in pairs]
+        return d if group is None else _group_sum(torch.stack(d), group).unbind(0)
+
     one = torch.ones((), dtype=r.dtype, device=r.device)
     p, v = torch.zeros_like(b), torch.zeros_like(b)
     rho = alpha = omega = one
-    rnorm = _norm(r)
+    if group is None:
+        rnorm = _norm(r)
+    else:  # ||r|| and the next rhat.r in one reduction
+        rr, rho_next = dots((r, r), (rhat, r))
+        rnorm = torch.sqrt(rr.real)
     thresh = tol * torch.clamp(bnorm, min=tiny)
     k = 0
     while k < maxiter and bool(rnorm > thresh):
-        rho_new = _vdot(rhat, r)
+        rho_new = _vdot(rhat, r) if group is None else rho_next
         beta = (rho_new / safe(rho)) * (alpha / safe(omega))
         p_new = r + beta * (p - omega * v)
         ph = M(p_new)
         v_new = matvec(ph)
-        alpha_new = rho_new / safe(_vdot(rhat, v_new))
+        alpha_new = rho_new / safe(dots((rhat, v_new))[0])
         s = r - alpha_new * v_new
         sh = M(s)
         t = matvec(sh)
-        omega_new = _vdot(t, s) / safe(_vdot(t, t))
+        ts, tt = dots((t, s), (t, t))
+        omega_new = ts / safe(tt)
         x_new = x + alpha_new * ph + omega_new * sh
         r_new = s - omega_new * t
-        rnorm_new = _norm(r_new)
+        if group is None:
+            rnorm_new = _norm(r_new)
+        else:
+            rr, rho_next = dots((r_new, r_new), (rhat, r_new))
+            rnorm_new = torch.sqrt(rr.real)
         ok = torch.stack([torch.isfinite(q).all() for q in
                           (rnorm_new, rho_new, beta, alpha_new, omega_new)]).all()
         if not bool(ok):

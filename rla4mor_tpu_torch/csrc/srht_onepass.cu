@@ -25,6 +25,9 @@
 // so the sketch is an unnormalised Walsh-Hadamard transform (FWHT) of
 // length R of each block of d * x, a gather of the k rows sigma_lo, and a
 // +-1 sum over the blocks with H_B[sigma_hi, b] = (-1)^popcount(sigma_hi & b).
+// A launch may start at block b0 of a longer vector (`block_offset`, a
+// rank's rows of the sharded SRHT): its block b is then column b0 + b of
+// H_B, and the rest is unchanged.
 // Any power-of-two R gives the same function (for n < R the one block is
 // zero-padded); the instances here are for R = 2^11.
 //
@@ -346,6 +349,7 @@ struct KernelArgs {
   void* gpart;         // (k m, groups) accumulator values
   void* out;           // (k, m) of the accumulator's type, or the input's where narrow_out
   int64_t n, m, k, stride_i, stride_j, n_blocks, blocks_per_cta, group;
+  int64_t block_offset;  // global index of x's first R-block (H_B's column)
   int ld, mode, narrow_out;
   double scale;
 };
@@ -428,7 +432,7 @@ __global__ void __launch_bounds__(kThreads, kMinCtas<TIn, MT>)
 #pragma unroll
     for (int q = 0; q < kRowsPerThread; ++q) {
       if (tid + kThreads * q < rows) {
-        const bool neg = __popc(hi[q] & (uint32_t)b) & 1;
+        const bool neg = __popc(hi[q] & (uint32_t)(b + a.block_offset)) & 1;
 #pragma unroll
         for (int j = 0; j < MT; ++j) {
           // the parts of rows lo + u kP (u < kWc), one a warp of the column
@@ -534,7 +538,8 @@ struct OnDevice {
 
 template <typename TIn>
 int launch(const SrhtLaunch& p, const void* xv, const int8_t* signs, const uint32_t* sigma,
-           unsigned int* done, void* sums, void* out, int narrow_out, cudaStream_t stream) {
+           unsigned int* done, void* sums, void* out, int narrow_out, int64_t block_offset,
+           cudaStream_t stream) {
   using T = Acc<TIn>;
   const int64_t size = sizeof(TIn);
   const TIn* x = static_cast<const TIn*>(xv);
@@ -545,7 +550,8 @@ int launch(const SrhtLaunch& p, const void* xv, const int8_t* signs, const uint3
   if (kernel == nullptr || p.n < 1 || p.n > (int64_t)1 << 31 || p.m < 1 || p.k < 1 ||
       p.stride_i < 0 || p.stride_j < 0 || p.ld < kR || (p.ld * sizeof(T)) % 16 ||
       (int64_t)p.smem < smem_bytes<TIn>(p.mt, p.ld) || p.blocks_per_cta < 1 ||
-      p.n_split < 1 || p.n_split > 65535 || p.group < 1 ||
+      p.n_split < 1 || p.n_split > 65535 || p.group < 1 || block_offset < 0 ||
+      block_offset + n_blocks > ((int64_t)1 << (31 - kLogR)) ||
       p.n_split * p.blocks_per_cta < n_blocks ||
       (p.n_split - 1) * p.blocks_per_cta >= n_blocks || col_tiles > 0x7FFFFFFF ||
       row_tiles > 65535 || (uintptr_t)signs % 16 || done == nullptr || sums == nullptr ||
@@ -568,6 +574,7 @@ int launch(const SrhtLaunch& p, const void* xv, const int8_t* signs, const uint3
   a.n_blocks = n_blocks;
   a.blocks_per_cta = p.blocks_per_cta;
   a.group = p.group;
+  a.block_offset = block_offset;
   a.ld = p.ld;
   a.narrow_out = narrow_out ? 1 : 0;
   a.scale = p.scale;
@@ -622,17 +629,21 @@ extern "C" {
 // one stream at a time (srht_onepass_scratch gives its sizes): `done`
 // counters that are zero (each launch leaves them zero again; so they hold
 // nothing else), and `sums` (of the sums' type) for the partial and group
-// sums. Returns the cudaError_t of the launch.
+// sums. block_offset: the global index of x's first R-block, so that row i
+// of x is row block_offset R + i of the transform (H_B's column b of x's
+// block b is block_offset + b; a rank's rows of a sharded SRHT); 0 for a
+// whole vector. Returns the cudaError_t of the launch.
 int srht_onepass(const SrhtLaunch* p, int dtype, const void* x, const int8_t* signs,
                  const uint32_t* sigma, unsigned int* done, void* sums, void* out,
-                 int narrow_out, void* stream) {
+                 int narrow_out, int64_t block_offset, void* stream) {
   const cudaStream_t s = (cudaStream_t)stream;
+  const int64_t o = block_offset;
   switch (dtype) {
-    case kF32: return launch<float>(*p, x, signs, sigma, done, sums, out, narrow_out, s);
-    case kF64: return launch<double>(*p, x, signs, sigma, done, sums, out, narrow_out, s);
+    case kF32: return launch<float>(*p, x, signs, sigma, done, sums, out, narrow_out, o, s);
+    case kF64: return launch<double>(*p, x, signs, sigma, done, sums, out, narrow_out, o, s);
     case kBF16:
-      return launch<__nv_bfloat16>(*p, x, signs, sigma, done, sums, out, narrow_out, s);
-    case kF16: return launch<__half>(*p, x, signs, sigma, done, sums, out, narrow_out, s);
+      return launch<__nv_bfloat16>(*p, x, signs, sigma, done, sums, out, narrow_out, o, s);
+    case kF16: return launch<__half>(*p, x, signs, sigma, done, sums, out, narrow_out, o, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -88,13 +88,22 @@ L2_SCM = dict(two_stage=True, iters=400, tol=1e-2, eig_relative_tol=True, block=
 INFSUP_SCM = dict(two_stage=True, iters=400, tol=1e-3, analytic_boxes=True, block=2,
                   f32_iters=50, plateau=60, cg_maxiter=400, restarts=1)
 INFSUP_FIT_TOL, INFSUP_MAX_ANCHORS, WEYL_MAX_ANCHORS = 0.5, 6, 10
+# check_one_device: solver iterations held against one device
+SLAB_CHECK_ITERS = 100
 
 
-def true_residual(fom, mu, u: torch.Tensor) -> float:
-    """||A(mu) u - b|| / ||b||, recomputed in float64."""
+def true_residual(fom, mu, u: torch.Tensor, group=None) -> float:
+    """||A(mu) u - b|| / ||b||, recomputed in float64 (on a mesh: ``fom`` the
+    rank's slab view, ``u`` its slab, the norms summed over ``group``)."""
     b = fom.rhs(dtype=torch.float64)
     r = fom.apply(mu, u.to(torch.float64)) - b
-    return float(torch.linalg.vector_norm(r) / torch.linalg.vector_norm(b))
+    if group is None:
+        return float(torch.linalg.vector_norm(r) / torch.linalg.vector_norm(b))
+    from rla4mor_tpu_torch.parallel.mesh import all_reduce
+
+    rr = all_reduce(torch.stack([torch.vdot(r.reshape(-1), r.reshape(-1)),
+                                 torch.vdot(b.reshape(-1), b.reshape(-1))]), group)
+    return math.sqrt(float(rr[0]) / float(rr[1]))
 
 
 def screen_elliptic(fom, count: int, seed: int):
@@ -159,9 +168,11 @@ def run(grid: int = 2047, steps: int = 4, k: int = 256, precond: str = "jacobi",
         sketch: str = "gaussian", score: str = "sketched", device=None, dtype=None,
         batch: int = 8, requests: int = 200, serve_size: int = 256, seed: int = 0,
         select: str = "random", family: str = "thermal", eim_grid=None,
-        eim_scan: bool = False, bounds: bool = False, log=print) -> dict:
+        eim_scan: bool = False, bounds: bool = False, log=print, ranks: int = 1,
+        backend=None, mesh=None, check_one_device: bool = False, also=None) -> dict:
     """Build the FOM, run ``steps`` greedy steps, ship the ROM and serve one
-    padded batch; returns what was built and measured.
+    padded batch; returns what was built and measured (``out["step_kw"]``:
+    the step's settings, ``make_sharded_greedy_step(out["fom"], **step_kw)``).
 
     ``select``: how each step's parameter is chosen. ``"random"`` draws it
     (the JAX demo's choice: it times the step); ``"greedy"`` draws the
@@ -174,7 +185,29 @@ def run(grid: int = 2047, steps: int = 4, k: int = 256, precond: str = "jacobi",
     ellipticity margin (``screen_elliptic``). ``bounds``: certify the ROM
     after serving (:func:`certify`); its readings are ``out["bounds"]``.
     ``family="lossy"`` runs the bounds-only flow (:func:`run_lossy`) and
-    returns its readings."""
+    returns its readings.
+
+    ``ranks`` > 1 (or a named ``backend``): the run is DoF-sharded over that
+    many ranks of a ``torch.distributed`` group of ``backend`` (``"gloo"``:
+    the CPU, or ranks sharing ``device``, a card; ``"nccl"``: a card a rank,
+    ``device="cuda"``), started by :func:`run_ranks`; it returns ``{rank:
+    readings}`` (:func:`rank_summary`). As the JAX demo, n_dof is the
+    largest power of two at most ``ranks``, the grid grows until the node
+    rows split evenly, and a sharded solve is Jacobi-CG (the V-cycle runs on
+    one device; a NOTE says so). ``mesh``: run as one rank of an existing
+    ``("dof", "mu")`` mesh. ``check_one_device``: after the first step, hold
+    the sharded sketch of the step's block against the one-device sketch of
+    the gathered block (``out["sketch_check"]``; its kernel launches are not
+    the path's), and the slab apply and a fixed number of solver iterations
+    against the one-device ones (``out["slab_check"]``, :func:`slab_check`).
+    ``also(mesh, device, log) -> dict``: run in each rank after the demo
+    (e.g. ``multichip_dryrun.dryrun``), its readings under ``"also"``."""
+    if mesh is None and (ranks > 1 or backend is not None):
+        return run_ranks(ranks, backend, device, also=also, grid=grid, steps=steps, k=k,
+                         precond=precond, sketch=sketch, score=score, dtype=dtype,
+                         batch=batch, requests=requests, serve_size=serve_size, seed=seed,
+                         select=select, family=family, bounds=bounds,
+                         check_one_device=check_one_device, log=log)
     if family in NOT_PORTED:
         raise NotImplementedError(f"--family {family} needs {NOT_PORTED[family]}")
     if select not in ("random", "greedy"):
@@ -187,15 +220,23 @@ def run(grid: int = 2047, steps: int = 4, k: int = 256, precond: str = "jacobi",
     from rla4mor_tpu_torch.serve import pad_batch, serve_batch
     from rla4mor_tpu_torch.utils.config import resolve_device
 
+    from rla4mor_tpu_torch.parallel import mesh as pm
+
     device = resolve_device(device)
-    use_mg = precond == "mg" and family != "thermal3d"
+    n_dof = pm.axis_size(mesh, "dof")
+    use_mg = precond == "mg" and family != "thermal3d" and n_dof == 1
     if precond == "mg" and not use_mg:
-        log("NOTE: --precond mg ignored (multigrid needs a 2-D kappa-field family); "
-            "using jacobi: at >= 1e7 DoF expect slow CG snapshots")
+        log("NOTE: --precond mg ignored (multigrid needs a 2-D kappa-field family on "
+            "one device); using jacobi: at >= 1e7 DoF expect slow CG snapshots")
+    if mesh is not None and (bounds or family not in ("thermal", "advection")):
+        raise NotImplementedError("on a mesh the demo runs the thermal and advection "
+                                  "greedies without --bounds (ROADMAP.md)")
     N = grid
     if use_mg:  # multigrid needs power-of-two element counts
         while N & (N - 1):
             N += 1
+    while (N + 1) % n_dof:  # the node rows split evenly over "dof"
+        N += 1
     if family == "lossy":
         return run_lossy(N, device, dtype, batch=batch, precond="mg" if use_mg else "jacobi",
                          log=log)
@@ -223,21 +264,27 @@ def run(grid: int = 2047, steps: int = 4, k: int = 256, precond: str = "jacobi",
     solver = "cg" if fom.is_spd else "bicgstab"
     cg_maxiter = 300 if use_mg else 6000
     dims = "x".join(str(d) for d in fom.solution_shape)
-    log(f"device={device} {family} grid {dims}, n = {n} DoF, sketch {sketch} k = {k}, "
+    where = f"device={device}" if mesh is None else (
+        f"device={device} mesh {pm.describe(mesh)} ({torch.distributed.get_backend()})")
+    log(f"{where} {family} grid {dims}, n = {n} DoF, sketch {sketch} k = {k}, "
         f"precond {'mg' if use_mg else 'jacobi'} ({solver}), {projection}, "
         f"score {score}, {fom.dtype}")
 
     t0 = time.perf_counter()
-    state, step = make_sharded_greedy_step(
-        fom, seed=seed, k=k, r_max=steps, cg_tol=1e-7, cg_maxiter=cg_maxiter,
+    step_kw = dict(
+        seed=seed, k=k, r_max=steps, cg_tol=1e-7, cg_maxiter=cg_maxiter,
         cg_precond="mg" if use_mg else "jacobi", sketch=sketch, score=score,
         projection=projection,
         # nonaffine with the exact score: each estimate adds the candidate's
         # EIM model-error bound (the RB residual is against the surrogate)
         model_error=(fom.model_error_bound if family == "nonaffine" and score == "exact"
-                     else None))
+                     else None), mesh=mesh)
+    state, step = make_sharded_greedy_step(fom, **step_kw)
     sync(device)
     setup_s = time.perf_counter() - t0
+    # the FOM the step runs: on a mesh, the rank's slab view (its rows)
+    sfom = step.fom
+    group = None if mesh is None else sfom.group
     if family == "thermal":
         space = ParameterSpace.make({"diffusion": 4}, 0.1, 1.0)
 
@@ -269,8 +316,10 @@ def run(grid: int = 2047, steps: int = 4, k: int = 256, precond: str = "jacobi",
            "mu_batch": mu_batch, "projection": projection, "cg_maxiter": cg_maxiter,
            "mus": [], "setup_s": setup_s, "step_s": [], "cg_iters": [],
            "rec_res": [], "true_res": [], "median_est": [], "estimates": [],
-           "snapshots": [], "step": step}
-    bnorm = float(torch.linalg.vector_norm(fom.rhs()))
+           "snapshots": [], "step": step, "step_kw": step_kw, "mesh": mesh, "comm_s": []}
+    rhs = sfom.rhs()
+    bnorm = float(torch.linalg.vector_norm(rhs)) if group is None else math.sqrt(
+        float(pm.all_reduce(torch.vdot(rhs.reshape(-1), rhs.reshape(-1)), group)))
     taken = torch.zeros(batch, dtype=torch.bool)
     mu = drawn[0]
     for it in range(steps):
@@ -284,27 +333,38 @@ def run(grid: int = 2047, steps: int = 4, k: int = 256, precond: str = "jacobi",
         elif it:
             mu = drawn[it]
         out["mus"].append(mu)
+        comm0 = pm.COMM["seconds"]
         t0 = time.perf_counter()
         state, est, u = step(state, mu, mu_batch)
         est = est.cpu()  # the transfer waits for the step
         dt = time.perf_counter() - t0
         solve = step.last_solve
         out["step_s"].append(dt)
+        out["comm_s"].append(pm.COMM["seconds"] - comm0)
         out["cg_iters"].append(solve.iters)
         out["rec_res"].append(float(solve.residual_norm) / bnorm)
-        out["true_res"].append(true_residual(fom, mu, u))
+        out["true_res"].append(true_residual(sfom, mu, u, group))
+        if check_one_device and it == 0 and mesh is not None:
+            out["sketch_check"] = sketch_check(step, sfom, seed, k, sketch)
+            out["slab_check"] = slab_check(fom, sfom, mu, seed, SLAB_CHECK_ITERS)
         out["median_est"].append(float(est.median()))
         out["estimates"].append(est)
         out["snapshots"].append(u)
         log(f"it {it}: step {dt:.4f}s {solver}_iters={solve.iters} "
             f"rec_res={out['rec_res'][-1]:.3e} true_res={out['true_res'][-1]:.3e} "
-            f"basis={int(state.ncols)} median est {out['median_est'][-1]:.3e}")
+            f"basis={int(state.ncols)} median est {out['median_est'][-1]:.3e} "
+            f"max {float(est.max()):.3e}")
     out["state"] = state
 
     t0 = time.perf_counter()
     rom = state_to_rom(fom, state, projection=projection)
     pool = mu_stack(sample(requests, 2))
     padded, valid = pad_batch(pool, serve_size)
+    if mesh is not None:
+        from rla4mor_tpu_torch.serve import serve_batch_sharded
+
+        def serve_batch(rom, mus):  # noqa: F811 - the request batch split over "mu"
+            return serve_batch_sharded(rom, mus, mesh)
     serve_batch(rom, padded)  # warm-up
     sync(device)
     rom_s = time.perf_counter() - t0
@@ -320,6 +380,108 @@ def run(grid: int = 2047, steps: int = 4, k: int = 256, precond: str = "jacobi",
     if bounds:
         out["bounds"] = certify(out, use_mg, log)
     return out
+
+
+def sketch_check(step, sfom, seed: int, k: int, sketch: str) -> dict:
+    """The step's last sharded sketch against the one-device sketch of its
+    whole (1 + T, n) block, gathered from the ranks: max |difference| over
+    max |one-device sketch|, and the kernel launches the check made."""
+    from rla4mor_tpu_torch.ops import srht_cuda
+    from rla4mor_tpu_torch.parallel import mesh as pm
+    from rla4mor_tpu_torch.parallel.sharded_sketch import gaussian_sketch_sharded
+
+    launches = srht_cuda.srht_onepass.launches
+    block = pm.all_gather_rows(step.last_block, sfom.group, dim=1)  # (1 + T, n)
+    emb = step.embedding
+    one = (gaussian_sketch_sharded(seed, k, block.T) if emb is None
+           else emb.apply_blocked(block.T))
+    err = float((step.last_sketch - one).abs().max() / one.abs().max())
+    return {"rel_err": err, "launches": srht_cuda.srht_onepass.launches - launches}
+
+
+def slab_check(fom, sfom, mu, seed: int, iters: int) -> dict:
+    """The rank's slab apply of a seeded random grid, and ``iters`` Jacobi
+    preconditioned solver iterations from zero on the slabs (no stopping
+    test: CG, or BiCGStab for a non-SPD family), against the apply and the
+    same iterations on the whole grid (each rank runs both): max
+    |difference| over max |one device| on the rank's rows."""
+    from rla4mor_tpu_torch.core.solvers import bicgstab, cg
+    from rla4mor_tpu_torch.models.stencil import preconditioner
+
+    def rel(a, b):
+        return float((a - b).abs().max() / b.abs().max())
+
+    gen = torch.Generator(device=fom.device).manual_seed(seed)
+    g = torch.randn(fom.solution_shape, generator=gen, dtype=fom.dtype, device=fom.device)
+    local = sfom.slab.local
+    apply_err = rel(sfom.apply(mu, local(g)), local(fom.apply(mu, g)))
+    solver = cg if getattr(fom, "is_spd", True) else bicgstab
+    one = solver(lambda v: fom.apply(mu, v), fom.rhs(),
+                 precond=preconditioner(fom, mu, "jacobi"), tol=0.0, maxiter=iters)
+    sharded = solver(lambda v: sfom.apply(mu, v), sfom.rhs(),
+                     precond=preconditioner(sfom, mu, "jacobi"), tol=0.0, maxiter=iters,
+                     group=sfom.group)
+    return {"apply_rel_err": apply_err, "solve_rel_err": rel(sharded.x, local(one.x)),
+            "iters": (one.iters, sharded.iters)}
+
+
+def rank_summary(res: dict) -> dict:
+    """The readings of one rank's run as plain values and CPU tensors."""
+    state = res["state"]
+    keep = ("family", "n", "grid", "projection", "cg_maxiter", "setup_s", "step_s",
+            "comm_s", "cg_iters", "rec_res", "true_res", "median_est", "rom_s", "requests",
+            "serve_s", "requests_per_s", "sketch_check", "slab_check", "srht_launches", "comm",
+            "also")
+    out = {key: res[key] for key in keep if key in res}
+    out["estimates"] = [e.cpu() for e in res["estimates"]]
+    out["state"] = {key: getattr(state, key).cpu() for key in ("srb", "res_lhs", "res_rhs",
+                                                                "ncols", "out")}
+    out["served"] = {key: v.cpu() for key, v in res["served"].items()}
+    out["mus"] = [{key: v.cpu() for key, v in mu.items()} for mu in res["mus"]]
+    return out
+
+
+def _demo_rank(rank: int, n_dof: int, kw: dict, also) -> dict:
+    from rla4mor_tpu_torch.ops import srht_cuda
+    from rla4mor_tpu_torch.parallel import launch, make_mesh
+    from rla4mor_tpu_torch.parallel import mesh as pm
+
+    device = launch.rank_device()
+    mesh = make_mesh(("dof", "mu"), (n_dof, 1), device=device)
+    log = kw.pop("log", print)
+    if rank:
+        def log(line):  # one rank speaks
+            return None
+    srht_cuda.srht_onepass.launches = 0
+    pm.reset_comm()
+    res = run(**kw, device=device, mesh=mesh, log=log)
+    check = res.get("sketch_check", {}).get("launches", 0)
+    res["srht_launches"] = srht_cuda.srht_onepass.launches - check
+    res["comm"] = {"calls": dict(pm.COMM["calls"]), "seconds": pm.COMM["seconds"],
+                   "host_copies": pm.COMM["host_copies"]}
+    out = rank_summary(res)
+    if also is not None:
+        out["also"] = also(mesh, device, log=log)
+    return out
+
+
+def run_ranks(ranks: int, backend, device, also=None, log=print, **kw) -> dict:
+    """:func:`run` DoF-sharded over the largest power of two n_dof <= ``ranks``
+    ranks (a ``("dof", "mu")`` mesh of shape (n_dof, 1)) of a ``backend``
+    group on ``device``; ``{rank: rank_summary}``."""
+    from rla4mor_tpu_torch.parallel.launch import spawn
+
+    if backend is None:
+        raise ValueError("a sharded run needs its backend named: 'gloo' (CPU, or ranks "
+                         "sharing one card) or 'nccl' (a card a rank)")
+    n_dof = 1
+    while n_dof * 2 <= ranks:
+        n_dof *= 2
+    if n_dof < ranks:
+        log(f"NOTE: {ranks} ranks: the dof axis takes {n_dof} (a power of two)")
+    if device is None:
+        device = "cuda:0" if backend == "gloo" else "cuda"
+    return spawn(_demo_rank, n_dof, backend, device, args=(n_dof, dict(kw, log=log), also))
 
 
 def run_stages(d: dict) -> str:
@@ -602,10 +764,26 @@ def main(argv=None) -> int:
                     "matrix-free SCM (mor/scm_matfree.py)")
     ap.add_argument("--profile", action="store_true",
                     help="profile one more step and print its top device operations")
+    ap.add_argument("--ranks", type=int, default=1,
+                    help="DoF-shard the greedy over this many ranks (Jacobi-CG; thermal "
+                    "and advection); also under torchrun")
+    ap.add_argument("--backend", choices=["gloo", "nccl"], default=None,
+                    help="the ranks' backend, named with --ranks > 1: gloo (the CPU with "
+                    "--cpu, or all ranks on one card) or nccl (a card a rank)")
+    ap.add_argument("--device", default=None,
+                    help="cuda:0 (ranks share it; gloo) or cuda (a card a rank; nccl)")
     args = ap.parse_args(argv)
+    device = "cpu" if args.cpu else args.device
+    backend = args.backend
+    if args.ranks > 1 and backend is None:
+        ap.error("--ranks > 1 needs --backend gloo or nccl")
     res = run(args.grid, args.steps, args.k, args.precond, args.sketch, args.score,
-              device="cpu" if args.cpu else None, select=args.select, family=args.family,
-              eim_grid=args.eim_grid, eim_scan=args.eim_scan, bounds=args.bounds)
+              device=device, select=args.select, family=args.family,
+              eim_grid=args.eim_grid, eim_scan=args.eim_scan, bounds=args.bounds,
+              ranks=args.ranks, backend=backend)
+    if backend is not None:
+        print("done")
+        return 0
     if args.profile and args.family != "lossy":
         prof = profile_step(res["step"], res["state"], res["mus"][-1], res["mu_batch"])
         print(f"profiled step {prof['wall_s']:.4f}s, device busy {prof['busy_s']}s, "

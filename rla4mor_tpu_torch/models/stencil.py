@@ -119,6 +119,23 @@ def stiffness_diag_raw(kappa_el: torch.Tensor) -> torch.Tensor:
     return (2.0 / 3.0) * _four_element_sum(kappa_el)
 
 
+def _gather_apply(up: torch.Tensor, kp: torch.Tensor, rows: int, cols: int) -> torch.Tensor:
+    """The gather-form stencil sum on ``rows`` x ``cols`` nodes, unmasked:
+    ``up`` (..., rows + 2, cols + 2) the masked node values with a ring of
+    neighbours (zero outside the grid), ``kp`` (..., rows + 1, cols + 1)
+    the element coefficients around them (zero outside the grid)."""
+    out = None
+    for a in range(4):
+        s = None
+        for b, (dy, dx) in enumerate(_CORNER_NODES[a]):
+            view = up[..., dy:dy + rows, dx:dx + cols]
+            s = view * _K_EL[a][b] if s is None else s.add(view, alpha=_K_EL[a][b])
+        ey, ex = _CORNER_ELEMENT[a]
+        term = kp[..., ey:ey + rows, ex:ex + cols] * s
+        out = term if out is None else out + term
+    return out
+
+
 def stencil_apply(u: torch.Tensor, kappa_el: torch.Tensor) -> torch.Tensor:
     """A(kappa) u for the Q1 Laplacian with a coefficient per element.
 
@@ -131,16 +148,7 @@ def stencil_apply(u: torch.Tensor, kappa_el: torch.Tensor) -> torch.Tensor:
     mask = interior_mask(M, u.dtype, u.device)
     up = _pad(u * mask)              # (..., M+2, M+2)
     kp = _pad(kappa_el.to(u.dtype))  # (..., M+1, M+1)
-    out = None
-    for a in range(4):
-        s = None
-        for b, (dy, dx) in enumerate(_CORNER_NODES[a]):
-            view = up[..., dy:dy + M, dx:dx + M]
-            s = view * _K_EL[a][b] if s is None else s.add(view, alpha=_K_EL[a][b])
-        ey, ex = _CORNER_ELEMENT[a]
-        term = kp[..., ey:ey + M, ex:ex + M] * s
-        out = term if out is None else out + term
-    return out * mask
+    return _gather_apply(up, kp, M, M) * mask
 
 
 def preconditioner(fom, mu, kind: str = "jacobi"):
@@ -268,6 +276,10 @@ class StencilThermalBlock:
         grid of the leading dimensions."""
         return u.sum(dim=(-2, -1)) * self.h * self.h
 
+    def slab(self, mesh, axis: str = "dof") -> "ThermalSlab":
+        """This rank's row slab of the FOM on ``mesh`` (:class:`ThermalSlab`)."""
+        return ThermalSlab(self, mesh, axis)
+
     # -- flattened-vector LinOp views (for the operator algebra) -----------
     def term_linop(self, b: int) -> "StencilTermOp":
         return StencilTermOp(self, b)
@@ -333,3 +345,190 @@ class StencilTermOp(FlatGridOp):
     @property
     def H(self):
         return self
+
+
+# ---------------------------------------------------------------------------
+# Row slabs: the node grid sharded over a mesh's "dof" axis
+# ---------------------------------------------------------------------------
+
+
+class Slab:
+    """Node rows ``[r0, r1)`` of an (M, M) node grid, this rank's equal share
+    along ``axis`` of ``mesh`` (M must split evenly). A slab apply reads one
+    halo row from each neighbour: :meth:`padded` gathers every rank's two
+    edge rows with one ``all_gather`` of the axis's group (gloo takes CUDA
+    tensors there, NCCL too), so an apply costs one collective. The
+    Dirichlet ring is placed by global row index; rows outside the grid
+    are zero, as the one-device apply's padding."""
+
+    def __init__(self, n_nodes: int, mesh, axis: str = "dof"):
+        from rla4mor_tpu_torch.parallel import mesh as pm
+
+        self.n_nodes = int(n_nodes)
+        self.r0, self.r1 = pm.row_range(self.n_nodes, mesh, axis)
+        self.rows = self.r1 - self.r0
+        self.rank, self.size = pm.axis_index(mesh, axis), pm.axis_size(mesh, axis)
+        self.group = pm.axis_group(mesh, axis)
+        self._masks: dict = {}
+
+    @property
+    def shape(self) -> tuple:
+        return (self.rows, self.n_nodes)
+
+    def mask(self, dtype, device) -> torch.Tensor:
+        """(rows, M): the slab's rows of the interior mask."""
+        return interior_mask(self.n_nodes, dtype, device)[self.r0:self.r1]
+
+    def _ext_mask(self, dtype, device) -> torch.Tensor:
+        """(rows + 2, M): the interior mask on rows r0 - 1 .. r1 (zero off the grid)."""
+        key = (dtype, torch.device(device))
+        if key not in self._masks:
+            m = torch.zeros((self.n_nodes + 2, self.n_nodes), dtype=dtype, device=device)
+            m[1:-1] = interior_mask(self.n_nodes, dtype, device)
+            self._masks[key] = m[self.r0:self.r1 + 2]
+        return self._masks[key]
+
+    def neighbours(self, got) -> tuple:
+        """(the last row of the rank below, the first row of the rank above),
+        None off the grid, from every rank's ``[first row, last row]``."""
+        lo = got[self.rank - 1][1] if self.rank > 0 else None
+        hi = got[self.rank + 1][0] if self.rank < self.size - 1 else None
+        return lo, hi
+
+    def padded(self, u: torch.Tensor) -> torch.Tensor:
+        """(..., rows + 2, M + 2): u's rows with the neighbours' halo rows,
+        masked, and a zero column either side (``_pad`` of the one-device
+        apply, cut to the slab)."""
+        from rla4mor_tpu_torch.parallel import mesh as pm
+
+        got = pm.all_gather(torch.stack([u[..., 0, :], u[..., -1, :]]), self.group)
+        lo, hi = self.neighbours(got)
+        L, M = self.shape
+        mask = self._ext_mask(u.dtype, u.device)
+        up = u.new_zeros((*u.shape[:-2], L + 2, M + 2))
+        torch.mul(u, mask[1:L + 1], out=up[..., 1:L + 1, 1:M + 1])
+        if lo is not None:
+            torch.mul(lo, mask[0], out=up[..., 0, 1:M + 1])
+        if hi is not None:
+            torch.mul(hi, mask[L + 1], out=up[..., L + 1, 1:M + 1])
+        return up
+
+    def element_rows(self, field: torch.Tensor) -> torch.Tensor:
+        """(..., rows + 1, N + 2): element rows r0 - 1 .. r1 - 1 of an
+        (..., N, N) field (zero off the grid), zero-padded in x."""
+        full = F.pad(field, (1, 1, 1, 1))
+        return full[..., self.r0:self.r1 + 1, :]
+
+    def apply(self, u: torch.Tensor, kp: torch.Tensor) -> torch.Tensor:
+        """A(kappa) u on the slab: ``kp`` the slab's padded element rows."""
+        up = self.padded(u)
+        return _gather_apply(up, kp.to(u.dtype), self.rows, self.n_nodes) * self.mask(
+            u.dtype, u.device)
+
+    def sum(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` summed over the axis (every rank gets the sum)."""
+        from rla4mor_tpu_torch.parallel import mesh as pm
+
+        return pm.all_reduce(t.clone(), self.group)
+
+    def local(self, u: torch.Tensor) -> torch.Tensor:
+        """The slab's rows of a whole (..., M, M) grid."""
+        return u[..., self.r0:self.r1, :]
+
+
+class SlabFOM:
+    """What the slab views of the stencil families share: the protocol of
+    ``models/stencil.py`` on this rank's rows (``local_shape``), with
+    ``solution_shape`` the whole grid's; ``output`` and inner products are
+    sums over the mesh axis."""
+
+    def __init__(self, fom, mesh, axis: str = "dof"):
+        self.fom = fom
+        self.slab = Slab(fom.n_nodes, mesh, axis)
+        self.n_terms = fom.n_terms
+        self.dtype, self.device = fom.dtype, fom.device
+        self.h = fom.h
+        self.num_intervals = fom.num_intervals
+        self.n_nodes = fom.n_nodes
+
+    @property
+    def solution_shape(self):
+        return self.fom.solution_shape
+
+    @property
+    def local_shape(self):
+        return self.slab.shape
+
+    @property
+    def group(self):
+        return self.slab.group
+
+    def theta_vector(self, mu) -> torch.Tensor:
+        return self.fom.theta_vector(mu)
+
+    def rhs(self, dtype=None) -> torch.Tensor:
+        """The slab's rows of the load vector for f = 1."""
+        dt = self.dtype if dtype is None else dtype
+        load = torch.full(self.local_shape, self.h * self.h, dtype=dt, device=self.device)
+        return load * self.slab.mask(dt, self.device)
+
+    def output(self, u: torch.Tensor) -> torch.Tensor:
+        """Mean-value functional, summed over the ranks."""
+        return self.slab.sum(u.sum(dim=(-2, -1))) * self.h * self.h
+
+    def _diag(self, kp: torch.Tensor) -> torch.Tensor:
+        """diag A(kappa) on the slab from its padded element rows (1 on the ring)."""
+        d = (2.0 / 3.0) * ((kp[..., 1:, 1:] + kp[..., 1:, :-1])
+                           + (kp[..., :-1, 1:] + kp[..., :-1, :-1]))
+        return torch.where(d > 0, d, torch.ones_like(d))
+
+    def _ones(self, dtype) -> torch.Tensor:
+        N = self.num_intervals
+        return self.slab.element_rows(torch.ones((N, N), dtype=dtype, device=self.device))
+
+    def product_apply(self, u: torch.Tensor) -> torch.Tensor:
+        """h1_0 product R = A(kappa = 1) on the slab."""
+        return self.slab.apply(u, self._ones(u.dtype))
+
+
+class ThermalSlab(SlabFOM):
+    """:class:`StencilThermalBlock` on this rank's row slab (``fom.slab(mesh)``):
+    the same operators, each apply one halo exchange."""
+
+    is_spd = True
+
+    def __init__(self, fom: StencilThermalBlock, mesh, axis: str = "dof"):
+        super().__init__(fom, mesh, axis)
+        T = self.n_terms
+        # block ids of the slab's element rows, T (a zero coefficient) off the grid
+        blk = F.pad(fom._blk, (0, 0, 1, 1), value=T)[self.slab.r0:self.slab.r1 + 1]
+        self._blk = blk
+        ids = torch.arange(T, device=self.device)
+        self._term_kp = {}
+        self._term_masks = (blk[None] == ids[:, None, None])
+
+    def term_kp(self, dtype) -> torch.Tensor:
+        """(T, rows + 1, N + 2) padded element masks of the terms."""
+        if dtype not in self._term_kp:
+            self._term_kp[dtype] = F.pad(self._term_masks.to(dtype), (1, 1))
+        return self._term_kp[dtype]
+
+    def kappa_rows(self, mu, dtype=None) -> torch.Tensor:
+        """(rows + 1, N + 2): the slab's padded element coefficients at one Mu."""
+        dt = self.dtype if dtype is None else dtype
+        theta = as_tensor(mu["diffusion"], self.device, dt)
+        return F.pad(torch.cat([theta, theta.new_zeros(1)])[self._blk], (1, 1))
+
+    def apply(self, mu, u: torch.Tensor) -> torch.Tensor:
+        return self.slab.apply(u, self.kappa_rows(mu, u.dtype))
+
+    def apply_term(self, b: int, u: torch.Tensor) -> torch.Tensor:
+        return self.slab.apply(u, self.term_kp(u.dtype)[b])
+
+    def apply_terms(self, u: torch.Tensor) -> torch.Tensor:
+        """(T, rows, M): every term on one slab, one halo exchange."""
+        return self.slab.apply(u, self.term_kp(u.dtype))
+
+    def jacobi_diag(self, mu) -> torch.Tensor:
+        return self._diag(self.kappa_rows(mu))
+

@@ -24,6 +24,8 @@ from rla4mor_tpu_torch.core.parameters import ParameterSpace
 from rla4mor_tpu_torch.core.solvers import bicgstab
 from rla4mor_tpu_torch.models.stencil import (
     FlatGridOp,
+    SlabFOM,
+    _gather_apply,
     _pad,
     interior_mask,
     preconditioner,
@@ -31,6 +33,17 @@ from rla4mor_tpu_torch.models.stencil import (
     stiffness_diag_raw,
 )
 from rla4mor_tpu_torch.utils.config import as_tensor, default_dtype, resolve_device
+
+
+def _advection_gather(up: torch.Tensor, h: float, axis: int, rows: int, cols: int
+                      ) -> torch.Tensor:
+    """(h/2)(east - west) on ``rows`` x ``cols`` nodes from the masked node
+    values ``up`` with a ring of neighbours, unmasked."""
+    if axis == 0:
+        diff = up[..., 1:rows + 1, 2:] - up[..., 1:rows + 1, :cols]
+    else:
+        diff = up[..., 2:, 1:cols + 1] - up[..., :rows, 1:cols + 1]
+    return (h / 2.0) * diff
 
 
 def advection_apply(u: torch.Tensor, h: float, axis: int) -> torch.Tensor:
@@ -42,11 +55,7 @@ def advection_apply(u: torch.Tensor, h: float, axis: int) -> torch.Tensor:
     M = u.shape[-1]
     mask = interior_mask(M, u.dtype, u.device)
     up = _pad(u * mask)
-    if axis == 0:
-        diff = up[..., 1:M + 1, 2:] - up[..., 1:M + 1, :M]
-    else:
-        diff = up[..., 2:, 1:M + 1] - up[..., :M, 1:M + 1]
-    return (h / 2.0) * diff * mask
+    return _advection_gather(up, h, axis, M, M) * mask
 
 
 class StencilAdvectionDiffusion:
@@ -146,6 +155,10 @@ class StencilAdvectionDiffusion:
         dimensions."""
         return u.sum(dim=(-2, -1)) * self.h * self.h
 
+    def slab(self, mesh, axis: str = "dof") -> "AdvectionSlab":
+        """This rank's row slab of the FOM on ``mesh`` (:class:`AdvectionSlab`)."""
+        return AdvectionSlab(self, mesh, axis)
+
     # -- flattened-vector LinOp views ---------------------------------------
     def term_linop(self, t: int) -> "AdvectionTermOp":
         return AdvectionTermOp(self, t)
@@ -168,6 +181,43 @@ class StencilAdvectionDiffusion:
 
         return sample_advection(count, key, self._eps_range, self._velocity_range,
                                 self.device, self.dtype)
+
+
+class AdvectionSlab(SlabFOM):
+    """:class:`StencilAdvectionDiffusion` on this rank's row slab
+    (``fom.slab(mesh)``): an apply exchanges the halo rows once for its
+    three terms."""
+
+    is_spd = False
+
+    def _terms(self, u: torch.Tensor, theta=None) -> torch.Tensor:
+        slab = self.slab
+        up = slab.padded(u)
+        mask = slab.mask(u.dtype, u.device)
+        L, M = slab.shape
+        K = _gather_apply(up, self._ones(u.dtype), L, M) * mask
+        cx = _advection_gather(up, self.h, 0, L, M) * mask
+        cy = _advection_gather(up, self.h, 1, L, M) * mask
+        if theta is None:
+            return torch.stack([K, cx, cy])
+        return theta[0] * K + theta[1] * cx + theta[2] * cy
+
+    def apply(self, mu, u: torch.Tensor) -> torch.Tensor:
+        return self._terms(u, self.theta_vector(mu).to(u.dtype))
+
+    def apply_term(self, t: int, u: torch.Tensor) -> torch.Tensor:
+        return self._terms(u)[t]
+
+    def apply_terms(self, u: torch.Tensor) -> torch.Tensor:
+        """(3, rows, M): K u, Cx u and Cy u, one halo exchange."""
+        return self._terms(u)
+
+    def jacobi_diag(self, mu) -> torch.Tensor:
+        eps = as_tensor(mu["eps"], self.device, self.dtype).reshape(-1)[0]
+        kp = self._ones(self.dtype)
+        d = eps * ((2.0 / 3.0) * ((kp[..., 1:, 1:] + kp[..., 1:, :-1])
+                                  + (kp[..., :-1, 1:] + kp[..., :-1, :-1])))
+        return torch.where(d > 0, d, torch.ones_like(d))
 
 
 class AdvectionTermOp(FlatGridOp):

@@ -30,8 +30,12 @@ met tolerance); the inf-sup boxes' absolute tolerance falls back to the
 class's own ``tol``. The TPU workarounds are not carried over: there is no
 scoped x64 (torch always has float64: the two-stage solve is a plain
 float32 run and a float64 polish), no host-transfer chokepoint for complex
-arrays, no chunked inner solves and no ``nojit``; the meshes of the JAX
-package wait for the multi-device port (ROADMAP.md queue 1, item 14).
+arrays, no chunked inner solves and no ``nojit``. On a mesh (``lobpcg_gen(mesh=)``,
+``MatrixFreeScmHermitian(mesh=)``, ``MatrixFreeScmCoercivity(mesh=)``) each
+rank holds its rows of the iterates, and every Gram product, column norm and
+inner product is all-reduced over the ``"dof"`` group (in float64 where the
+host solves it) before the small host problems, which every rank solves
+alike.
 
 Online, the bounds are the inherited host LP per parameter.
 """
@@ -145,6 +149,8 @@ def lobpcg_gen(
     eig_relative_tol: bool = False,
     plateau: int = 0,
     device=None,
+    mesh=None,
+    mesh_axis: str = "dof",
 ) -> GenEigResult:
     """Smallest ``k`` eigenpairs of the Hermitian pencil ``(T, R)``.
 
@@ -169,14 +175,51 @@ def lobpcg_gen(
     band of the tolerance, as the JAX package does; ``stop`` says which exit
     ended the run. The start block is ``x0`` or a normal block of
     stream ``key`` on ``device`` (default: ``x0``'s, else the current card).
+
+    ``mesh``: the iterates are row-sharded over ``mesh_axis`` (rank i holds
+    rows ``[i n / p, (i + 1) n / p)``; ``x0`` then is the rank's rows, and
+    the drawn start block the rank's rows of the one-device one), the
+    applies act on the rank's rows (exchanging what they need), and every
+    reduction over the rows is all-reduced: the run equals the unsharded
+    one up to the order of the sums.
     """
+    from rla4mor_tpu_torch.parallel import mesh as pm
+
     b = max(int(block), int(k))
+    group = None if mesh is None else pm.axis_group(mesh, mesh_axis)
+    r0, r1 = (0, n) if mesh is None else pm.row_range(n, mesh, mesh_axis)
     if x0 is None:
-        X = _randn(key, (n, b), dtype, resolve_device(device))
+        X = _randn(key, (n, b), dtype, resolve_device(device))[r0:r1]
     else:
         X = torch.as_tensor(x0).to(dtype=dtype)
-        if tuple(X.shape) != (n, b):
-            raise ValueError(f"x0 has shape {tuple(X.shape)}, not ({n}, {b})")
+        if tuple(X.shape) != (r1 - r0, b):
+            raise ValueError(f"x0 has shape {tuple(X.shape)}, not ({r1 - r0}, {b})")
+
+    def gram(A, *Bs):
+        """A^H B for each B on the host in float64 / complex128, summed over
+        the ranks in one reduction."""
+        Gs = [A.mH @ B for B in Bs]
+        if group is not None:
+            G = torch.stack(Gs)
+            G = pm.all_reduce(G.to(torch.complex128 if G.is_complex() else torch.float64),
+                              group)
+            Gs = list(G.unbind(0))
+        out = [_host(G) for G in Gs]
+        return out[0] if len(out) == 1 else out
+
+    def dev_gram(A, B) -> torch.Tensor:
+        G = A.mH @ B
+        return G if group is None else pm.all_reduce(G, group)
+
+    def colnorms(*blocks) -> np.ndarray:
+        if group is None:
+            return _host(torch.stack([torch.linalg.vector_norm(B, dim=0) for B in blocks]))
+        sq = torch.stack([(B.abs() ** 2).sum(dim=0) for B in blocks]).to(torch.float64)
+        return np.sqrt(_host(pm.all_reduce(sq, group)))
+
+    def vdot(a, c) -> float:
+        d = torch.vdot(a, c)
+        return float((d if group is None else pm.all_reduce(d, group)).real)
     if project is not None:
         X = project(X)
     M0 = precond if precond is not None else (lambda U: U)
@@ -196,13 +239,11 @@ def lobpcg_gen(
         bx = X.shape[1]
         TX = apply_T(X)
         RX = apply_R(X)
-        H = _host(X.mH @ TX)
-        G = _host(X.mH @ RX)
+        H, G = gram(X, TX, RX)
         theta = np.sort(np.real(sla.eigvalsh(_herm(H), _herm(G))))[:bx]
         # after Rayleigh-Ritz the columns of X are Ritz vectors, ascending
         Res = TX - RX * torch.as_tensor(theta, dtype=real, device=X.device)[None, :]
-        nums = _host(torch.stack([torch.linalg.vector_norm(Res, dim=0),
-                                  torch.linalg.vector_norm(RX, dim=0)]))
+        nums = colnorms(Res, RX)
         rel = nums[0] / np.maximum(nums[1], 1e-300)
         if eig_relative_tol:
             thresh = tol * np.maximum(np.abs(theta), 1e-300)
@@ -227,9 +268,9 @@ def lobpcg_gen(
         # Rayleigh-Ritz) and within itself: without it the Gram of [X, W, P]
         # degenerates as W -> 0 and the whitening puts a sqrt(eps) floor on
         # the Ritz vectors
-        W = W - X @ (RX.mH @ W)
+        W = W - X @ dev_gram(RX, W)
         RW = apply_R(W)
-        ww, Vw = sla.eigh(_herm(_host(W.mH @ RW)))
+        ww, Vw = sla.eigh(_herm(gram(W, RW)))
         keep_w = ww > 1e-10 * max(float(ww[-1]), 1e-300)
         if not keep_w.any():  # the residual is numerically in span(X)
             converged = bool(np.all(rel[:k] <= 10 * thresh[:k]))
@@ -240,8 +281,7 @@ def lobpcg_gen(
         S = torch.cat([X, W] if P is None else [X, W, P], dim=1)
         RS = apply_R(S)
         TS = apply_T(S)
-        G = _herm(_host(S.mH @ RS))
-        Hm = _herm(_host(S.mH @ TS))
+        G, Hm = (_herm(a) for a in gram(S, RS, TS))
         # whiten in the R inner product, dropping near-dependent directions
         w, V = sla.eigh(G)
         keep = w > drop_tol * max(float(w[-1]), 1e-300)
@@ -265,7 +305,8 @@ def lobpcg_gen(
     # final Ritz data and the Bauer-Fike radii
     TX = apply_T(X)
     RX = apply_R(X)
-    vals, C = sla.eigh(_herm(_host(X.mH @ TX)), _herm(_host(X.mH @ RX)))
+    H, G = gram(X, TX, RX)
+    vals, C = sla.eigh(_herm(H), _herm(G))
     C_dev = torch.as_tensor(C, dtype=X.dtype, device=X.device)
     Xr, TXr, RXr = X @ C_dev, TX @ C_dev, RX @ C_dev
     # one extra pair (k + 1) for the gap diagnostic only
@@ -278,10 +319,11 @@ def lobpcg_gen(
         else:
             sol = cg(lambda v: apply_R(v[:, None])[:, 0], r,
                      precond=lambda v: M(v[:, None])[:, 0], tol=rsolve_tol,
-                     maxiter=rsolve_maxiter)
+                     maxiter=rsolve_maxiter, group=group)
             z = sol.x
             rn = float(sol.residual_norm)
-            bn = float(torch.linalg.vector_norm(r))
+            bn = (float(torch.linalg.vector_norm(r)) if group is None
+                  else math.sqrt(max(vdot(r, r), 0.0)))
             if rn > 10 * rsolve_tol * max(bn, 1e-300):
                 if i >= k:  # the diagnostic pair: its gap evidence is void
                     radii[i] = float("inf")
@@ -291,8 +333,8 @@ def lobpcg_gen(
                     f"{rn / max(bn, 1e-300):.1e} > {rsolve_tol:.0e}); raise "
                     "rsolve_maxiter, or pass identity_R=True when R is the identity on "
                     "the iteration subspace.")
-        num = math.sqrt(max(float(torch.vdot(r, z).real), 0.0))
-        den = math.sqrt(max(float(torch.vdot(Xr[:, i], RXr[:, i]).real), 1e-300))
+        num = math.sqrt(max(vdot(r, z), 0.0))
+        den = math.sqrt(max(vdot(Xr[:, i], RXr[:, i]), 1e-300))
         radii[i] = num / den
     gap_margin = float("nan")
     if k_ext > k:
@@ -338,7 +380,13 @@ def lobpcg_gen_two_stage(
                       x0=None if x0 is None else torch.as_tensor(x0).to(d32), **kw)
     b2 = max(k + 1, int(block))
     dev = warm.vectors.device
-    x64 = torch.cat([warm.vectors[:, :k].to(d64), _randn(k2, (n, b2 - k), d64, dev)], dim=1)
+    fresh = _randn(k2, (n, b2 - k), d64, dev)
+    if kw.get("mesh") is not None:  # the rank's rows of the one-device block
+        from rla4mor_tpu_torch.parallel.mesh import row_range
+
+        r0, r1 = row_range(n, kw["mesh"], kw.get("mesh_axis", "dof"))
+        fresh = fresh[r0:r1]
+    x64 = torch.cat([warm.vectors[:, :k].to(d64), fresh], dim=1)
     project = kw.get("project")
     if project is not None:
         x64 = project(x64)
@@ -514,6 +562,8 @@ class MatrixFreeScmHermitian(ScmHermitian):
         boxes: Optional[Sequence[tuple]] = None,
         plateau: int = 0,
         device=None,
+        mesh=None,
+        mesh_axis: str = "dof",
     ):
         # ScmHermitian.__init__ builds dense terms: its state is set here
         self.device = resolve_device(device)
@@ -537,6 +587,14 @@ class MatrixFreeScmHermitian(ScmHermitian):
                             plateau=plateau, device=self.device)
         if two_stage:
             self._eig_kw.update(f32_tol=f32_tol, f32_iters=f32_iters)
+        self._group = None
+        if mesh is not None:
+            # the iterates row-sharded over the mesh: every eigensolve, its
+            # applies and its Bauer-Fike CG run on the rank's rows
+            from rla4mor_tpu_torch.parallel.mesh import axis_group
+
+            self._eig_kw.update(mesh=mesh, mesh_axis=mesh_axis)
+            self._group = axis_group(mesh, mesh_axis)
         self.certified = True
         self.anchor_diagnostics: list[dict] = []
         self.box_diagnostics: list[dict] = []
@@ -599,9 +657,17 @@ class MatrixFreeScmHermitian(ScmHermitian):
         res = self._solver(apply_A, self.apply_R, self.n, precond=self.precond,
                            key=fold_in(self._key, 1 + len(self.anchor_mus)), **self._eig_kw)
         u = res.vectors[:, :1]
-        den = max(float(torch.vdot(u[:, 0], self.apply_R(u)[:, 0]).real), 1e-300)
-        ystar = np.array([float(torch.vdot(u[:, 0], Tq(u)[:, 0]).real) / den
-                          for Tq in terms])
+
+        def dot(a, c) -> float:  # over the ranks' rows on a mesh
+            d = torch.vdot(a, c)
+            if self._group is not None:
+                from rla4mor_tpu_torch.parallel.mesh import all_reduce
+
+                d = all_reduce(d, self._group)
+            return float(d.real)
+
+        den = max(dot(u[:, 0], self.apply_R(u)[:, 0]), 1e-300)
+        ystar = np.array([dot(u[:, 0], Tq(u)[:, 0]) / den for Tq in terms])
         alpha_safe = float(res.values[0] - res.radii[0])
         diag = _diagnostics(res)
         self._logger.info(
@@ -1025,10 +1091,31 @@ class MatrixFreeScmCoercivity(MatrixFreeScmHermitian):
             return lambda U: 0.5 * (term.apply(U) + term.apply_adjoint(U))
 
         shape = fom.solution_shape
+        mesh = kw.get("mesh")
+        if mesh is not None:
+            # the rank's row slab: the terms, R and the projector on its rows;
+            # Jacobi of R (the V-cycle runs on one device)
+            if not getattr(fom, "is_spd", False) or not hasattr(fom, "slab"):
+                raise NotImplementedError(f"{type(fom).__name__}: the sharded SCM takes "
+                                          "the symmetric families with a slab form")
+            if precond not in ("auto", None, "none"):
+                raise ValueError("on a mesh the preconditioner is Jacobi of R ('auto')")
+            slab = fom.slab(mesh, kw.get("mesh_axis", "dof"))
+            local = slab.local_shape
+            terms = [_flat_cols(lambda g, q=q: slab.apply_term(q, g), local)
+                     for q in range(slab.n_terms)]
+            if apply_R is None:
+                apply_R = _flat_cols(slab.product_apply, local)
+            mask = slab.slab.mask(torch.float64, fom.device).reshape(-1)
+            kw.setdefault("project", lambda U: U * mask.to(U.real.dtype)[:, None])
+            d = _unit_stiffness_diag(fom).reshape(shape)[slab.slab.r0:slab.slab.r1].reshape(-1)
+            precond = (lambda U: U / d.to(U.real.dtype)[:, None]) if precond == "auto" else None
+        else:
+            terms = [sym_apply(t) for t in aff.terms]
         if apply_R is None:
             apply_R = _flat_cols(fom.product_apply, shape)
         kw.setdefault("project", _interior_project(shape, fom.device))
-        if precond == "auto":
+        if mesh is None and precond == "auto":
             precond = None
             # MG pays once R's conditioning (~h^-2) dominates; below, the
             # cycle's depth costs more than the iterations it saves
@@ -1040,7 +1127,7 @@ class MatrixFreeScmCoercivity(MatrixFreeScmHermitian):
 
                 def precond(U):
                     return U / d.to(U.real.dtype)[:, None]
-        elif precond == "mg":
+        elif mesh is None and precond == "mg":
             precond = mg_flat_precond(fom)
         elif precond in (None, "none"):
             precond = None
@@ -1054,5 +1141,4 @@ class MatrixFreeScmCoercivity(MatrixFreeScmHermitian):
             return np.asarray(th, np.float64)
 
         kw.setdefault("device", fom.device)
-        super().__init__([sym_apply(t) for t in aff.terms], theta_fn, apply_R,
-                         aff.source_dim, precond=precond, **kw)
+        super().__init__(terms, theta_fn, apply_R, aff.source_dim, precond=precond, **kw)

@@ -66,7 +66,8 @@ def accumulator_dtype(dtype: torch.dtype) -> torch.dtype:
 
 
 def srht_onepass_plain(x: torch.Tensor, k: int, signs: torch.Tensor,
-                       sampling: torch.Tensor, out_dtype=None) -> torch.Tensor:
+                       sampling: torch.Tensor, out_dtype=None,
+                       block_offset: int = 0) -> torch.Tensor:
     """Plain PyTorch one-pass SRHT of real ``x`` (n, m) -> (k, m).
 
     The flat (B, R) contraction of the JAX package's ``_flat_plan``: with
@@ -77,6 +78,12 @@ def srht_onepass_plain(x: torch.Tensor, k: int, signs: torch.Tensor,
     A 2-byte ``x`` is multiplied by its signs in its own dtype (exact) and
     widened to float32, where the sums run; the result is ``out_dtype``
     (default: x's dtype).
+
+    ``block_offset``: x's rows are rows ``[block_offset 2^11, block_offset
+    2^11 + n)`` of a longer vector (2^11 the kernel's block length), whose
+    Hadamard rows ``sampling`` indexes: block b of x is column
+    ``block_offset 2^11 / R + b`` of H_B. The partial sketches of
+    consecutive row ranges add up to the sketch of their concatenation.
     """
     n, m = x.shape
     acc = accumulator_dtype(x.dtype)
@@ -84,12 +91,13 @@ def srht_onepass_plain(x: torch.Tensor, k: int, signs: torch.Tensor,
     R = 1 << min(_R_LOG, d)
     dr = R.bit_length() - 1
     B = -(-n // R)
+    b0 = int(block_offset) << (_R_LOG - dr)
     samp = sampling.to(device=x.device, dtype=torch.int64)
     gr = hadamard_sign(
         (samp[:, None] & (R - 1)) & torch.arange(R, device=x.device)[None, :]
     ).to(acc)                                                      # (K, R)
     hb = hadamard_sign(
-        (samp[:, None] >> dr) & torch.arange(B, device=x.device)[None, :]
+        (samp[:, None] >> dr) & torch.arange(b0, b0 + B, device=x.device)[None, :]
     ).to(acc)                                                      # (K, B)
     xd = x.new_zeros((B * R, m), dtype=acc)
     s = signs.to(device=x.device, dtype=x.dtype)[:, None]
@@ -138,7 +146,7 @@ def _lib() -> ctypes.CDLL:
     lib = nvcc.load(SOURCE)
     launch = ctypes.POINTER(_Launch)
     lib.srht_onepass.argtypes = ([launch, ctypes.c_int] + [ctypes.c_void_p] * 6
-                                 + [ctypes.c_int, ctypes.c_void_p])
+                                 + [ctypes.c_int, ctypes.c_int64, ctypes.c_void_p])
     lib.srht_onepass.restype = ctypes.c_int
     lib.srht_onepass_scratch.argtypes = [launch] + [ctypes.POINTER(ctypes.c_int64)] * 2
     lib.srht_onepass_scratch.restype = None
@@ -265,7 +273,7 @@ def _plan_operand(t: torch.Tensor, dtype: torch.dtype, index: int) -> torch.Tens
 
 
 def _launch(x: torch.Tensor, k: int, signs: torch.Tensor, sampling: torch.Tensor,
-            out_dtype: torch.dtype) -> torch.Tensor:
+            out_dtype: torch.dtype, block_offset: int = 0) -> torch.Tensor:
     n, m = x.shape
     stride_i, stride_j = x.stride()
     if stride_i < 0 or stride_j < 0:
@@ -287,7 +295,7 @@ def _launch(x: torch.Tensor, k: int, signs: torch.Tensor, sampling: torch.Tensor
     out = x.new_empty((k, m), dtype=x.dtype if narrow else acc)
     _raise_on(_lib().srht_onepass(rec, _DTYPE_CODE[x.dtype], x.data_ptr(), d_signs.data_ptr(),
                                   sigma.data_ptr(), done, sums, out.data_ptr(), int(narrow),
-                                  stream), "srht_onepass kernel launch")
+                                  int(block_offset), stream), "srht_onepass kernel launch")
     srht_onepass.launches += 1
     srht_onepass.launches_by_dtype[x.dtype] += 1
     srht_onepass.launches_by_width[m] += 1
@@ -295,7 +303,8 @@ def _launch(x: torch.Tensor, k: int, signs: torch.Tensor, sampling: torch.Tensor
 
 
 def srht_onepass(x: torch.Tensor, k: int, signs: torch.Tensor,
-                 sampling: torch.Tensor, out_dtype=None) -> torch.Tensor:
+                 sampling: torch.Tensor, out_dtype=None,
+                 block_offset: int = 0) -> torch.Tensor:
     """One-pass sampled SRHT of ``x`` (n, m), any strides -> (k, m).
 
     On a CUDA tensor this launches the hand-written kernel (built at first
@@ -308,25 +317,33 @@ def srht_onepass(x: torch.Tensor, k: int, signs: torch.Tensor,
     ``out_dtype`` then names the parts' dtype or the complex one.
     ``srht_onepass.launches`` counts kernel launches,
     ``srht_onepass.launches_by_dtype`` the same by input dtype and
-    ``srht_onepass.launches_by_width`` by the number m of columns."""
+    ``srht_onepass.launches_by_width`` by the number m of columns.
+
+    ``block_offset`` (default 0): x holds rows ``[block_offset 2^11, ...)``
+    of a longer vector, whose sampled Hadamard rows ``sampling`` indexes
+    (``srht_onepass_plain``); a rank's rows of the sharded SRHT
+    (``parallel/sharded_sketch.py``). ``signs`` are x's own rows' signs."""
     if out_dtype is None:
         out_dtype = x.dtype
+    if block_offset < 0:
+        raise ValueError(f"srht_onepass: block_offset {block_offset} < 0")
     if x.is_cuda and x.dtype in _KERNEL_DTYPES and x.dim() == 2:
-        return _launch(x, k, signs, sampling, out_dtype)
+        return _launch(x, k, signs, sampling, out_dtype, block_offset)
     if x.dim() != 2:
         raise ValueError(f"srht_onepass expects (n, m), got {tuple(x.shape)}")
     if x.is_complex():
         n, m = x.shape
         part = out_dtype.to_real() if out_dtype.is_complex else out_dtype
-        out = srht_onepass(torch.view_as_real(x).reshape(n, 2 * m), k, signs, sampling, part)
+        out = srht_onepass(torch.view_as_real(x).reshape(n, 2 * m), k, signs, sampling, part,
+                           block_offset)
         return torch.view_as_complex(out.reshape(k, m, 2))
     if x.dtype not in _KERNEL_DTYPES:
         raise TypeError(f"srht_onepass: unsupported dtype {x.dtype}")
     if x.device.type == "cpu":
-        return srht_onepass_plain(x, k, signs, sampling, out_dtype)
+        return srht_onepass_plain(x, k, signs, sampling, out_dtype, block_offset)
     if x.device.type != "cuda":
         raise ValueError(f"srht_onepass: unsupported device {x.device}")
-    return _launch(x, k, signs, sampling, out_dtype)
+    return _launch(x, k, signs, sampling, out_dtype, block_offset)
 
 
 srht_onepass.launches = 0

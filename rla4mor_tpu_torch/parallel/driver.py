@@ -1,7 +1,8 @@
-"""The padded sketched-greedy step on one device, and its ROM.
+"""The padded sketched-greedy step, on one device or a mesh of ranks, and
+its ROM.
 
-Counterpart of ``rla4mor_tpu/parallel/driver.py`` without the mesh. One
-greedy iteration of the sketched RB method on a matrix-free stencil FOM:
+Counterpart of ``rla4mor_tpu/parallel/driver.py``. One greedy iteration of
+the sketched RB method on a matrix-free stencil FOM:
 
 * the FOM solve is device CG (BiCGStab for non-SPD families),
   preconditioned by Jacobi or the multigrid V-cycle;
@@ -15,7 +16,18 @@ greedy iteration of the sketched RB method on a matrix-free stencil FOM:
 The state is padded to ``r_max`` columns with a fill counter, as in the
 JAX package. ``step(state, mu, mu_batch) -> (state, estimates, u)`` is a
 plain function on tensors; it keeps the CG / BiCGStab result of its last
-solve as ``step.last_solve``.
+solve as ``step.last_solve`` and its last (1 + T, n) block and sketch as
+``step.last_block`` / ``step.last_sketch``.
+
+On a mesh (``mesh=``, axes ``("dof",)`` or ``("dof", "mu")``, one process
+a rank: ``parallel/launch.py``) each rank holds its row slab of the node
+grid (``fom.slab(mesh)``): the solve runs on the slabs with halo exchanges
+and all-reduced inner products, the (1 + T, n_local) block is sketched by
+the sharded embedding (``parallel/embeddings.py``: one ``all_reduce`` over
+``"dof"``), the sketch-space state is replicated and identical on every
+rank, and the error sweep's batch is split over ``"mu"`` and all-gathered.
+``u`` is then the rank's slab of the snapshot, and ``state.U`` holds the
+slabs of the basis grids.
 """
 
 from __future__ import annotations
@@ -28,6 +40,7 @@ import torch
 from rla4mor_tpu_torch.core.orthonormalize import masked_append
 from rla4mor_tpu_torch.core.solvers import bicgstab, cg, lstsq_dense
 from rla4mor_tpu_torch.models.stencil import preconditioner
+from rla4mor_tpu_torch.parallel import mesh as pm
 from rla4mor_tpu_torch.parallel.sharded_sketch import gaussian_sketch_sharded
 
 
@@ -77,8 +90,10 @@ def make_sharded_greedy_step(
     projection: str = "galerkin",
     model_error=None,
     embedding=None,
+    mesh=None,
 ):
-    """Build ``(state0, step)`` for the padded greedy on ``fom``'s device.
+    """Build ``(state0, step)`` for the padded greedy on ``fom``'s device,
+    or on ``mesh`` (see the module note).
 
     ``fom`` follows the stencil protocol (``models/stencil.py``):
     ``n_terms``, ``solution_shape``, ``dtype``, ``device``,
@@ -108,7 +123,14 @@ def make_sharded_greedy_step(
     residual; ``"exact"`` keeps the Gram-Schmidt-combined basis grids and
     scores by the true residual ``||A(mu) U y - b||_2`` in ``exact_dtype``.
     ``model_error`` (``score="exact"`` only): ``(mu, u_grid) -> scalar``
-    added to each exact estimate."""
+    added to each exact estimate.
+
+    ``mesh``: a ``DeviceMesh`` (``parallel/mesh.py::make_mesh``) whose
+    ``"dof"`` axis splits the node rows (``fom.slab``: the thermal block and
+    the advection family so far) and whose optional ``"mu"`` axis splits
+    the sweep's batch (a multiple of it). Jacobi only, as the JAX demo on a
+    mesh. ``embedding`` is then a sharded one (``ShardedSrhtEmbedding`` /
+    ``ShardedGaussianEmbedding``, e.g. ``from_plan`` for parity)."""
     if cg_precond not in ("jacobi", "mg"):
         raise ValueError(f"unknown cg_precond {cg_precond!r}")
     if cg_precond == "mg" and not hasattr(fom, "kappa"):
@@ -129,18 +151,54 @@ def make_sharded_greedy_step(
         raise ValueError(f"unknown score mode {score!r}")
     n = math.prod(fom.solution_shape)
     T = fom.n_terms
+    group = None
+    row0 = 0
+    if mesh is not None:
+        if cg_precond != "jacobi":
+            raise ValueError("on a mesh the solve is Jacobi-preconditioned: the port's "
+                             "V-cycle runs on one device (as the JAX demo's)")
+        if not hasattr(fom, "slab"):
+            raise NotImplementedError(f"{type(fom).__name__} has no row-slab form yet: "
+                                      "it runs on one device")
+        fom = fom.slab(mesh)
+        group = fom.group
+        row0 = fom.slab.r0 * fom.n_nodes
+    shape = fom.local_shape if mesh is not None else fom.solution_shape
+    n_local = math.prod(shape)
 
-    if embedding is not None:
+    if mesh is not None:
+        from rla4mor_tpu_torch.parallel.embeddings import ShardedSrhtEmbedding
+
+        if embedding is not None:
+            if (embedding.range_dim, embedding.source_dim) != (k, n):
+                raise ValueError(f"embedding is ({embedding.range_dim}, "
+                                 f"{embedding.source_dim}), the step needs ({k}, {n})")
+            emb = embedding
+        elif sketch == "srht":
+            emb = ShardedSrhtEmbedding(k, n, mesh, seed=seed).to(fom.device)
+        elif sketch == "gaussian":
+            emb = None
+        else:
+            raise ValueError(f"unknown sketch {sketch!r}")
+
+        def sketch_fn(X):
+            if emb is None:
+                return gaussian_sketch_sharded(seed, k, X, mesh, row_offset=row0)
+            return emb.apply(X, row_offset=row0)
+    elif embedding is not None:
         if (embedding.range_dim, embedding.l2_dim) != (k, n):
             raise ValueError(f"embedding is ({embedding.range_dim}, "
                              f"{embedding.l2_dim}), the step needs ({k}, {n})")
+        emb = embedding
         sketch_fn = embedding.apply_random
     elif sketch == "srht":
         from rla4mor_tpu_torch.ops.embeddings import SrhtEmbedding
 
-        sketch_fn = SrhtEmbedding(k, n, seed=seed, device=fom.device,
-                                  dtype=fom.dtype).apply_random
+        emb = SrhtEmbedding(k, n, seed=seed, device=fom.device, dtype=fom.dtype)
+        sketch_fn = emb.apply_random
     elif sketch == "gaussian":
+        emb = None
+
         def sketch_fn(X):
             return gaussian_sketch_sharded(seed, k, X)
     else:
@@ -149,11 +207,10 @@ def make_sharded_greedy_step(
     res_rhs = sketch_fn(fom.rhs().reshape(-1))
     U0 = None
     if score == "exact":
-        U0 = torch.zeros((r_max, *fom.solution_shape), dtype=fom.dtype,
-                         device=fom.device)
+        U0 = torch.zeros((r_max, *shape), dtype=fom.dtype, device=fom.device)
     out0 = None
     if hasattr(fom, "output"):
-        zero = torch.zeros(fom.solution_shape, dtype=fom.dtype, device=fom.device)
+        zero = torch.zeros(shape, dtype=fom.dtype, device=fom.device)
         n_out = torch.atleast_1d(fom.output(zero)).shape[0]
         out0 = torch.zeros((n_out, r_max), dtype=fom.dtype, device=fom.device)
     state0 = init_state(k, r_max, T, res_rhs, U0=U0, out0=out0)
@@ -184,11 +241,14 @@ def make_sharded_greedy_step(
         solution, in ``exact_dtype``: one stencil pass per candidate."""
         y, _ = rom_solve_and_estimate(state, mu)
         y = torch.where(columns < state.ncols, y, torch.zeros_like(y)).to(exact_dtype)
-        u_rom = torch.zeros(fom.solution_shape, dtype=exact_dtype, device=fom.device)
+        u_rom = torch.zeros(shape, dtype=exact_dtype, device=fom.device)
         for r in range(int(state.ncols)):
             # a column at a time: the basis is never held in exact_dtype
             u_rom = u_rom + y[r] * state.U[r].to(exact_dtype)
-        est = torch.linalg.vector_norm(fom.apply(mu, u_rom) - rhs_e)
+        resid = fom.apply(mu, u_rom) - rhs_e
+        est = (torch.linalg.vector_norm(resid) if group is None
+               else torch.sqrt(pm.all_reduce(torch.vdot(resid.reshape(-1),
+                                                        resid.reshape(-1)), group)))
         if model_error is not None:
             est = est + torch.as_tensor(model_error(mu, u_rom)).to(est)
         return est
@@ -196,9 +256,9 @@ def make_sharded_greedy_step(
     def step(state: GreedyState, mu, mu_batch):
         # 1) FOM solve
         solver = cg if getattr(fom, "is_spd", True) else bicgstab
-        result = solver(lambda v: fom.apply(mu, v), fom.rhs(),
-                        precond=preconditioner(fom, mu, cg_precond), tol=cg_tol,
-                        maxiter=cg_maxiter)
+        precond = preconditioner(fom, mu, cg_precond)
+        result = solver(lambda v: fom.apply(mu, v), fom.rhs(), precond=precond,
+                        tol=cg_tol, maxiter=cg_maxiter, group=group)
         step.last_solve = result
         u = result.x
 
@@ -207,8 +267,9 @@ def make_sharded_greedy_step(
             terms = fom.apply_terms(u)
         else:
             terms = torch.stack([fom.apply_term(t, u) for t in range(T)])
-        X = torch.cat([u.reshape(1, n), terms.reshape(T, n)])  # (1 + T, n)
-        SX = sketch_fn(X.T)                                     # (k, 1 + T)
+        X = torch.cat([u.reshape(1, n_local), terms.reshape(T, n_local)])  # (1 + T, n)
+        SX = sketch_fn(X.T)                                                 # (k, 1 + T)
+        step.last_block, step.last_sketch = X, SX
         su, s_terms = SX[:, 0], SX[:, 1:]
 
         # 3) masked incremental Gram-Schmidt in sketch space, the same
@@ -232,18 +293,28 @@ def make_sharded_greedy_step(
         new_U = next(stacks) if score == "exact" else state.U
         state = state._replace(srb=srb, res_lhs=res_lhs, ncols=ncols, U=new_U, out=new_out)
 
-        # 4) error sweep over the parameter batch
+        # 4) error sweep over the parameter batch (this rank's share of it
+        # along "mu", gathered after)
+        if mesh is not None and "mu" in mesh.mesh_dim_names:
+            share = pm.batch_share(next(iter(mu_batch.values())).shape[0], mesh, "mu")
+            mine = {key: v[share] for key, v in mu_batch.items()}
+        else:
+            mine = mu_batch
         if score == "exact":
             # one candidate at a time: one n-sized exact_dtype grid at once
             rhs_e = fom.rhs(dtype=exact_dtype)
             estimates = torch.stack([exact_estimate(state, m, rhs_e)
-                                     for m in _batch_rows(mu_batch)])
+                                     for m in _batch_rows(mine)])
         else:
-            _, estimates = rom_solve_and_estimate(state, mu_batch)
+            _, estimates = rom_solve_and_estimate(state, mine)
+        if mine is not mu_batch:
+            estimates = pm.gather_batch(estimates, mesh, "mu")
         return state, estimates, u
 
-    step.last_solve = None
+    step.last_solve = step.last_block = step.last_sketch = None
     step.sketch = sketch_fn  # (n, m) -> (k, m), the embedding the state lives in
+    step.fom = fom  # the FOM the step runs (the rank's slab view on a mesh)
+    step.embedding = emb  # the sketch's embedding (None: the seeded Gaussian)
     return state0, step
 
 

@@ -1,7 +1,7 @@
 """Batched online serving of shipped ROMs.
 
-Counterpart of ``evaluate``, ``evaluate_batch``, ``serve_batch`` and
-``pad_batch`` in ``rla4mor_tpu/serve.py``. A request batch is a batched Mu
+Counterpart of ``evaluate``, ``evaluate_batch``, ``serve_batch``,
+``serve_batch_sharded`` and ``pad_batch`` in ``rla4mor_tpu/serve.py``. A request batch is a batched Mu
 (leading batch axis on every leaf); the ROM solves, estimates and outputs
 for all rows at once: a batched ``torch.linalg.solve`` for a stationary ROM,
 one time loop of batched LU solves for an instationary or a wave
@@ -67,6 +67,26 @@ def evaluate_batch(rom, mus_batched) -> dict:
 def serve_batch(rom, mus_batched) -> dict:
     """The serving entry point: :func:`evaluate_batch` without autograd."""
     return evaluate_batch(rom, mus_batched)
+
+
+@torch.no_grad()
+def serve_batch_sharded(rom, mus_batched, mesh, batch_axis: str = "mu") -> dict:
+    """Data-parallel serving over the ``batch_axis`` of a mesh: every rank
+    holds the (small) ROM and the whole request batch, evaluates its share
+    of the rows (rank i of the axis takes rows ``[i B / p, (i + 1) B / p)``)
+    and one ``all_gather`` of each result gives every rank the whole
+    result, in request order. The batch must be a multiple of the axis
+    size: quantise traffic onto such sizes with :func:`pad_batch`."""
+    from rla4mor_tpu_torch.parallel import mesh as pm
+
+    count = int(next(iter(mus_batched.values())).shape[0])
+    p = pm.axis_size(mesh, batch_axis)
+    if count % p:
+        raise ValueError(f"serve_batch_sharded: batch {count} not a multiple of mesh axis "
+                         f"{batch_axis!r} ({p}); pad with pad_batch first")
+    share = pm.batch_share(count, mesh, batch_axis)
+    out = serve_batch(rom, {key: v[share] for key, v in mus_batched.items()})
+    return {key: pm.gather_batch(v, mesh, batch_axis) for key, v in out.items()}
 
 
 def pad_batch(mus_batched, batch_size: int) -> Tuple[dict, int]:

@@ -93,6 +93,26 @@ def test_kernel_matches_plain(cuda, n, m, k, layout, dtype):
     assert rel_err(out, ref) < TOL[dtype]
 
 
+@pytest.mark.parametrize("block_offset", [0, 1, 1024, 1026])
+def test_srht_block_offset_matches_plain(cuda, block_offset):
+    """A rank's rows of the sharded SRHT: rows [b0 2^11, b0 2^11 + n) of the
+    vector of the plan (the 2-rank layout of n = 4,198,401 puts rank 1 at
+    block 1,026), against the plain version's block-offset contraction, and
+    consecutive ranges' shares adding up to the whole sketch."""
+    n_true, n, m, k = 4198401, 5 * 2048 + 77, 3, 256
+    signs, sampling, _ = _srht_plan(7, n_true, k)
+    r0 = block_offset << 11
+    sg = signs[r0:r0 + n].to(cuda)
+    samp = sampling.to(cuda, torch.int32)
+    x = _input(n, m, "rows", torch.float32, cuda)
+    out = srht_cuda.srht_onepass(x, k, sg, samp, block_offset=block_offset)
+    ref = srht_cuda.srht_onepass_plain(x, k, sg, samp, block_offset=block_offset)
+    assert rel_err(out, ref) <= 1e-5
+    head = srht_cuda.srht_onepass(x[:2048], k, sg[:2048], samp, block_offset=block_offset)
+    tail = srht_cuda.srht_onepass(x[2048:], k, sg[2048:], samp, block_offset=block_offset + 1)
+    assert rel_err(head + tail, out) <= 1e-5
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=["bf16", "f16"])
 @pytest.mark.parametrize("n,m,k,layout", CASES)
 def test_2byte_kernel_matches_plain(cuda, n, m, k, layout, dtype):

@@ -1,6 +1,8 @@
 """Importing the PyTorch port pulls in no JAX (nor the JAX package, nor
 scikit-learn) and compiles nothing: every module imports with ``jax`` and
-``rla4mor_tpu`` blocked (an import of either raises)."""
+``rla4mor_tpu`` blocked (an import of either raises), and so does
+``tests/torch_parallel_ranks.py``, the module the sharded tests' spawned
+ranks import."""
 
 import os
 import subprocess
@@ -41,6 +43,9 @@ names = [m.name for m in pkgutil.walk_packages(pkg.__path__, "rla4mor_tpu_torch.
 for name in names:
     importlib.import_module(name)
 after = sorted(os.listdir(build)) if os.path.isdir(build) else None
+# the rank side of the sharded tests, which each spawned rank imports
+sys.path.insert(0, "tests")
+import torch_parallel_ranks  # noqa: F401
 
 from rla4mor_tpu_torch.utils import nvcc
 
@@ -59,8 +64,13 @@ def test_port_imports_no_jax_and_builds_nothing():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     names = set(proc.stdout.split())
-    assert len(names) >= 82  # every module of the slices
-    assert {"rla4mor_tpu_torch.mor.uq",
+    assert len(names) >= 87  # every module of the slices
+    assert {"rla4mor_tpu_torch.parallel.mesh",
+            "rla4mor_tpu_torch.parallel.launch",
+            "rla4mor_tpu_torch.parallel.embeddings",
+            "rla4mor_tpu_torch.examples.multichip_dryrun",
+            "rla4mor_tpu_torch.probes.parallel_probe",
+            "rla4mor_tpu_torch.mor.uq",
             "rla4mor_tpu_torch.mor.optimize",
             "rla4mor_tpu_torch.examples.uq_demo",
             "rla4mor_tpu_torch.examples.optimize_demo",

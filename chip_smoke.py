@@ -347,7 +347,23 @@ Phases, each printing one line (any failed check raises and exits non-zero):
    rank's SRHT launches 1 + 1 a step;
    ``[multichip dryrun]``: ``examples/multichip_dryrun.py::dryrun`` in the
    same group (the thermal step twice, mu-sharded serving, a row-sharded
-   LOBPCG anchor, the advection BiCGStab step with the exact score);
+   LOBPCG anchor, the advection BiCGStab step with the exact score, the
+   parabolic 2-D, 3-D and advection loops and the wave loop on the slabs,
+   the semilinear Newton snapshots, fit, mu-sharded online stage and IMEX
+   loop, POD-greedy on the slabs); ``[kernel] label=sharded parabolic``:
+   the SRHT kernel with ``block_offset`` 4 against its plain version at
+   rank 1's rows of [sharded parabolic]'s last reduce() block, (8,192, 11)
+   float64, k = 128; ``[sharded parabolic]``:
+   ``large_scale_parabolic_demo.run_sharded`` in the same group
+   (its module constants): the first 2 implicit steps of the thermal block
+   at grid 1023 in float32 on the slabs (s and CG iterations a step, the
+   collectives a CG iteration and their share) against the one-device
+   trajectory (1e-3), then POD-greedy in float64 on the slabs at grid 127
+   (SRHT k = 128, 16 training parameters, 2 extensions) against the
+   one-device POD-greedy; checks: the ranks' replicated readings
+   identical, the same picks, the max estimates and the basis within
+   1e-10 of the one-device ones, SRHT launches a rank equal to its
+   reduce() calls (> 0);
    ``[sharded nccl]``: this process as the one rank of an NCCL group, one
    step at grid 1023, its state and estimates within 1e-6 of the mesh-less
    step's, 2 SRHT launches;
@@ -363,8 +379,9 @@ Phases, each printing one line (any failed check raises and exits non-zero):
    [parabolic]'s, [wave]'s and [semilinear]'s widest blocks with those
    paths' launches; the SRHT at [uq thermal3d]'s step block with that
    path's launches; the SRHT at the sharded rank's block, with every
-   rank's launches of [sharded] and [sharded nccl]), the run's wall time,
-   then the result line.
+   rank's launches of [sharded] and [sharded nccl]; the SRHT at [sharded
+   parabolic]'s rank block in float64, with its ranks' launches), the run's
+   wall time, then the result line.
 
 Times are CUDA-event means over back-to-back calls after a warm-up (the
 wrapper's host time included where it is longer than the kernel's); an
@@ -587,6 +604,25 @@ UQ3D_GRID, UQ3D_STEPS = 64, 8
 SHARDED_GRID, SHARDED_STEPS, SHARDED_RANKS = 2047, 3, 2
 SHARDED_N_LOCAL, SHARDED_M, SHARDED_OFFSETS, SHARDED_TOL = 1 << 21, 5, (0, 1024, 1026), 1e-5
 SHARDED_NCCL_GRID, SHARDED_NCCL_TOL = 1023, 1e-6
+# [sharded parabolic]: large_scale_parabolic_demo.run_sharded in [sharded]'s
+# group (its 2 gloo ranks on the card, a ("dof", "mu") = (2, 1) mesh), after
+# the dryrun. (a) The JAX demo's TPU setting: the thermal block at grid 1023
+# (1,048,576 DoF, 512 node rows a rank), float32, Jacobi-CG 1e-6 / 1,500, dt =
+# 1/50 (T = 1, nt = 50), its first 2 implicit steps only (at 6-8 ms a
+# sharded CG iteration on gloo on an H100, a trajectory takes minutes),
+# against the one-device trajectory to 1e-3 relative ([sharded]'s bound for
+# 100 float32 Jacobi-CG iterations on the slabs). (b) POD-greedy in float64
+# on the slabs at grid 127 (T = 1, nt = 10, ShardedSrhtEmbedding k = 128, 16
+# training parameters, 2 extensions, Jacobi-CG 1e-8 / 1,500), against the
+# one-device POD-greedy: the same picks, the max estimates and the basis
+# within 1e-10 (float64: both came out below 1e-14 apart on an H100); the
+# SRHT launches a rank equal its reduce() calls. Grid 127, not 255: at 255
+# the greedy took 65.3 s on the slabs (405-570 iterations a step at 7-8 ms)
+# and 12.0 s on one device, the phase about 101 s (an H100). The settings are
+# the demo's module constants. [kernel] label=sharded parabolic: the
+# block-offset kernel at rank 1's rows of the last reduce() block, (8,192, 5 r
+# + 1 = 11) float64, block offset 4, k = 128
+SHARDED_PARABOLIC_TOL, SHARDED_PARABOLIC_GREEDY_TOL = 1e-3, 1e-10
 # [sharded]'s one-device checks at grid 2047 (large_scale_demo.slab_check):
 # the 2-rank slab apply of a random grid against the one-device apply (the
 # same operations), and 100 Jacobi-CG iterations from zero on the slabs
@@ -2994,7 +3030,111 @@ def sharded_kernel_rows(device) -> list[dict]:
     return rows
 
 
-def sharded_phase(device) -> dict:
+def sharded_parabolic_kernel_row(device) -> dict:
+    """The block-offset SRHT kernel against its plain version at rank 1's
+    rows of [sharded parabolic]'s last reduce() block: the 64 node rows of
+    grid 127 from row 64 (8,192 rows from 8,192: block offset 4), 5 r + 1 =
+    11 float64 columns (r = 2: the mass, 4 terms and the rhs), k = 128, the
+    plan of ``ShardedSrhtEmbedding(128, 16,384, seed=0)``; the library
+    yardstick is the product with the explicit (k, n_local) operator of
+    those rows."""
+    from rla4mor_tpu_torch.examples import large_scale_parabolic_demo as parabolic_demo
+    from rla4mor_tpu_torch.ops import srht_cuda
+    from rla4mor_tpu_torch.ops.fwht import _srht_plan
+
+    nodes = parabolic_demo.GREEDY_GRID + 1
+    n_local, r0, k = nodes * nodes // 2, nodes * nodes // 2, parabolic_demo.GREEDY_K
+    m = 5 * parabolic_demo.GREEDY_EXTENSIONS + 1
+    off = r0 >> 11
+    signs, sampling, _ = _srht_plan(0, nodes * nodes, k)
+    sg = signs[r0:r0 + n_local].to(device)
+    samp = sampling.to(device, torch.int32)
+    gen = torch.Generator(device=device).manual_seed(n_local + m)
+    x = torch.randn((n_local, m), generator=gen, device=device, dtype=torch.float64)
+    S = explicit_srht(sg, samp, n_local, k, torch.float64, device, row0=r0)
+    row = compare(f"sharded parabolic n_local={n_local} m={m} k={k} cols block_offset={off}",
+                  x, k, sg, samp, reps=50,
+                  kernel=lambda: srht_cuda.srht_onepass(x, k, sg, samp, block_offset=off),
+                  library=lambda: torch.matmul(S, x), block_offset=off)
+    del S, x
+    return row
+
+
+def sharded_parabolic_phase(ranks: dict) -> dict:
+    """[sharded parabolic]: each rank's ``run_sharded`` readings (``ranks``:
+    rank -> readings). Checks: (a) every step's CG converged and the
+    replicated readings (iterations, residuals, outputs) identical on the
+    ranks, the slabs within ``SHARDED_PARABOLIC_TOL`` of the one-device
+    trajectory, about three collectives a CG iteration (the halo gather of
+    M + dt A and two reductions); (b) the ranks' picks, max estimates and
+    reduced operators identical, the one-device run's picks, its max
+    estimates and its basis rows within ``SHARDED_PARABOLIC_GREEDY_TOL``
+    (relative; the basis up to each column's sign), SRHT launches a rank
+    equal to its reduce() calls and > 0."""
+    from rla4mor_tpu_torch.examples import large_scale_parabolic_demo as parabolic_demo
+
+    first = ranks[0]
+    a0, b0 = first["steps"], first["greedy"]
+    for r, res in ranks.items():
+        a, b = res["steps"], res["greedy"]
+        for key in ("iters", "rel_res", "outputs"):
+            check(a[key] == a0[key], f"[sharded parabolic]: rank {r}'s {key} differ from "
+                  "rank 0's")
+        check(all(x <= parabolic_demo.SHARDED_TOL * (1 + 1e-5) for x in a["rel_res"]),
+              f"[sharded parabolic]: rank {r}'s steps did not converge: {a['rel_res']}")
+        check(all(math.isfinite(x) for x in a["outputs"]), "[sharded parabolic]: outputs")
+        check(b["max_estimates"] == b0["max_estimates"]
+              and all(torch.equal(x, y) for x, y in zip(b["selected"], b0["selected"]))
+              and torch.equal(b["mass_r"], b0["mass_r"]) and torch.equal(b["lhs"], b0["lhs"]),
+              f"[sharded parabolic]: rank {r}'s POD-greedy differs from rank 0's")
+        check(len(b["selected"]) == len(b["one_device_selected"]) and all(
+            torch.equal(x, y) for x, y in zip(b["selected"], b["one_device_selected"])),
+            f"[sharded parabolic]: rank {r}'s picks {b['selected']} vs one-device "
+            f"{b['one_device_selected']}")
+        est_rel = max(abs(x - y) / abs(y) for x, y in zip(b["max_estimates"],
+                                                          b["one_device_max_estimates"]))
+        check(est_rel <= SHARDED_PARABOLIC_GREEDY_TOL
+              and b["basis_diff"] <= SHARDED_PARABOLIC_GREEDY_TOL,
+              f"[sharded parabolic]: rank {r}'s max estimates {est_rel:.3e} and basis "
+              f"{b['basis_diff']:.3e} off the one-device run's > "
+              f"{SHARDED_PARABOLIC_GREEDY_TOL:.0e}")
+        check(b["srht_launches"] == b["reduce_calls"] > 0,
+              f"[sharded parabolic]: rank {r} launched the SRHT {b['srht_launches']} times "
+              f"for {b['reduce_calls']} reduce() calls")
+    rel = (max(res["steps"]["diff_max"] for res in ranks.values())
+           / max(res["steps"]["ref_max"] for res in ranks.values()))
+    check(rel <= SHARDED_PARABOLIC_TOL, f"[sharded parabolic]: slabs vs one-device trajectory "
+          f"{rel:.3e} > {SHARDED_PARABOLIC_TOL:.0e}")
+    iters = sum(a0["iters"])
+    calls = sum(a0["comm"]["calls"].values())
+    check(calls <= 3 * iters + 8 * a0["steps"],
+          f"[sharded parabolic]: {calls} collectives for {iters} CG iterations")
+    return {"ranks": len(ranks), "grid": a0["grid"], "n": a0["n"], "rows": a0["rows"],
+            "dtype": a0["dtype"], "steps": a0["steps"], "s_per_step": a0["step_s"],
+            "cg_iters": a0["iters"], "s_per_iter": sum(a0["step_s"]) / iters,
+            "one_device_s_per_step": a0["one_device_step_s"],
+            "one_device_cg_iters": a0["one_device_iters"], "collectives": a0["comm"]["calls"],
+            "collectives_per_iter": calls / iters, "comm_s": a0["comm"]["seconds"],
+            "comm_share": a0["comm_share"], "host_copies": a0["comm"]["host_copies"],
+            "traj_rel_diff": rel, "ranks_identical": True,
+            "greedy_grid": b0["grid"], "greedy_n": b0["n"], "greedy_nt": b0["nt"],
+            "k": b0["k"], "training": b0["training"], "extensions": b0["extensions"],
+            "greedy_s": b0["greedy_s"], "s_per_extension": b0["extension_s"],
+            "fom_s": b0["fom_s"], "greedy_cg_iters": b0["cg_iters"],
+            "reduce_calls": b0["reduce_calls"],
+            "srht_launches_per_rank": [res["greedy"]["srht_launches"] for res in ranks.values()],
+            "srht_launches": sum(res["greedy"]["srht_launches"] for res in ranks.values()),
+            "selected": [[round(float(v), 6) for v in m] for m in b0["selected"]],
+            "max_estimates": b0["max_estimates"],
+            "one_device_max_estimates": b0["one_device_max_estimates"],
+            "max_est_rel_diff": max(abs(x - y) / abs(y) for res in ranks.values()
+                                    for x, y in zip(res["greedy"]["max_estimates"],
+                                                    res["greedy"]["one_device_max_estimates"])),
+            "basis_diff": max(res["greedy"]["basis_diff"] for res in ranks.values()),
+            "one_device_greedy_s": b0["one_device_s"]}
+
+
+def sharded_phase(device) -> tuple[dict, dict]:
     """[sharded]: the DoF-sharded greedy through ``large_scale_demo.run(ranks=2,
     backend="gloo")``, both ranks on the card, and the multi-chip dryrun in
     the same group (``also``). Checks: the ranks' states and estimates
@@ -3003,15 +3143,18 @@ def sharded_phase(device) -> dict:
     Jacobi-CG iterations within ``SHARDED_APPLY_TOL`` / ``SHARDED_SOLVE_TOL``
     of the one-device ones, ``ncols`` = steps, the median estimate falls,
     each rank's SRHT launches 1 (the rhs) + 1 a step (counted by the rank
-    from 0 at its start, less the one-device checks'), the dryrun's checks."""
+    from 0 at its start, less the one-device checks'), the dryrun's checks.
+    Returns the phase's readings and each rank's [sharded parabolic] ones."""
     from rla4mor_tpu_torch.examples import large_scale_demo as demo
+    from rla4mor_tpu_torch.examples import large_scale_parabolic_demo as parabolic_demo
     from rla4mor_tpu_torch.examples import multichip_dryrun
 
     t0 = time.perf_counter()
+    also = {"dryrun": multichip_dryrun.dryrun,
+            "parabolic": parabolic_demo.run_sharded}
     ranks = demo.run(grid=SHARDED_GRID, steps=SHARDED_STEPS, k=LARGE_K, sketch="srht",
                      ranks=SHARDED_RANKS, backend="gloo", device=device, check_one_device=True,
-                     also=multichip_dryrun.dryrun,
-                     log=functools.partial(print, "[sharded]", flush=True))
+                     also=also, log=functools.partial(print, "[sharded]", flush=True))
     wall_s = time.perf_counter() - t0
     check(sorted(ranks) == list(range(SHARDED_RANKS)), f"[sharded]: ranks {sorted(ranks)}")
     first = ranks[0]
@@ -3037,9 +3180,14 @@ def sharded_phase(device) -> dict:
         check(res["srht_launches"] == 1 + SHARDED_STEPS,
               f"[sharded]: rank {r} launched the SRHT {res['srht_launches']} times, not "
               f"1 + {SHARDED_STEPS}")
+        dry, dry0 = res["also"]["dryrun"], first["also"]["dryrun"]
         for key in ("srb", "res_lhs", "res_rhs", "out"):
-            check(torch.equal(res["also"]["state"][key], first["also"]["state"][key]),
+            check(torch.equal(dry["state"][key], dry0["state"][key]),
                   f"[multichip dryrun]: rank {r}'s state {key}")
+        check(dry["time_outputs"] == dry0["time_outputs"]
+              and dry["pod_greedy"]["max_estimates"] == dry0["pod_greedy"]["max_estimates"]
+              and torch.equal(dry["semilinear"]["eta"], dry0["semilinear"]["eta"]),
+              f"[multichip dryrun]: rank {r}'s time loops")
     check(int(first["state"]["ncols"]) == SHARDED_STEPS,
           f"[sharded]: ncols {int(first['state']['ncols'])}")
     # the median estimate must fall, as [large]'s: the float32 Jacobi-CG
@@ -3051,11 +3199,13 @@ def sharded_phase(device) -> dict:
     max_est = [float(e.max()) for e in first["estimates"]]
     med = first["median_est"]
     check(med[-1] < med[0], f"[sharded]: median estimate did not fall: {med}")
-    dry = first["also"]
+    dry = first["also"]["dryrun"]
     phase("multichip dryrun", mesh=dry["mesh"].replace(" ", ""), grid=dry["grid"],
           median_est=float(dry["estimates"].median()), anchor=dry["anchor"],
           anchor_radius=dry["anchor_radius"], anchor_iters=dry["anchor_iters"],
-          bicgstab_iters=dry["bicgstab_iters"], s=dry["seconds"])
+          bicgstab_iters=dry["bicgstab_iters"], time_outputs=dry["time_outputs"],
+          semilinear_eta=[round(float(e), 6) for e in dry["semilinear"]["eta"]],
+          pod_greedy_max_est=dry["pod_greedy"]["max_estimates"], s=dry["seconds"])
     out = {"ranks": SHARDED_RANKS, "n": first["n"], "grid": first["grid"], "wall_s": wall_s,
            "setup_s": first["setup_s"], "step_s": first["step_s"], "comm_s": first["comm_s"],
            "comm_share": sum(first["comm_s"]) / sum(first["step_s"]),
@@ -3069,7 +3219,7 @@ def sharded_phase(device) -> dict:
            "srht_launches": sum(res["srht_launches"] for res in ranks.values()),
            "collectives": first["comm"]["calls"], "host_copies": first["comm"]["host_copies"],
            "comm_s_total": first["comm"]["seconds"]}
-    return out
+    return out, {r: res["also"]["parabolic"] for r, res in ranks.items()}
 
 
 def sharded_nccl_phase(device) -> dict:
@@ -3314,8 +3464,11 @@ def main(argv=None) -> int:
     # the sharded greedy on 2 gloo ranks sharing the card with the dryrun
     # in the same group, then one NCCL rank against the mesh-less step
     sharded_rows = sharded_kernel_rows(device)
-    sharded = sharded_phase(device)
+    spar_row = sharded_parabolic_kernel_row(device)
+    sharded, spar_ranks = sharded_phase(device)
     phase("sharded", **sharded, card=smi)
+    spar = sharded_parabolic_phase(spar_ranks)
+    phase("sharded parabolic", **spar, card=smi)
     sharded_nccl = sharded_nccl_phase(device)
     phase("sharded nccl", **sharded_nccl, card=smi)
 
@@ -3442,6 +3595,15 @@ def main(argv=None) -> int:
                      "their block offset; the JAX mesh path computes this through its XLA "
                      "twin srht_sketch_sharded_flat, rla4mor_tpu/parallel/"
                      "sharded_sketch.py:195), a subset of the first row's"),
+        # [sharded parabolic]: one launch a reduce() on each rank's rows of
+        # the float64 block [M V | A_1 V .. A_4 V | b] with their block offset
+        kernel_entry("srht_onepass", "rla4mor_tpu_torch/csrc/srht_onepass.cu",
+                     "rla4mor_tpu/ops/srht_pallas.py:580", spar["srht_launches"], spar_row,
+                     dtype="float64",
+                     note="the [sharded parabolic] POD-greedy's launches, every rank's (one "
+                     "a reduce() on the rank's rows with their block offset; the JAX mesh "
+                     "path computes this through its XLA twin srht_sketch_sharded_flat, "
+                     "rla4mor_tpu/parallel/sharded_sketch.py:195)"),
     ]}), flush=True)
     phase("wall", s=time.perf_counter() - t_start)
     print(json.dumps({"ok": True, "device": {

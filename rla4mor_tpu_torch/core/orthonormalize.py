@@ -17,6 +17,7 @@ from typing import Optional, Sequence, Tuple
 import torch
 
 from rla4mor_tpu_torch.core.products import Product
+from rla4mor_tpu_torch.core.solvers import group_sum
 
 
 def gram_schmidt(
@@ -26,6 +27,7 @@ def gram_schmidt(
     return_R: bool = False,
     reiterate: bool = True,
     atol: float = 0.0,
+    group=None,
 ):
     """CGS-2 on the columns of U (n, r), w.r.t. ``product`` (l2 if None).
 
@@ -33,7 +35,13 @@ def gram_schmidt(
     mode). A column whose orthogonalised norm is ``<= atol`` (or not finite)
     becomes a zero column with ``R[j, j] = 0``, so R stays (r, r) and the
     caller handles rank deficiency with a pseudo-inverse. R holds both
-    passes' coefficients and ``R[:offset, :offset] = I``."""
+    passes' coefficients and ``R[:offset, :offset] = I``.
+
+    ``group``: the ranks hold their rows of U (a DoF-sharded block); every
+    n-axis contraction (each pass's projections, each norm) is all-reduced
+    over it, so R is the same on every rank and Q stays in the ranks' rows,
+    never gathered. ``product.op`` then acts on a rank's rows (the
+    identity, or an operator that exchanges its own halos)."""
     Q = torch.as_tensor(U).clone()
     n, r = Q.shape
     R = torch.zeros((r, r), dtype=Q.dtype, device=Q.device)
@@ -41,11 +49,14 @@ def gram_schmidt(
 
     def inner(X, y):
         if product is None:
-            return X.conj().T @ y
-        return X.conj().T @ torch.as_tensor(product.op.apply(y)).to(y)
+            return group_sum(X.conj().T @ y, group)
+        return group_sum(X.conj().T @ torch.as_tensor(product.op.apply(y)).to(y), group)
 
     def norm(y):
-        return torch.linalg.vector_norm(y) if product is None else product.norm(y)
+        if group is None:
+            return torch.linalg.vector_norm(y) if product is None else product.norm(y)
+        Ry = y if product is None else torch.as_tensor(product.op.apply(y)).to(y)
+        return torch.sqrt(torch.clamp(group_sum(torch.vdot(y, Ry).real, group), min=0.0))
 
     for j in range(offset, r):
         v = Q[:, j]
@@ -66,17 +77,19 @@ def gram_schmidt(
 
 
 def pod(U, product: Optional[Product] = None, modes: Optional[int] = None,
-        rtol: Optional[float] = 1e-7):
+        rtol: Optional[float] = 1e-7, group=None):
     """POD by the method of snapshots: the eigendecomposition of the Gram
     matrix U^H R U (r, r) gives the R-orthonormal modes U V / sqrt(lambda).
     Returns (modes (n, q), singular values (q,)), descending.
 
     ``rtol`` keeps the singular values above ``rtol`` times the largest (the
     method's noise floor is about sqrt(eps), hence 1e-7), at most ``modes``
-    of them; ``rtol=None`` keeps exactly ``modes``."""
+    of them; ``rtol=None`` keeps exactly ``modes``. ``group``: the ranks
+    hold their rows of U; the Gram matrix is all-reduced over it (the same
+    eigendecomposition on every rank) and each rank's modes are its rows."""
     U = torch.as_tensor(U)
     RU = U if product is None else torch.as_tensor(product.op.apply(U)).to(U)
-    G = U.conj().T @ RU
+    G = group_sum(U.conj().T @ RU, group)
     G = 0.5 * (G + G.conj().T)
     lam, V = torch.linalg.eigh(G)
     lam, V = lam.flip(0), V.flip(1)  # descending

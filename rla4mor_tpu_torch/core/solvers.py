@@ -31,17 +31,22 @@ class CGResult(NamedTuple):
 def _vdot(a: torch.Tensor, b: torch.Tensor, group=None) -> torch.Tensor:
     """sum(conj(a) * b) over all entries (``jnp.vdot`` flattens), summed over
     ``group``'s ranks when given."""
-    d = torch.vdot(a.reshape(-1), b.reshape(-1))
-    return d if group is None else _group_sum(d, group)
+    return group_sum(torch.vdot(a.reshape(-1), b.reshape(-1)), group)
 
 
-def _norm(a: torch.Tensor, group=None) -> torch.Tensor:
+def group_norm(a: torch.Tensor, group=None) -> torch.Tensor:
+    """||a||_2 of the ranks' rows of ``a``, summed over ``group`` (every rank
+    gets it); the norm of ``a`` without a group."""
     if group is None:
         return torch.linalg.vector_norm(a)
     return torch.sqrt(_vdot(a, a, group).real)
 
 
-def _group_sum(t: torch.Tensor, group) -> torch.Tensor:
+def group_sum(t: torch.Tensor, group) -> torch.Tensor:
+    """``t`` summed over ``group``'s ranks (``parallel/mesh.py::all_reduce`` of
+    a copy); ``t`` itself without a group."""
+    if group is None:
+        return t
     from rla4mor_tpu_torch.parallel.mesh import all_reduce
 
     return all_reduce(t.clone(), group)
@@ -68,12 +73,12 @@ def cg(
 
     def rz_rnorm(r, z):  # r.z and ||r||, one reduction over the group
         if group is None:
-            return _vdot(r, z).real, _norm(r)
-        rz, rr = _group_sum(torch.stack([_vdot(r, z).real, _vdot(r, r).real]),
-                            group).unbind(0)
+            return _vdot(r, z).real, group_norm(r)
+        rz, rr = group_sum(torch.stack([_vdot(r, z).real, _vdot(r, r).real]),
+                           group).unbind(0)
         return rz, torch.sqrt(rr)
 
-    bnorm = _norm(b, group)
+    bnorm = group_norm(b, group)
     r = b - matvec(x)
     z = M(r)
     p = z
@@ -233,7 +238,7 @@ def bicgstab(
     x = torch.zeros_like(b) if x0 is None else x0
     M = precond if precond is not None else (lambda r: r)
 
-    bnorm = _norm(b, group)
+    bnorm = group_norm(b, group)
     r = b - matvec(x)
     rhat = r  # fixed shadow residual
     tiny = torch.finfo(r.real.dtype).tiny
@@ -243,13 +248,13 @@ def bicgstab(
 
     def dots(*pairs):  # the inner products of the pairs, one reduction a call
         d = [_vdot(a, c) for a, c in pairs]
-        return d if group is None else _group_sum(torch.stack(d), group).unbind(0)
+        return d if group is None else group_sum(torch.stack(d), group).unbind(0)
 
     one = torch.ones((), dtype=r.dtype, device=r.device)
     p, v = torch.zeros_like(b), torch.zeros_like(b)
     rho = alpha = omega = one
     if group is None:
-        rnorm = _norm(r)
+        rnorm = group_norm(r)
     else:  # ||r|| and the next rhat.r in one reduction
         rr, rho_next = dots((r, r), (rhat, r))
         rnorm = torch.sqrt(rr.real)
@@ -270,7 +275,7 @@ def bicgstab(
         x_new = x + alpha_new * ph + omega_new * sh
         r_new = s - omega_new * t
         if group is None:
-            rnorm_new = _norm(r_new)
+            rnorm_new = group_norm(r_new)
         else:
             rr, rho_next = dots((r_new, r_new), (rhat, r_new))
             rnorm_new = torch.sqrt(rr.real)

@@ -200,8 +200,9 @@ def run(grid: int = 2047, steps: int = 4, k: int = 256, precond: str = "jacobi",
     the gathered block (``out["sketch_check"]``; its kernel launches are not
     the path's), and the slab apply and a fixed number of solver iterations
     against the one-device ones (``out["slab_check"]``, :func:`slab_check`).
-    ``also(mesh, device, log) -> dict``: run in each rank after the demo
-    (e.g. ``multichip_dryrun.dryrun``), its readings under ``"also"``."""
+    ``also``: a dict of callables ``fn(mesh, device, log) -> dict`` by name
+    (e.g. ``multichip_dryrun.dryrun``), run in each rank after the demo in
+    its order, their readings under ``"also"`` by name."""
     if mesh is None and (ranks > 1 or backend is not None):
         return run_ranks(ranks, backend, device, also=also, grid=grid, steps=steps, k=k,
                          precond=precond, sketch=sketch, score=score, dtype=dtype,
@@ -461,7 +462,7 @@ def _demo_rank(rank: int, n_dof: int, kw: dict, also) -> dict:
                    "host_copies": pm.COMM["host_copies"]}
     out = rank_summary(res)
     if also is not None:
-        out["also"] = also(mesh, device, log=log)
+        out["also"] = {name: fn(mesh, device, log=log) for name, fn in also.items()}
     return out
 
 

@@ -18,6 +18,11 @@ block.
 
     python -m rla4mor_tpu_torch.examples.large_scale_parabolic_demo --sketch srht
     python -m rla4mor_tpu_torch.examples.large_scale_parabolic_demo --cpu --grid 16 --nt 10
+    python -m rla4mor_tpu_torch.examples.large_scale_parabolic_demo --cpu --ranks 2 \
+        --backend gloo --grid 31 --greedy-grid 15
+
+The last runs :func:`run_sharded` (the time loop and POD-greedy on the
+ranks' DoF slabs, held against one device) on 2 gloo ranks.
 
 It prints the seconds of each extension and FOM trajectory, the CG
 iterations of the implicit steps, the max estimates, the held-out
@@ -42,6 +47,14 @@ import torch
 FAMILIES = ("thermal", "thermal3d")
 # the JAX demo's training set; the served batch: 200 requests padded to 256
 N_TRAIN, REQUESTS, SERVE_SIZE = 12, 200, 256
+# run_sharded: (a) the first SHARDED_STEPS implicit steps of the JAX demo's
+# TPU setting (grid 1023, dt = 1/50, Jacobi-CG 1e-6 / 1,500); (b) POD-greedy
+# in float64 at GREEDY_GRID (T = 1, GREEDY_NT steps, SRHT of GREEDY_K rows,
+# GREEDY_TRAINING parameters, GREEDY_EXTENSIONS, Jacobi-CG GREEDY_TOL)
+SHARDED_GRID, SHARDED_NT, SHARDED_STEPS = 1023, 50, 2
+SHARDED_TOL, SHARDED_MAXITER = 1e-6, 1500
+GREEDY_GRID, GREEDY_NT, GREEDY_K = 127, 10, 128
+GREEDY_TRAINING, GREEDY_EXTENSIONS, GREEDY_TOL = 16, 2, 1e-8
 
 
 def spacetime_residual(fom, mu, U: torch.Tensor) -> float:
@@ -234,6 +247,126 @@ def run(grid: int = 1024, nt: int = 50, ext: int = 5, k: int = 128, family: str 
     }
 
 
+def run_sharded(mesh, device, log=print, grid: int = SHARDED_GRID, nt: int = SHARDED_NT,
+                k: int = GREEDY_K, greedy_grid: int = GREEDY_GRID) -> dict:
+    """The parabolic tier on this rank's DoF slab of ``mesh`` (axes ``("dof",
+    "mu")``, the ranks started by ``parallel/launch.py``); every rank calls it.
+
+    ``"steps"``: the first ``SHARDED_STEPS`` implicit-Euler steps of the
+    thermal block at ``grid`` (dt = 1 / ``nt``, the demo's T = 1), in the
+    device's working dtype, Jacobi-CG to ``SHARDED_TOL`` / ``SHARDED_MAXITER``
+    on the slabs: each step's host seconds and CG iterations, the
+    collectives by kind and their share of the steps' seconds
+    (``parallel.mesh.COMM``, counted from 0 at the first step), the outputs
+    at the stored steps (summed over ``"dof"``). ``"greedy"``: POD-greedy in
+    float64 on the slabs at ``greedy_grid`` (T = 1, ``GREEDY_NT`` steps,
+    Jacobi-CG ``GREEDY_TOL`` / ``SHARDED_MAXITER``), sketched by a
+    ``ShardedSrhtEmbedding`` of ``k`` rows (the one-pass kernel on the
+    rank's rows of each ``reduce()`` block, with their block offset),
+    ``GREEDY_TRAINING`` parameters (seed 1, the demo's),
+    ``GREEDY_EXTENSIONS``; the sweep split over ``"mu"``. ``srht_launches``
+    counts the kernel's launches from 0 just before the greedy to just
+    after it.
+
+    Each rank then runs both on one device at the same settings and seeds
+    and holds its rows against them (``diff_max`` / ``ref_max``, the
+    selected parameters and max estimates, the basis rows up to each
+    column's sign)."""
+    from rla4mor_tpu_torch import models
+    from rla4mor_tpu_torch.ops import srht_cuda
+    from rla4mor_tpu_torch.ops.embeddings import SrhtEmbedding
+    from rla4mor_tpu_torch.parallel import ShardedSrhtEmbedding
+    from rla4mor_tpu_torch.parallel import mesh as pm
+    from rla4mor_tpu_torch.utils.config import default_dtype, resolve_device, sync
+
+    device = resolve_device(device)
+    dtype = default_dtype(device)
+    out = {}
+
+    # (a) the first implicit steps at full width
+    st = models.StencilThermalBlock((2, 2), grid, dtype=dtype, device=device)
+    steps, tol, maxiter = SHARDED_STEPS, SHARDED_TOL, SHARDED_MAXITER
+    fom = models.InstationaryStencilFOM(st, T=steps / nt, nt=steps)
+    mu = fom.parameter_space.sample_randomly(1, seed=5, device=device, dtype=dtype)[0]
+    sl = fom.slab(mesh)
+    pm.reset_comm()
+    traj = fom.solve(mu, tol=tol, maxiter=maxiter, mesh=mesh)
+    sync(device)
+    rec = fom.solve_log[-1]
+    comm = {"calls": dict(pm.COMM["calls"]), "seconds": pm.COMM["seconds"],
+            "host_copies": pm.COMM["host_copies"]}
+    a = {"grid": grid, "n": st.n_nodes ** 2, "rows": sl.slab.rows, "dtype": str(dtype),
+         "steps": steps, "dt": fom.dt, "step_s": rec["step_s"], "iters": rec["iters"],
+         "rel_res": rec["rel_res"], "comm": comm,
+         "comm_share": comm["seconds"] / sum(rec["step_s"]),
+         "outputs": [float(sl.output(traj[..., j])) for j in range(traj.shape[-1])]}
+    log(f"{steps} implicit steps at grid {grid} ({a['n']:,} DoF, {sl.slab.rows} node rows a "
+        f"rank, {dtype}): s/step {[round(x, 3) for x in rec['step_s']]}, CG iterations "
+        f"{rec['iters']}, collectives {comm['calls']} ({comm['seconds']:.2f}s, share "
+        f"{a['comm_share']:.2f})")
+    one = models.InstationaryStencilFOM(st, T=steps / nt, nt=steps)
+    ref = one.solve(mu, tol=tol, maxiter=maxiter)[sl.slab.r0:sl.slab.r1]
+    a.update(diff_max=float((traj - ref).abs().max()), ref_max=float(ref.abs().max()),
+             one_device_step_s=one.solve_log[-1]["step_s"],
+             one_device_iters=one.solve_log[-1]["iters"])
+    del ref
+    out["steps"] = a
+    del traj
+
+    # (b) POD-greedy on the slabs, float64, the SRHT kernel at the rank's rows
+    st64 = models.StencilThermalBlock((2, 2), greedy_grid, dtype=torch.float64,
+                                      device=device)
+    pfom = models.InstationaryStencilFOM(st64, T=1.0, nt=GREEDY_NT)
+    view = pfom.as_reductor_fom(mesh=mesh, tol=GREEDY_TOL, maxiter=maxiter)
+    emb = ShardedSrhtEmbedding(k, view.solution_dim, mesh, seed=0).to(device)
+    red = models.InstationaryReductor(view, embedding=emb, log_level=30)
+    train = view.parameter_space.sample_randomly(GREEDY_TRAINING, seed=1, device=device,
+                                                 dtype=torch.float64)
+    srht_cuda.srht_onepass.launches = 0
+    t0 = time.perf_counter()
+    rom, hist = models.pod_greedy(view, red, train, max_extensions=GREEDY_EXTENSIONS,
+                                  log_level=30, mesh=mesh)
+    sync(device)
+    greedy_s = time.perf_counter() - t0
+    launches = srht_cuda.srht_onepass.launches
+    b = {"grid": greedy_grid, "n": view.solution_dim, "nt": GREEDY_NT, "k": k,
+         "training": GREEDY_TRAINING, "extensions": GREEDY_EXTENSIONS, "greedy_s": greedy_s,
+         "extension_s": hist["extension_s"], "fom_s": hist["fom_s"],
+         "cg_iters": [log_["iters"] for log_ in pfom.solve_log],
+         "reduce_calls": red.reduce_calls, "srht_launches": launches,
+         "selected": [m["diffusion"].cpu() for m in hist["selected_mus"]],
+         "max_estimates": hist["max_estimates"], "mass_r": rom.mass_r.cpu(),
+         "lhs": rom.lhs.stack.cpu(), "row_offset": view.row_offset,
+         "local_rows": view.local_dim}
+    log(f"POD-greedy on the slabs at grid {greedy_grid} (float64, nt {GREEDY_NT}, k {k}): "
+        f"s/extension {[round(x, 2) for x in hist['extension_s']]}, SRHT launches {launches} "
+        f"for {red.reduce_calls} reduce() calls, max estimates {hist['max_estimates']}")
+    view1 = pfom.as_reductor_fom(tol=GREEDY_TOL, maxiter=maxiter)
+    signs, sampling = emb.plan
+    red1 = models.InstationaryReductor(view1, embedding=SrhtEmbedding.from_plan(
+        view1.solution_dim, k, signs.cpu(), sampling.cpu(), device=device,
+        dtype=torch.float64), log_level=30)
+    t0 = time.perf_counter()
+    _, hist1 = models.pod_greedy(view1, red1, train, max_extensions=GREEDY_EXTENSIONS,
+                                 log_level=30)
+    rows = red1.rb[view.row_offset:view.row_offset + view.local_dim]
+    sign = torch.sign((rows * red.rb).sum(dim=0))
+    b.update(one_device_s=time.perf_counter() - t0,
+             one_device_selected=[m["diffusion"].cpu() for m in hist1["selected_mus"]],
+             one_device_max_estimates=hist1["max_estimates"],
+             basis_diff=float((red.rb * sign - rows).abs().max()))
+    out["greedy"] = b
+    return out
+
+
+def _sharded_rank(rank: int, ranks: int, kw: dict) -> dict:
+    from rla4mor_tpu_torch.parallel import launch, make_mesh
+
+    device = launch.rank_device()
+    mesh = make_mesh(("dof", "mu"), (ranks, 1), device=device)
+    return run_sharded(mesh, device, log=print if rank == 0 else (lambda line: None), **kw)
+
+
 def anchor_coercivity(st, view, precond: str, log=print) -> dict:
     """The l2 coercivity anchor of the stencil operator at mu_ref = 1 (the
     estimator's metric: the reductor's embedding is an unweighted l2 one)
@@ -281,9 +414,27 @@ def main(argv=None) -> int:
     ap.add_argument("--bounds", action="store_true",
                     help="the certified final-time bound at the held-out parameter "
                     "(the l2 anchor by the matrix-free SCM)")
+    ap.add_argument("--ranks", type=int, default=0,
+                    help="run_sharded on this many ranks (a (ranks, 1) mesh; --grid "
+                    "elements, 2 steps, then POD-greedy at --greedy-grid)")
+    ap.add_argument("--backend", choices=["gloo", "nccl"], default=None,
+                    help="with --ranks: gloo (the CPU, or ranks sharing one card) or nccl")
+    ap.add_argument("--greedy-grid", type=int, default=GREEDY_GRID)
     args = ap.parse_args(argv)
     grid = args.grid if args.grid is not None else (255 if args.family == "thermal3d" else 1024)
     device = "cpu" if args.cpu else None
+    if args.ranks:
+        from rla4mor_tpu_torch.parallel.launch import spawn
+
+        if args.backend is None:
+            ap.error("--ranks needs --backend")
+        kw = dict(grid=args.grid if args.grid is not None else SHARDED_GRID, nt=args.nt,
+                  k=args.k, greedy_grid=args.greedy_grid)
+        spawn(_sharded_rank, args.ranks, args.backend,
+              device or ("cuda:0" if args.backend == "gloo" else "cuda"),
+              args=(args.ranks, kw))
+        print("done")
+        return 0
     embedding = None
     if args.sketch == "srht":
         from rla4mor_tpu_torch.ops.embeddings import SrhtEmbedding

@@ -12,7 +12,18 @@ and the grid has N + 1 = 4 max(n_dof, 2) node rows. Each rank runs:
 * one row-sharded LOBPCG anchor of A(1) (k = 1, block 2, 30 iterations, tol
   1e-3, R = I on the interior);
 * the advection family's step: sharded BiCGStab, minres projection, the
-  exact score (k = 16, r_max = 2, 1e-4 / 300).
+  exact score (k = 16, r_max = 2, 1e-4 / 300);
+* the time loops on the DoF slabs (T = 0.1, nt = 2): the parabolic 2-D,
+  3-D (``StencilThermalBlock3D((2, 2, 2), N)``, z-plane slabs) and
+  advection (BiCGStab) loops, the Newmark wave loop;
+* the semilinear tier: 3 DoF-sharded Newton snapshots (reaction scale 10,
+  1e-6), gathered and fitted replicated (POD-DEIM, Gaussian k = 24), the
+  batched online stage split over ``"mu"``, the IMEX loop;
+* POD-greedy on the mesh (``_dryrun_pod_greedy_2d``): the CG time loop on
+  the slabs, the estimate sweep split over ``"mu"``, a sharded Gaussian
+  sketch (k = 16), 2 extensions over 2 n_mu parameters. The JAX dryrun
+  runs it on a mesh with a ``"mu"`` axis of more than one rank only; here
+  it runs on every mesh.
 
 Every finite and shape check of the JAX dryrun is made, and ``run`` checks
 that the ranks agree.
@@ -112,13 +123,104 @@ def dryrun(mesh, device, dtype=None, log=print) -> dict:
     astate, aest, _ = astep(astate, amu, abatch)
     _check(int(astate.ncols) == 1, f"advection ncols {int(astate.ncols)}")
     _check(_finite(aest), "advection estimates")
-    out.update(advection_estimates=aest.cpu(), bicgstab_iters=astep.last_solve.iters,
-               seconds=time.perf_counter() - t0)
+    out.update(advection_estimates=aest.cpu(), bicgstab_iters=astep.last_solve.iters)
+
+    out["time_outputs"] = _time_loops(mesh, fom, mu, afom, amu, N, device, dtype)
+    out["semilinear"] = _semilinear(mesh, N, device, dtype)
+    out["pod_greedy"] = _pod_greedy_2d(mesh, fom, device, dtype)
+    out["seconds"] = time.perf_counter() - t0
     log(f"[rank {pm.axis_index(mesh, 'dof')},{pm.axis_index(mesh, 'mu')}] {out['mesh']} grid "
         f"{N}: thermal ncols 2, median est {float(est.median()):.3e}; served "
         f"{4 * n_mu}; anchor {out['anchor']:.6e} (radius {out['anchor_radius']:.1e}); "
-        f"advection bicgstab {out['bicgstab_iters']} iters; {out['seconds']:.2f}s")
+        f"advection bicgstab {out['bicgstab_iters']} iters; final outputs "
+        + ", ".join(f"{k} {v:.4e}" for k, v in out["time_outputs"].items())
+        + f"; pod-greedy max est {out['pod_greedy']['max_estimates']}; "
+        f"{out['seconds']:.2f}s")
     return out
+
+
+def _time_loops(mesh, fom, mu, afom, amu, N: int, device, dtype) -> dict:
+    """The sharded time loops (T = 0.1, nt = 2); returns each one's output at
+    the final step (summed over ``"dof"``: the same on every rank)."""
+    from rla4mor_tpu_torch.models.instationary_stencil import InstationaryStencilFOM
+    from rla4mor_tpu_torch.models.stencil3d import StencilThermalBlock3D
+    from rla4mor_tpu_torch.models.wave_stencil import WaveStencilFOM
+
+    fom3 = StencilThermalBlock3D((2, 2, 2), N, dtype=dtype, device=device)
+    mu3 = fom3.sample_parameters(1, key=6)[0]
+    runs = {
+        "parabolic": (InstationaryStencilFOM(fom, T=0.1, nt=2), mu, 40),
+        "parabolic3d": (InstationaryStencilFOM(fom3, T=0.1, nt=2), mu3, 40),
+        "advection": (InstationaryStencilFOM(afom, T=0.1, nt=2), amu, 80),
+        "wave": (WaveStencilFOM(fom, T=0.1, nt=2), mu, 60),
+    }
+    outputs = {}
+    for name, (pfom, m, maxiter) in runs.items():
+        traj = pfom.solve(m, tol=1e-4, maxiter=maxiter, mesh=mesh)
+        sl = pfom.slab(mesh)
+        _check(tuple(traj.shape) == (*sl.local_shape, 3) and _finite(traj),
+               f"{name} trajectory {tuple(traj.shape)}")
+        outputs[name] = float(sl.output(traj[..., -1]))
+    return outputs
+
+
+def _semilinear(mesh, N: int, device, dtype) -> dict:
+    """DoF-sharded Newton snapshots, the replicated POD-DEIM fit on their
+    gathered columns, the batched online stage split over ``"mu"``, the
+    IMEX loop on the slabs."""
+    from rla4mor_tpu_torch.core import mu_stack
+    from rla4mor_tpu_torch.models.semilinear import (
+        SemilinearInstationaryFOM,
+        SemilinearStencilFOM,
+    )
+    from rla4mor_tpu_torch.mor.semilinear_reductor import SemilinearReductor
+    from rla4mor_tpu_torch.ops.embeddings import GaussianEmbedding
+    from rla4mor_tpu_torch.parallel import mesh as pm
+
+    slfom = SemilinearStencilFOM((2, 2), N, dtype=dtype, reaction_scale=10.0, device=device)
+    slmus = slfom.sample_parameters(3, seed=14)
+    group = pm.axis_group(mesh, "dof")
+    # the fit on whole snapshots: each rank gathers the (small) columns
+    snaps = torch.stack([
+        pm.all_gather_rows(slfom.solve_newton(m, newton_tol=1e-6, cg_tol=1e-6,
+                                              cg_maxiter=200, mesh=mesh), group).reshape(-1)
+        for m in slmus], dim=1)
+    _check(_finite(snaps), "semilinear snapshots")
+    red = SemilinearReductor(slfom, embedding=GaussianEmbedding.make(
+        slfom.n_dof, range_dim=24, seed=15, device=device, dtype=dtype))
+    rom = red.fit(None, snapshots=snaps, pod_rtol=1e-8, deim_rtol=1e-8, n_reserve=1)
+    batch = mu_stack(slfom.sample_parameters(4 * pm.axis_size(mesh, "mu"), seed=16))
+    a, eta = rom.solve_and_estimate_batch(batch, mesh=mesh)
+    _check(_finite(a) and _finite(eta) and eta.shape == (4 * pm.axis_size(mesh, "mu"),),
+           "semilinear batched online stage")
+    traj = SemilinearInstationaryFOM(slfom, T=0.1, nt=2).solve(slmus[0], tol=1e-5,
+                                                               maxiter=60, mesh=mesh)
+    _check(_finite(traj), "semilinear IMEX trajectory")
+    return {"snapshots": snaps.cpu(), "a": a.cpu(), "eta": eta.cpu(),
+            "imex_sum": float(slfom.linear.slab(mesh).slab.sum(traj[..., -1].sum()))}
+
+
+def _pod_greedy_2d(mesh, fom, device, dtype) -> dict:
+    """POD-greedy with the CG time loop on the DoF slabs and the estimate
+    sweep split over ``"mu"`` (the JAX dryrun's ``_dryrun_pod_greedy_2d``)."""
+    from rla4mor_tpu_torch.core import ParameterSpace
+    from rla4mor_tpu_torch.models.instationary import InstationaryReductor, pod_greedy
+    from rla4mor_tpu_torch.models.instationary_stencil import InstationaryStencilFOM
+    from rla4mor_tpu_torch.parallel import ShardedGaussianEmbedding
+    from rla4mor_tpu_torch.parallel import mesh as pm
+
+    view = InstationaryStencilFOM(fom, T=0.1, nt=2).as_reductor_fom(mesh=mesh, tol=1e-5,
+                                                                     maxiter=100)
+    red = InstationaryReductor(view, embedding=ShardedGaussianEmbedding(
+        16, view.solution_dim, mesh, seed=21), log_level=30)
+    space = ParameterSpace.make({"diffusion": 4}, 0.1, 1.0)
+    mus = space.sample_randomly(2 * pm.axis_size(mesh, "mu"), seed=13, device=device,
+                                dtype=dtype)
+    _, hist = pod_greedy(view, red, mus, max_extensions=2, log_level=30, mesh=mesh)
+    _check(red.basis_size >= 2 and all(e == e for e in hist["max_estimates"]),
+           f"pod-greedy basis {red.basis_size}, estimates {hist['max_estimates']}")
+    return {"selected": [m["diffusion"].cpu() for m in hist["selected_mus"]],
+            "max_estimates": hist["max_estimates"]}
 
 
 def _rank(rank: int, ranks: int, dtype) -> dict:
@@ -146,6 +248,16 @@ def run(ranks: int, backend: str, device, dtype=None) -> dict:
                    f"rank {r}'s state {key} differs from rank {min(res)}'s")
         _check(torch.equal(other["estimates"], first["estimates"]), f"rank {r}'s estimates")
         _check(other["anchor"] == first["anchor"], f"rank {r}'s anchor")
+        _check(other["time_outputs"] == first["time_outputs"], f"rank {r}'s time loops")
+        for key in ("snapshots", "a", "eta"):
+            _check(torch.equal(other["semilinear"][key], first["semilinear"][key]),
+                   f"rank {r}'s semilinear {key}")
+        _check(other["semilinear"]["imex_sum"] == first["semilinear"]["imex_sum"],
+               f"rank {r}'s IMEX trajectory")
+        pg, pg0 = other["pod_greedy"], first["pod_greedy"]
+        _check(pg["max_estimates"] == pg0["max_estimates"]
+               and all(torch.equal(a, b) for a, b in zip(pg["selected"], pg0["selected"])),
+               f"rank {r}'s POD-greedy")
     return res
 
 

@@ -38,6 +38,7 @@ from rla4mor_tpu_torch.core.linops import HostSparseOp, to_numpy
 from rla4mor_tpu_torch.core.orthonormalize import gram_schmidt
 from rla4mor_tpu_torch.core.parameters import Mu, ParameterSpace, eval_coefficients, mu_stack
 from rla4mor_tpu_torch.core.products import Product
+from rla4mor_tpu_torch.core.solvers import group_sum
 from rla4mor_tpu_torch.utils.config import as_tensor, default_dtype, resolve_device, sync
 from rla4mor_tpu_torch.utils.logger import get_logger
 
@@ -211,12 +212,22 @@ class InstationaryROM:
 class InstationaryReductor:
     """Galerkin reduction of an instationary FOM with a sketched space-time
     residual estimator (Theta = ``embedding``, Riesz lift R^-1 =
-    ``product.inv``)."""
+    ``product.inv``).
+
+    On a slab view (``InstationaryStencilFOM.as_reductor_fom(mesh=...)``:
+    its ``group``, ``local_dim`` and ``row_offset``) the basis holds this
+    rank's rows, every n-axis contraction is summed over the group, and the
+    sketch goes through a sharded embedding (``ShardedSrhtEmbedding`` /
+    ``ShardedGaussianEmbedding`` of the whole ``solution_dim``) at the
+    rank's ``row_offset``; the reduced model is the same on every rank.
+    ``product`` then acts on the rank's rows (the identity by default)."""
 
     def __init__(self, fom, embedding=None, product: Optional[Product] = None,
                  log_level: int = 20):
         self.fom = fom
-        n = fom.solution_dim
+        self.group = getattr(fom, "group", None)
+        self.row_offset = getattr(fom, "row_offset", None)
+        n = getattr(fom, "local_dim", fom.solution_dim)
         self.product = product if product is not None else Product.identity(n)
         self.embedding = embedding
         self.rb = torch.zeros((n, 0), dtype=fom.dtype, device=fom.device)
@@ -229,11 +240,11 @@ class InstationaryReductor:
 
     def extend_basis(self, U) -> None:
         """Append columns and R-orthonormalise them against the basis."""
-        self.rb = append_basis(self.rb, U, self.product)
+        self.rb = append_basis(self.rb, U, self.product, self.group)
 
     def project_trajectory(self, traj) -> torch.Tensor:
         """R-orthogonal projection error of an (n, nt+1) trajectory."""
-        return project_out(self.rb, traj, self.product)
+        return project_out(self.rb, traj, self.product, self.group)
 
     def reduce(self, pad_to: Optional[int] = None) -> InstationaryROM:
         """Emit the reduced model.
@@ -246,14 +257,15 @@ class InstationaryReductor:
         fom, V = self.fom, self.rb
         r = V.shape[1]
         mass_r, lhs, rhs_r, est_mass, est_lhs, est_rhs = project_time_system(
-            fom, V, self.product, self.embedding)
+            fom, V, self.product, self.embedding, self.group, self.row_offset)
         Ru0 = torch.as_tensor(self.product.op.apply(fom.u0)).to(V)
-        u0_r = V.conj().T @ Ru0
+        u0_r = group_sum(V.conj().T @ Ru0, self.group)
         out = None
         of = fom.output_functional
         if isinstance(of, AffineDense):
             stack = of.stack.to(torch.promote_types(of.stack.dtype, V.dtype))
-            out = AffineDense(torch.einsum("tqn,nr->tqr", stack, V.to(stack.dtype)),
+            out = AffineDense(group_sum(torch.einsum("tqn,nr->tqr", stack,
+                                                      V.to(stack.dtype)), self.group),
                               of.coefficients)
         if pad_to is not None:
             mass_r, lhs, rhs_r, est_mass, est_lhs, est_rhs = pad_time_system(
@@ -275,61 +287,73 @@ class InstationaryReductor:
         return self.rb.to(dt) @ a.to(dt)
 
 
-def append_basis(rb: torch.Tensor, U, product: Product) -> torch.Tensor:
+def append_basis(rb: torch.Tensor, U, product: Product, group=None) -> torch.Tensor:
     """``rb`` (R-orthonormal columns) with the columns of U appended and
-    R-orthonormalised against it (CGS-2)."""
+    R-orthonormalised against it (CGS-2); ``group``: the rows are a rank's."""
     U = torch.as_tensor(U).to(rb.device)
     if U.dim() == 1:
         U = U[:, None]
     dt = torch.promote_types(rb.dtype, U.dtype)
     return gram_schmidt(torch.cat([rb.to(dt), U.to(dt)], dim=1), product=product,
-                        offset=rb.shape[1])
+                        offset=rb.shape[1], group=group)
 
 
-def project_out(V: torch.Tensor, X, product: Product) -> torch.Tensor:
+def project_out(V: torch.Tensor, X, product: Product, group=None) -> torch.Tensor:
     """X - V V^H R X: the R-orthogonal projection error of X's columns onto
-    the R-orthonormal basis V."""
+    the R-orthonormal basis V (``group``: the rows are a rank's)."""
     X = torch.as_tensor(X)
     if V.shape[1] == 0:
         return X
     dt = torch.promote_types(V.dtype, X.dtype)
     RX = torch.as_tensor(product.op.apply(X)).to(X.device, dt)
     V = V.to(dt)
-    return X.to(dt) - V @ (V.conj().T @ RX)
+    return X.to(dt) - V @ group_sum(V.conj().T @ RX, group)
 
 
-def sketch_block(embedding, product: Product, blocks: Sequence[torch.Tensor]):
+def sketch_block(embedding, product: Product, blocks: Sequence[torch.Tensor],
+                 row_offset: Optional[int] = None):
     """Theta R^-1 of each column block in one ``embedding.apply`` of their
     concatenation (one kernel launch where the embedding has one) -> the
-    sketched blocks, split as given."""
+    sketched blocks, split as given. ``row_offset``: the blocks are a
+    rank's rows from that global row, sketched by a sharded embedding
+    (the whole sketch on every rank)."""
     dt = blocks[0].dtype
     for X in blocks[1:]:
         dt = torch.promote_types(dt, X.dtype)
     X = torch.cat([X.to(dt) for X in blocks], dim=1)
-    Y = torch.as_tensor(embedding.apply(torch.as_tensor(product.inv.apply(X))))
+    X = torch.as_tensor(product.inv.apply(X))
+    Y = torch.as_tensor(embedding.apply(X) if row_offset is None
+                        else embedding.apply(X, row_offset=row_offset))
     return torch.split(Y, [X.shape[1] for X in blocks], dim=1)
 
 
-def project_time_system(fom, V, product: Product, embedding):
+def project_time_system(fom, V, product: Product, embedding, group=None,
+                        row_offset: Optional[int] = None):
     """Galerkin and sketch projections: the reduced mass, stiffness and rhs,
     and the sketched residual images Theta R^-1 [M V | A_t V | b_t], one
     embedding apply for the whole block. Returns
-    (mass_r, lhs, rhs_r, est_mass, est_lhs, est_rhs)."""
+    (mass_r, lhs, rhs_r, est_mass, est_lhs, est_rhs). ``group`` /
+    ``row_offset``: V and the FOM's operators are a rank's rows (a slab
+    view), the Galerkin products summed over the group in one reduction."""
     Vh = V.conj().T
     MV = torch.as_tensor(fom.mass.apply(V)).to(V.device)
-    mass_r = Vh @ MV.to(V.dtype)
     AV = [torch.as_tensor(t.apply(V)).to(V.device) for t in fom.operator.terms]
-    lhs = AffineDense(torch.stack([Vh @ a.to(V.dtype) for a in AV]),
-                      fom.operator.coefficients)
     rhs_mat = fom.rhs if isinstance(fom.rhs, AffineDense) else materialize(fom.rhs)
     rstack = rhs_mat.stack.to(V.device)
     dt = torch.promote_types(rstack.dtype, V.dtype)
-    rhs_r = AffineDense(torch.einsum("nr,tnl->trl", V.conj().to(dt), rstack.to(dt)),
-                        rhs_mat.coefficients)
+    rhs_loc = torch.einsum("nr,tnl->trl", V.conj().to(dt), rstack.to(dt))
+    gal = torch.stack([Vh @ MV.to(V.dtype)] + [Vh @ a.to(V.dtype) for a in AV])
+    if group is not None:  # one reduction for the mass, the terms and the rhs
+        flat = group_sum(torch.cat([gal.reshape(-1).to(dt), rhs_loc.reshape(-1)]), group)
+        gal = flat[:gal.numel()].reshape(gal.shape).to(gal.dtype)
+        rhs_loc = flat[gal.numel():].reshape(rhs_loc.shape)
+    mass_r = gal[0].clone()
+    lhs = AffineDense(gal[1:].clone(), fom.operator.coefficients)
+    rhs_r = AffineDense(rhs_loc, rhs_mat.coefficients)
     est_mass = est_lhs = est_rhs = None
     if embedding is not None:
         T = len(AV)
-        parts = sketch_block(embedding, product, [MV, *AV, *rstack])
+        parts = sketch_block(embedding, product, [MV, *AV, *rstack], row_offset)
         est_mass = parts[0]
         est_lhs = AffineDense(torch.stack(parts[1:1 + T]), fom.operator.coefficients)
         est_rhs = AffineDense(torch.stack(parts[1 + T:]), rhs_mat.coefficients)
@@ -370,7 +394,7 @@ def pod_greedy(fom, reductor: InstationaryReductor, training_set: Sequence[Mu],
                max_extensions: int = 10, modes_per_extension: int = 1, atol: float = 0.0,
                rtol: float = 0.0, pad_to: Optional[int] = None,
                pod_method: str = "snapshots", coercivity=None,
-               log_level: int = 20) -> Tuple[InstationaryROM, dict]:
+               log_level: int = 20, mesh=None) -> Tuple[InstationaryROM, dict]:
     """POD-greedy (Haasdonk / Ohlberger): greedy over mu by the sketched
     space-time residual estimate; each extension appends the leading POD
     mode(s) of the R-orthogonal projection-error trajectory at the worst mu.
@@ -385,16 +409,27 @@ def pod_greedy(fom, reductor: InstationaryReductor, training_set: Sequence[Mu],
     SCM) upgrades the scores to the certified final-time bounds
     eta / sqrt(alpha_LB) (needs ``time_theta >= 1/2``).
 
+    ``mesh``: the counterpart of the JAX package's ``mu_sharding``: the
+    sweep's training batch is split over the mesh's ``"mu"`` axis
+    (``batch_share``: a multiple of it) and the estimates all-gathered, so
+    every rank takes the same argmax. The trajectories and the basis are
+    DoF-sharded by the reductor's slab view (``as_reductor_fom(mesh=...)``);
+    every rank returns the same history.
+
     History: ``selected_mus``, ``max_estimates``, and the seconds of each
     FOM trajectory (``fom_s``) and of each extension (``extension_s``: the
     sweep before it, the trajectory, its POD, the append and the reduce)."""
     from rla4mor_tpu_torch.core.orthonormalize import pod as pod_snapshots
     from rla4mor_tpu_torch.core.rsvd import pod_randomized
 
+    group = getattr(reductor, "group", None)  # a slab view's (the parabolic reductor)
     if pod_method == "snapshots":
         def pod(U, product, modes):
-            return pod_snapshots(U, product=product, modes=modes)
+            return pod_snapshots(U, product=product, modes=modes, group=group)
     elif pod_method == "randomized":
+        if group is not None:
+            raise ValueError("pod_method='randomized' runs on one device; a slab view "
+                             "takes 'snapshots'")
         def pod(U, product, modes):
             return pod_randomized(U, product=product, modes=modes, rtol=1e-7)
     else:
@@ -411,6 +446,13 @@ def pod_greedy(fom, reductor: InstationaryReductor, training_set: Sequence[Mu],
     history = {"selected_mus": [], "max_estimates": [], "fom_s": [], "extension_s": []}
     device = reductor.rb.device
     mus_batched = mu_stack(list(training_set))
+    sweep_batch, gather = mus_batched, (lambda est: est)
+    if mesh is not None and "mu" in mesh.mesh_dim_names:
+        from rla4mor_tpu_torch.parallel import mesh as pm
+
+        share = pm.batch_share(len(training_set), mesh, "mu")
+        sweep_batch = {key: v[share] for key, v in mus_batched.items()}
+        gather = lambda est: pm.gather_batch(est, mesh, "mu")  # noqa: E731
 
     def extend(mu, t_start):
         t0 = time.perf_counter()
@@ -445,7 +487,7 @@ def pod_greedy(fom, reductor: InstationaryReductor, training_set: Sequence[Mu],
     first_max = None
     for it in range(1, max_extensions):
         t_start = time.perf_counter()
-        estimates = to_numpy(rom.estimate_error(mus_batched))
+        estimates = to_numpy(gather(rom.estimate_error(sweep_batch)))
         if sqrt_alphas is not None:
             estimates = estimates / sqrt_alphas
         imax = int(np.argmax(estimates))

@@ -34,7 +34,7 @@ import time
 import torch
 
 from rla4mor_tpu_torch.core.parameters import ParameterSpace
-from rla4mor_tpu_torch.core.solvers import cg
+from rla4mor_tpu_torch.core.solvers import cg, group_norm
 from rla4mor_tpu_torch.models.stencil import (
     StencilThermalBlock,
     interior_mask,
@@ -125,17 +125,39 @@ class SemilinearStencilFOM:
 
     def residual(self, mu, u: torch.Tensor) -> torch.Tensor:
         """F(u) = A(mu) u + c M_L g(u) - f (zero on the ring)."""
-        return self.apply_linear(mu, u) + self.apply_nonlinear(mu, u) - self.rhs(u.dtype)
+        return self._residual(self.linear, mu, u)
 
     def jacobian_apply(self, mu, u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
         """J(u) v = A(mu) v + c M_L g'(u) v (SPD for monotone g)."""
-        w = self.reaction(mu, v.dtype) * self.mass_lumped_diag(v.dtype) * self.dg(u)
-        return self.apply_linear(mu, v) + w * v
+        return self._jacobian_apply(self.linear, mu, u, v)
 
     def jacobian_diag(self, mu, u: torch.Tensor) -> torch.Tensor:
         """diag J(u) for Jacobi preconditioning (>= diag A > 0)."""
-        return (self.linear.jacobi_diag(mu)
-                + self.reaction(mu, u.dtype) * self.mass_lumped_diag(u.dtype) * self.dg(u))
+        return self._jacobian_diag(self.linear, mu, u)
+
+    # -- the same on the whole grid (lin = self.linear) or on this rank's
+    # slab (lin = self.linear.slab(mesh)) ---------------------------------
+    def _lumped(self, lin, dtype) -> torch.Tensor:
+        """M_L on ``lin``'s rows."""
+        if lin is self.linear:
+            return self.mass_lumped_diag(dtype)
+        return (self.h * self.h) * lin.slab.mask(dtype, self.device)
+
+    def _residual(self, lin, mu, u: torch.Tensor) -> torch.Tensor:
+        nonlinear = self.reaction(mu, u.dtype) * self._lumped(lin, u.dtype) * self.g(u)
+        return lin.apply(mu, u) + nonlinear - lin.rhs(u.dtype)
+
+    def _jacobian_apply(self, lin, mu, u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+        w = self.reaction(mu, v.dtype) * self._lumped(lin, v.dtype) * self.dg(u)
+        return lin.apply(mu, v) + w * v
+
+    def _jacobian_diag(self, lin, mu, u: torch.Tensor) -> torch.Tensor:
+        return (lin.jacobi_diag(mu)
+                + self.reaction(mu, u.dtype) * self._lumped(lin, u.dtype) * self.dg(u))
+
+    def _linear_part(self, mesh, axis: str):
+        """The linear family on the whole grid, or its slab on ``mesh``."""
+        return self.linear if mesh is None else self.linear.slab(mesh, axis)
 
     def rhs(self, dtype=None) -> torch.Tensor:
         return self.linear.rhs(dtype)
@@ -149,9 +171,14 @@ class SemilinearStencilFOM:
         monotone bound needs only the linear family's coercivity)."""
         return self.linear.affine_operator()
 
-    def _preconditioner(self, mu, cg_precond: str, f: torch.Tensor):
+    def _preconditioner(self, mu, cg_precond: str, f: torch.Tensor, lin=None):
         """u -> the inner CG's preconditioner at the iterate u."""
+        lin = self.linear if lin is None else lin
         if cg_precond == "mg":
+            if lin is not self.linear:
+                raise ValueError("cg_precond='mg' on a mesh: the slabs take Jacobi (the "
+                                 "V-cycle's power-of-two element count leaves an odd number "
+                                 "of node rows, which an even 'dof' axis does not split)")
             from rla4mor_tpu_torch.core.graphs import graphed
             from rla4mor_tpu_torch.models.multigrid import make_vcycle
 
@@ -162,14 +189,15 @@ class SemilinearStencilFOM:
             return lambda u: vc
         if cg_precond == "jacobi":
             def precond_for(u):
-                diag = self.jacobian_diag(mu, u)
+                diag = self._jacobian_diag(lin, mu, u)
                 return lambda r: r / diag
             return precond_for
         raise ValueError(f"cg_precond must be 'jacobi' or 'mg': {cg_precond!r}")
 
     def solve_newton(self, mu, newton_tol: float = 1e-9, max_newton: int = 30,
                      cg_tol: float = 1e-10, cg_maxiter: int = 2000,
-                     cg_precond: str = "jacobi", return_info: bool = False):
+                     cg_precond: str = "jacobi", return_info: bool = False,
+                     mesh=None, axis: str = "dof"):
         """Newton-CG from u = 0 with full steps.
 
         Stops ``converged`` once ||F(u)||_2 <= newton_tol ||f||_2;
@@ -181,28 +209,41 @@ class SemilinearStencilFOM:
         of J(u)) or ``'mg'`` (the V-cycle of A(mu): needs a power-of-two
         ``num_intervals``; the float32 recipe at scale).
 
+        ``mesh``: the residual, the Jacobian, g and the lumped mass on this
+        rank's row slab (``linear.slab(mesh)``), every norm and the CG's
+        inner products summed over ``axis``; Jacobi only. u is then the
+        rank's slab of the solution.
+
         Returns u, or (u, info) with ``return_info``: ``iters`` (Newton
         steps taken, the stagnated one included), ``reason``, ``rel_res``
         (||F(u)|| / ||f|| of the returned u), ``residuals`` (the relative
         residual after each step, u = 0 first), ``cg_iters`` and
         ``seconds``; the same dict goes to ``solve_log``."""
-        f = self.rhs()
-        precond_for = self._preconditioner(mu, cg_precond, f)
+        lin = self._linear_part(mesh, axis)
+        group = None if mesh is None else lin.group
+        if mesh is None:
+            def residual(u):
+                return self.residual(mu, u)
+        else:
+            def residual(u):
+                return self._residual(lin, mu, u)
+        f = lin.rhs()
+        precond_for = self._preconditioner(mu, cg_precond, f, lin)
         t0 = time.perf_counter()
-        fnorm = max(float(torch.linalg.vector_norm(f)), torch.finfo(f.dtype).tiny)
+        fnorm = max(float(group_norm(f, group)), torch.finfo(f.dtype).tiny)
         thresh = newton_tol * fnorm
-        u = torch.zeros(self.solution_shape, dtype=self.dtype, device=self.device)
-        F = self.residual(mu, u)
-        rnorm = float(torch.linalg.vector_norm(F))
+        u = torch.zeros_like(f)
+        F = residual(u)
+        rnorm = float(group_norm(F, group))
         k, residuals, cg_iters = 0, [rnorm / fnorm], []
         while rnorm > thresh and k < max_newton:
             uk = u
-            res = cg(lambda v: self.jacobian_apply(mu, uk, v), -F, precond=precond_for(uk),
-                     tol=cg_tol, maxiter=cg_maxiter)
+            res = cg(lambda v: self._jacobian_apply(lin, mu, uk, v), -F,
+                     precond=precond_for(uk), tol=cg_tol, maxiter=cg_maxiter, group=group)
             cg_iters.append(res.iters)
             u_new = u + res.x
-            F_new = self.residual(mu, u_new)
-            rn_new = float(torch.linalg.vector_norm(F_new))
+            F_new = residual(u_new)
+            rn_new = float(group_norm(F_new, group))
             k += 1
             residuals.append(rn_new / fnorm)
             if rn_new <= thresh or rn_new <= 0.9 * rnorm:
@@ -258,25 +299,35 @@ class SemilinearInstationaryFOM:
         return mass_apply(v, self.fom.h)
 
     def solve(self, mu, tol: float = 1e-9, maxiter: int = 400,
-              store_every: int = 1) -> torch.Tensor:
+              store_every: int = 1, mesh=None, axis: str = "dof") -> torch.Tensor:
         """(*solution_shape, n_stored) trajectory including u0, time axis
-        last (``store_every`` keeps every s-th step)."""
+        last (``store_every`` keeps every s-th step). ``mesh``: the IMEX
+        loop on this rank's row slab (M + dt A one halo exchange an apply);
+        the rank's slab of the trajectory is returned."""
         fom, dt = self.fom, self.dt
         if self.nt % store_every:
             raise ValueError(f"store_every={store_every} must divide nt={self.nt}")
-        b = fom.rhs()
-        ml = fom.mass_lumped_diag()
         c = fom.reaction(mu)
+        if mesh is None:
+            b, ml, u, group = fom.rhs(), fom.mass_lumped_diag(), self.u0, None
+            mass = self._mass_apply
 
-        def B(v):
-            return self._mass_apply(v) + dt * fom.apply_linear(mu, v)
+            def B(v):
+                return self._mass_apply(v) + dt * fom.apply_linear(mu, v)
 
-        dia = mass_diag(fom.n_nodes, fom.h, fom.dtype, fom.device) \
-            + dt * fom.linear.jacobi_diag(mu)
-        u, stored = self.u0, [self.u0]
+            dia = mass_diag(fom.n_nodes, fom.h, fom.dtype, fom.device) \
+                + dt * fom.linear.jacobi_diag(mu)
+        else:
+            lin = fom._linear_part(mesh, axis)
+            b, ml, u, group = lin.rhs(), fom._lumped(lin, fom.dtype), lin.slab.local(self.u0), \
+                lin.group
+            mass, B = lin.mass_apply, lin.shifted(mu, dt)
+            dia = lin.mass_diag() + dt * lin.jacobi_diag(mu)
+        stored = [u]
         for k in range(1, self.nt + 1):
-            rhs = self._mass_apply(u) + dt * (b - c * ml * fom.g(u))
-            u = cg(B, rhs, x0=u, precond=lambda r: r / dia, tol=tol, maxiter=maxiter).x
+            rhs = mass(u) + dt * (b - c * ml * fom.g(u))
+            u = cg(B, rhs, x0=u, precond=lambda r: r / dia, tol=tol, maxiter=maxiter,
+                   group=group).x
             if k % store_every == 0:
                 stored.append(u)
         return torch.stack(stored, dim=-1)

@@ -85,19 +85,26 @@ def _pad(x: torch.Tensor) -> torch.Tensor:
     return F.pad(x, (1, 1, 1, 1))
 
 
+_MASS_W = ((1.0, 4.0, 1.0), (4.0, 16.0, 4.0), (1.0, 4.0, 1.0))
+
+
+def _mass_gather(up: torch.Tensor, rows: int, cols: int) -> torch.Tensor:
+    """The 9-point mass kernel's weighted sum on ``rows`` x ``cols`` nodes
+    from their masked values with a ring of neighbours, unscaled, unmasked."""
+    out = up.new_zeros((*up.shape[:-2], rows, cols))
+    for dy in range(3):
+        for dx in range(3):
+            out = out.add(up[..., dy:dy + rows, dx:dx + cols], alpha=_MASS_W[dy][dx])
+    return out
+
+
 def mass_apply(u: torch.Tensor, h: float) -> torch.Tensor:
     """Consistent Q1 mass apply, gather form: the 9-point kernel
     (h^2/36) [[1,4,1],[4,16,4],[1,4,1]] on interior nodes, the Dirichlet
     ring zeroed as in :func:`stencil_apply`."""
     M = u.shape[-1]
     mask = interior_mask(M, u.dtype, u.device)
-    up = _pad(u * mask)
-    w = ((1.0, 4.0, 1.0), (4.0, 16.0, 4.0), (1.0, 4.0, 1.0))
-    out = torch.zeros_like(u)
-    for dy in range(3):
-        for dx in range(3):
-            out = out.add(up[..., dy:dy + M, dx:dx + M], alpha=w[dy][dx])
-    return out * (h * h / 36.0) * mask
+    return _mass_gather(_pad(u * mask), M, M) * (h * h / 36.0) * mask
 
 
 def mass_diag(n_nodes: int, h: float, dtype=torch.float64, device=None) -> torch.Tensor:
@@ -353,18 +360,20 @@ class StencilTermOp(FlatGridOp):
 
 
 class Slab:
-    """Node rows ``[r0, r1)`` of an (M, M) node grid, this rank's equal share
-    along ``axis`` of ``mesh`` (M must split evenly). A slab apply reads one
-    halo row from each neighbour: :meth:`padded` gathers every rank's two
-    edge rows with one ``all_gather`` of the axis's group (gloo takes CUDA
-    tensors there, NCCL too), so an apply costs one collective. The
-    Dirichlet ring is placed by global row index; rows outside the grid
-    are zero, as the one-device apply's padding."""
+    """Node rows ``[r0, r1)`` of an (M, M) node grid, or node planes of an
+    (M, M, M) one (``ndim=3``), this rank's equal share along ``axis`` of
+    ``mesh`` (M must split evenly). A slab apply reads one halo row (plane)
+    from each neighbour: :meth:`padded` gathers every rank's two edge rows
+    with one ``all_gather`` of the axis's group (gloo takes CUDA tensors
+    there, NCCL too), so an apply costs one collective. The Dirichlet ring
+    is placed by global row index; rows outside the grid are zero, as the
+    one-device apply's padding."""
 
-    def __init__(self, n_nodes: int, mesh, axis: str = "dof"):
+    def __init__(self, n_nodes: int, mesh, axis: str = "dof", ndim: int = 2):
         from rla4mor_tpu_torch.parallel import mesh as pm
 
         self.n_nodes = int(n_nodes)
+        self.ndim = int(ndim)
         self.r0, self.r1 = pm.row_range(self.n_nodes, mesh, axis)
         self.rows = self.r1 - self.r0
         self.rank, self.size = pm.axis_index(mesh, axis), pm.axis_size(mesh, axis)
@@ -373,18 +382,26 @@ class Slab:
 
     @property
     def shape(self) -> tuple:
-        return (self.rows, self.n_nodes)
+        return (self.rows,) + (self.n_nodes,) * (self.ndim - 1)
+
+    def _grid_mask(self, dtype, device) -> torch.Tensor:
+        if self.ndim == 2:
+            return interior_mask(self.n_nodes, dtype, device)
+        from rla4mor_tpu_torch.models.stencil3d import interior_mask3
+
+        return interior_mask3(self.n_nodes, dtype, device)
 
     def mask(self, dtype, device) -> torch.Tensor:
-        """(rows, M): the slab's rows of the interior mask."""
-        return interior_mask(self.n_nodes, dtype, device)[self.r0:self.r1]
+        """The slab's rows of the interior mask."""
+        return self._grid_mask(dtype, device)[self.r0:self.r1]
 
     def _ext_mask(self, dtype, device) -> torch.Tensor:
-        """(rows + 2, M): the interior mask on rows r0 - 1 .. r1 (zero off the grid)."""
+        """The interior mask on rows r0 - 1 .. r1 (zero off the grid)."""
         key = (dtype, torch.device(device))
         if key not in self._masks:
-            m = torch.zeros((self.n_nodes + 2, self.n_nodes), dtype=dtype, device=device)
-            m[1:-1] = interior_mask(self.n_nodes, dtype, device)
+            rest = (self.n_nodes,) * (self.ndim - 1)
+            m = torch.zeros((self.n_nodes + 2, *rest), dtype=dtype, device=device)
+            m[1:-1] = self._grid_mask(dtype, device)
             self._masks[key] = m[self.r0:self.r1 + 2]
         return self._masks[key]
 
@@ -396,21 +413,23 @@ class Slab:
         return lo, hi
 
     def padded(self, u: torch.Tensor) -> torch.Tensor:
-        """(..., rows + 2, M + 2): u's rows with the neighbours' halo rows,
-        masked, and a zero column either side (``_pad`` of the one-device
-        apply, cut to the slab)."""
+        """(..., rows + 2, M + 2[, M + 2]): u's rows with the neighbours' halo
+        rows, masked, and a zero ring in the other grid axes (``_pad`` of
+        the one-device apply, cut to the slab)."""
         from rla4mor_tpu_torch.parallel import mesh as pm
 
-        got = pm.all_gather(torch.stack([u[..., 0, :], u[..., -1, :]]), self.group)
+        d = self.ndim
+        got = pm.all_gather(torch.stack([u.select(-d, 0), u.select(-d, -1)]), self.group)
         lo, hi = self.neighbours(got)
-        L, M = self.shape
+        L, M = self.rows, self.n_nodes
         mask = self._ext_mask(u.dtype, u.device)
-        up = u.new_zeros((*u.shape[:-2], L + 2, M + 2))
-        torch.mul(u, mask[1:L + 1], out=up[..., 1:L + 1, 1:M + 1])
+        up = u.new_zeros((*u.shape[:-d], L + 2) + (M + 2,) * (d - 1))
+        inner = (slice(1, M + 1),) * (d - 1)
+        torch.mul(u, mask[1:L + 1], out=up[(..., slice(1, L + 1)) + inner])
         if lo is not None:
-            torch.mul(lo, mask[0], out=up[..., 0, 1:M + 1])
+            torch.mul(lo, mask[0], out=up[(..., 0) + inner])
         if hi is not None:
-            torch.mul(hi, mask[L + 1], out=up[..., L + 1, 1:M + 1])
+            torch.mul(hi, mask[L + 1], out=up[(..., L + 1) + inner])
         return up
 
     def element_rows(self, field: torch.Tensor) -> torch.Tensor:
@@ -432,19 +451,21 @@ class Slab:
         return pm.all_reduce(t.clone(), self.group)
 
     def local(self, u: torch.Tensor) -> torch.Tensor:
-        """The slab's rows of a whole (..., M, M) grid."""
-        return u[..., self.r0:self.r1, :]
+        """The slab's rows of a whole (..., M, M[, M]) grid."""
+        return u.narrow(u.dim() - self.ndim, self.r0, self.rows)
 
 
 class SlabFOM:
     """What the slab views of the stencil families share: the protocol of
     ``models/stencil.py`` on this rank's rows (``local_shape``), with
     ``solution_shape`` the whole grid's; ``output`` and inner products are
-    sums over the mesh axis."""
+    sums over the mesh axis. A family gives :meth:`padded_operator`, A(mu)
+    on the slab's halo-padded rows; the time-dependent FOMs step with the
+    mass and :meth:`shifted`, M + c A(mu) from one halo exchange."""
 
     def __init__(self, fom, mesh, axis: str = "dof"):
         self.fom = fom
-        self.slab = Slab(fom.n_nodes, mesh, axis)
+        self.slab = Slab(fom.n_nodes, mesh, axis, ndim=len(fom.solution_shape))
         self.n_terms = fom.n_terms
         self.dtype, self.device = fom.dtype, fom.device
         self.h = fom.h
@@ -462,6 +483,11 @@ class SlabFOM:
     @property
     def group(self):
         return self.slab.group
+
+    @property
+    def row_offset(self) -> int:
+        """The global flat index of the slab's first node."""
+        return self.slab.r0 * math.prod(self.solution_shape[1:])
 
     def theta_vector(self, mu) -> torch.Tensor:
         return self.fom.theta_vector(mu)
@@ -489,6 +515,46 @@ class SlabFOM:
     def product_apply(self, u: torch.Tensor) -> torch.Tensor:
         """h1_0 product R = A(kappa = 1) on the slab."""
         return self.slab.apply(u, self._ones(u.dtype))
+
+    # -- operators on the halo-padded slab ---------------------------------
+    def padded_operator(self, mu, dtype):
+        """``up -> A(mu) u`` on the slab from its halo-padded rows ``up``
+        (:meth:`Slab.padded`), the coefficients evaluated once."""
+        raise NotImplementedError
+
+    def apply(self, mu, u: torch.Tensor) -> torch.Tensor:
+        return self.padded_operator(mu, u.dtype)(self.slab.padded(u))
+
+    def operator(self, mu):
+        """``v -> A(mu) v`` on the slab, one halo exchange an apply."""
+        A = self.padded_operator(mu, self.dtype)
+        return lambda v: A(self.slab.padded(v))
+
+    def _mass_padded(self, up: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+        """The consistent Q1 mass on the slab from its padded rows."""
+        L, M = self.local_shape
+        return (_mass_gather(up, L, M) * (self.h * self.h / 36.0)
+                * self.slab.mask(u.dtype, u.device))
+
+    def mass_apply(self, u: torch.Tensor) -> torch.Tensor:
+        """The FOM's mass on the slab (the consistent Q1 mass: one halo
+        exchange)."""
+        return self._mass_padded(self.slab.padded(u), u)
+
+    def mass_diag(self) -> torch.Tensor:
+        """The slab's rows of the mass diagonal (1 on the Dirichlet ring)."""
+        return self.slab.local(mass_diag(self.n_nodes, self.h, self.dtype, self.device))
+
+    def shifted(self, mu, c: float):
+        """``v -> M v + c A(mu) v`` on the slab: the implicit side of a time
+        step, one halo exchange an apply for both operators."""
+        A = self.padded_operator(mu, self.dtype)
+
+        def B(v):
+            up = self.slab.padded(v)
+            return self._mass_padded(up, v) + c * A(up)
+        return B
+
 
 
 class ThermalSlab(SlabFOM):
@@ -519,8 +585,11 @@ class ThermalSlab(SlabFOM):
         theta = as_tensor(mu["diffusion"], self.device, dt)
         return F.pad(torch.cat([theta, theta.new_zeros(1)])[self._blk], (1, 1))
 
-    def apply(self, mu, u: torch.Tensor) -> torch.Tensor:
-        return self.slab.apply(u, self.kappa_rows(mu, u.dtype))
+    def padded_operator(self, mu, dtype):
+        kp = self.kappa_rows(mu, dtype)
+        L, M = self.local_shape
+        mask = self.slab.mask(dtype, self.device)
+        return lambda up: _gather_apply(up, kp, L, M) * mask
 
     def apply_term(self, b: int, u: torch.Tensor) -> torch.Tensor:
         return self.slab.apply(u, self.term_kp(u.dtype)[b])
@@ -532,3 +601,30 @@ class ThermalSlab(SlabFOM):
     def jacobi_diag(self, mu) -> torch.Tensor:
         return self._diag(self.kappa_rows(mu))
 
+    # -- flattened-vector LinOp views of the slab --------------------------
+    def term_linop(self, b: int) -> "SlabTermOp":
+        return SlabTermOp(self, b)
+
+    def affine_operator(self):
+        """The FOM's AffineOp on the slab's flattened rows (the same
+        coefficients)."""
+        from rla4mor_tpu_torch.core.affine import AffineOp
+
+        return AffineOp(tuple(self.term_linop(b) for b in range(self.n_terms)),
+                        self.fom.affine_operator().coefficients)
+
+
+class SlabTermOp(FlatGridOp):
+    """LinOp view of one (symmetric) thermal term on the slab's flattened
+    rows, each apply one halo exchange."""
+
+    def __init__(self, sfom: ThermalSlab, b: int):
+        super().__init__(grid_shape=sfom.local_shape)
+        self.sfom, self.b = sfom, b
+
+    def _grid_apply(self, grid):
+        return self.sfom.apply_term(self.b, grid)
+
+    @property
+    def H(self):
+        return self

@@ -26,7 +26,7 @@ import torch.nn.functional as F
 
 from rla4mor_tpu_torch.core.parameters import ParameterSpace
 from rla4mor_tpu_torch.core.solvers import cg
-from rla4mor_tpu_torch.models.stencil import FlatGridOp
+from rla4mor_tpu_torch.models.stencil import FlatGridOp, SlabFOM
 from rla4mor_tpu_torch.utils.config import as_tensor, default_dtype, resolve_device
 
 
@@ -105,8 +105,30 @@ def _pad3(x: torch.Tensor) -> torch.Tensor:
     return F.pad(x, (1, 1, 1, 1, 1, 1))
 
 
-def _view3(t: torch.Tensor, dz: int, dy: int, dx: int, M: int) -> torch.Tensor:
-    return t[..., dz:dz + M, dy:dy + M, dx:dx + M]
+def _view3(t: torch.Tensor, dz: int, dy: int, dx: int, M: int, L: int | None = None
+           ) -> torch.Tensor:
+    """The (L, M, M) view at offset (dz, dy, dx); L = M by default."""
+    L = M if L is None else L
+    return t[..., dz:dz + L, dy:dy + M, dx:dx + M]
+
+
+def _gather_apply3(up: torch.Tensor, kp: torch.Tensor, L: int, M: int) -> torch.Tensor:
+    """The gather-form 3-D stencil sum on L x M x M nodes, unscaled and
+    unmasked: ``up`` (..., L + 2, M + 2, M + 2) the masked node values with
+    a shell of neighbours, ``kp`` (..., L + 1, M + 1, M + 1) the element
+    coefficients around them (zero outside the grid)."""
+    K = k_el_3d()
+    out = None
+    for a in range(8):
+        az, ay, ax = (a >> 2) & 1, (a >> 1) & 1, a & 1
+        s = None
+        for b in range(8):
+            bz, by, bx = (b >> 2) & 1, (b >> 1) & 1, b & 1
+            view = _view3(up, 1 - az + bz, 1 - ay + by, 1 - ax + bx, M, L)
+            s = view * K[a][b] if s is None else s.add(view, alpha=K[a][b])
+        term = _view3(kp, 1 - az, 1 - ay, 1 - ax, M, L) * s
+        out = term if out is None else out + term
+    return out
 
 
 def stencil3d_apply(u: torch.Tensor, kappa_el: torch.Tensor, h: float) -> torch.Tensor:
@@ -119,25 +141,18 @@ def stencil3d_apply(u: torch.Tensor, kappa_el: torch.Tensor, h: float) -> torch.
     mask = interior_mask3(M, u.dtype, u.device)
     up = _pad3(u * mask)                 # (..., M+2, M+2, M+2)
     kp = _pad3(kappa_el.to(u.dtype))     # (..., M+1, M+1, M+1)
-    K = k_el_3d()
-    out = None
-    for a in range(8):
-        az, ay, ax = (a >> 2) & 1, (a >> 1) & 1, a & 1
-        s = None
-        for b in range(8):
-            bz, by, bx = (b >> 2) & 1, (b >> 1) & 1, b & 1
-            view = _view3(up, 1 - az + bz, 1 - ay + by, 1 - ax + bx, M)
-            s = view * K[a][b] if s is None else s.add(view, alpha=K[a][b])
-        term = _view3(kp, 1 - az, 1 - ay, 1 - ax, M) * s
-        out = term if out is None else out + term
-    return out * (h * mask)
+    return _gather_apply3(up, kp, M, M) * (h * mask)
 
 
 def _eight_element_sum(kappa_el: torch.Tensor) -> torch.Tensor:
     """Per-node sum of the 8 adjacent elements' coefficients."""
-    kp = _pad3(kappa_el)
     M = kappa_el.shape[-1] + 1
-    return sum(_view3(kp, 1 - az, 1 - ay, 1 - ax, M)
+    return _padded_eight_sum(_pad3(kappa_el), M, M)
+
+
+def _padded_eight_sum(kp: torch.Tensor, L: int, M: int) -> torch.Tensor:
+    """The 8-element sum on L x M x M nodes from the padded coefficients."""
+    return sum(_view3(kp, 1 - az, 1 - ay, 1 - ax, M, L)
                for az in (0, 1) for ay in (0, 1) for ax in (0, 1))
 
 
@@ -238,6 +253,10 @@ class StencilThermalBlock3D:
         """A(kappa) u for any element field."""
         return stencil3d_apply(u, kappa_el.to(u.dtype), self.h)
 
+    def slab(self, mesh, axis: str = "dof") -> "Thermal3DSlab":
+        """This rank's z-plane slab of the FOM on ``mesh`` (:class:`Thermal3DSlab`)."""
+        return Thermal3DSlab(self, mesh, axis)
+
     def term_linop(self, b: int) -> "Stencil3DTermOp":
         return Stencil3DTermOp(self, b)
 
@@ -276,3 +295,58 @@ class Stencil3DTermOp(FlatGridOp):
     @property
     def H(self):
         return self
+
+
+class Thermal3DSlab(SlabFOM):
+    """:class:`StencilThermalBlock3D` on this rank's node planes ``[z0, z1)``
+    (``fom.slab(mesh)``), the counterpart of the JAX package's
+    ``P('dof', None, None)`` grid: the 27-point apply reads one halo plane
+    from each neighbour (one exchange); the lumped mass is diagonal and
+    reads none."""
+
+    is_spd = True
+
+    def __init__(self, fom: StencilThermalBlock3D, mesh, axis: str = "dof"):
+        super().__init__(fom, mesh, axis)
+        T = self.n_terms
+        # block ids of the slab's element planes z0 - 1 .. z1 - 1, padded by
+        # one element in y and x; T (a zero coefficient) off the grid
+        pad = F.pad(fom._block_index(), (1, 1, 1, 1, 1, 1), value=T)
+        self._blk = pad[self.slab.r0:self.slab.r1 + 1]
+
+    def kappa_rows(self, mu, dtype=None) -> torch.Tensor:
+        """(planes + 1, N + 2, N + 2): the slab's padded element coefficients."""
+        dt = self.dtype if dtype is None else dtype
+        theta = as_tensor(mu["diffusion"], self.device, dt)
+        return torch.cat([theta, theta.new_zeros(1)])[self._blk]
+
+    def padded_operator(self, mu, dtype):
+        kp = self.kappa_rows(mu, dtype)
+        L, M = self.slab.rows, self.n_nodes
+        scale = self.h * self.slab.mask(dtype, self.device)
+        return lambda up: _gather_apply3(up, kp, L, M) * scale
+
+    def jacobi_diag(self, mu) -> torch.Tensor:
+        d = (self.h * k_el_3d()[0][0]) * _padded_eight_sum(
+            self.kappa_rows(mu), self.slab.rows, self.n_nodes)
+        return torch.where(d > 0, d, torch.ones_like(d))
+
+    def rhs(self, dtype=None) -> torch.Tensor:
+        """The slab's planes of the lumped load for f = 1."""
+        dt = self.dtype if dtype is None else dtype
+        load = torch.full(self.local_shape, self.h ** 3, dtype=dt, device=self.device)
+        return load * self.slab.mask(dt, self.device)
+
+    def output(self, u: torch.Tensor) -> torch.Tensor:
+        """Mean-value functional, summed over the ranks."""
+        return self.slab.sum(u.sum(dim=(-3, -2, -1))) * self.h ** 3
+
+    def _mass_padded(self, up: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+        return self.mass_apply(u)
+
+    def mass_apply(self, u: torch.Tensor) -> torch.Tensor:
+        """The lumped mass on the slab (no exchange)."""
+        return (self.h ** 3) * u * self.slab.mask(u.dtype, u.device)
+
+    def mass_diag(self) -> torch.Tensor:
+        return torch.full(self.local_shape, self.h ** 3, dtype=self.dtype, device=self.device)

@@ -190,27 +190,27 @@ class AdvectionSlab(SlabFOM):
 
     is_spd = False
 
-    def _terms(self, u: torch.Tensor, theta=None) -> torch.Tensor:
+    def _padded_terms(self, up: torch.Tensor, dtype, theta=None) -> torch.Tensor:
         slab = self.slab
-        up = slab.padded(u)
-        mask = slab.mask(u.dtype, u.device)
+        mask = slab.mask(dtype, up.device)
         L, M = slab.shape
-        K = _gather_apply(up, self._ones(u.dtype), L, M) * mask
+        K = _gather_apply(up, self._ones(dtype), L, M) * mask
         cx = _advection_gather(up, self.h, 0, L, M) * mask
         cy = _advection_gather(up, self.h, 1, L, M) * mask
         if theta is None:
             return torch.stack([K, cx, cy])
         return theta[0] * K + theta[1] * cx + theta[2] * cy
 
-    def apply(self, mu, u: torch.Tensor) -> torch.Tensor:
-        return self._terms(u, self.theta_vector(mu).to(u.dtype))
+    def padded_operator(self, mu, dtype):
+        theta = self.theta_vector(mu).to(dtype)
+        return lambda up: self._padded_terms(up, dtype, theta)
 
     def apply_term(self, t: int, u: torch.Tensor) -> torch.Tensor:
-        return self._terms(u)[t]
+        return self.apply_terms(u)[t]
 
     def apply_terms(self, u: torch.Tensor) -> torch.Tensor:
         """(3, rows, M): K u, Cx u and Cy u, one halo exchange."""
-        return self._terms(u)
+        return self._padded_terms(self.slab.padded(u), u.dtype)
 
     def jacobi_diag(self, mu) -> torch.Tensor:
         eps = as_tensor(mu["eps"], self.device, self.dtype).reshape(-1)[0]

@@ -22,7 +22,7 @@ import time
 
 import torch
 
-from rla4mor_tpu_torch.core.solvers import bicgstab, cg
+from rla4mor_tpu_torch.core.solvers import bicgstab, cg, group_norm
 from rla4mor_tpu_torch.models.instationary_stencil import (
     InstationaryStencilFOM,
     _FlatParabolicView,
@@ -67,43 +67,48 @@ class WaveStencilFOM(InstationaryStencilFOM):
         raise ValueError(f"unknown preconditioner {precond!r}")
 
     def solve(self, mu, tol: float = 1e-7, maxiter: int = 200, precond: str = "jacobi",
-              store_every: int = 1) -> torch.Tensor:
+              store_every: int = 1, mesh=None, axis: str = "dof") -> torch.Tensor:
         """(*solution_shape, n_stored) displacement trajectory including u0,
         time axis last; ``store_every=s`` keeps every s-th step. The
         acceleration is warm-started across steps (consecutive a_k differ by
         O(dt)); the consistent initial one comes from the mass solve
-        M a0 = b - A u0 by Jacobi-CG."""
+        M a0 = b - A u0 by Jacobi-CG. ``mesh``: the Newmark loop on this
+        rank's slab, as ``InstationaryStencilFOM.solve``'s (Jacobi only;
+        the rank's slab of the trajectory is returned)."""
         st = self.stencil
         dt, beta, gamma = self.dt, self.beta, self.gamma
         c = beta * dt * dt
         if self.nt % store_every:
             raise ValueError(f"store_every={store_every} must divide nt={self.nt}")
-        A_mu, kappa = self._make_stiff(mu)
-        b = st.rhs()
         solver = cg if getattr(st, "is_spd", True) else bicgstab
+        if mesh is not None:
+            sl, A_mu, S_op, M_pre = self._mesh_ops(mu, c, precond, mesh, axis)
+            b, mass, m_dia, group = sl.rhs(), sl.mass_apply, sl.mass_diag(), sl.group
+            u, v = sl.slab.local(self.u0), sl.slab.local(self.v0)
+        else:
+            A_mu, kappa = self._make_stiff(mu)
+            b, mass, m_dia, group = st.rhs(), self._mass_apply, self._mass_diag(), None
+            u, v = self.u0, self.v0
 
-        def S_op(v):  # implicit side: M + beta dt^2 A
-            return self._mass_apply(v) + c * A_mu(v)
+            def S_op(v):  # implicit side: M + beta dt^2 A
+                return self._mass_apply(v) + c * A_mu(v)
 
-        M_pre = self._preconditioner(mu, kappa, c, precond, b)
-        m_dia = self._mass_diag()
+            M_pre = self._preconditioner(mu, kappa, c, precond, b)
         t0 = time.perf_counter()
-        u, v = self.u0, self.v0
-        init = cg(self._mass_apply, b - A_mu(u), precond=lambda r: r / m_dia, tol=tol,
-                  maxiter=maxiter)
+        init = cg(mass, b - A_mu(u), precond=lambda r: r / m_dia, tol=tol, maxiter=maxiter,
+                  group=group)
         a = init.x
         stored, iters, rel_res = [u], [], []
         for k in range(1, self.nt + 1):
             u_star = u + dt * v + dt * dt * (0.5 - beta) * a
             v_star = v + dt * (1.0 - gamma) * a
             rhs = b - A_mu(u_star)
-            res = solver(S_op, rhs, x0=a, precond=M_pre, tol=tol, maxiter=maxiter)
+            res = solver(S_op, rhs, x0=a, precond=M_pre, tol=tol, maxiter=maxiter, group=group)
             a = res.x
             u = u_star + c * a
             v = v_star + gamma * dt * a
             iters.append(res.iters)
-            rel_res.append(float(res.residual_norm)
-                           / max(float(torch.linalg.vector_norm(rhs)), 1e-30))
+            rel_res.append(float(res.residual_norm) / max(float(group_norm(rhs, group)), 1e-30))
             if k % store_every == 0:
                 stored.append(u)
         sync(u.device)
@@ -127,7 +132,7 @@ class _FlatWaveView(_FlatParabolicView):
     the initial velocity."""
 
     def _scheme(self, fom) -> None:
-        self.v0 = fom.v0.reshape(-1)
+        self.v0 = self._local(fom.v0).reshape(-1)
         self.beta, self.gamma = fom.beta, fom.gamma
 
 

@@ -1095,9 +1095,10 @@ class MatrixFreeScmCoercivity(MatrixFreeScmHermitian):
         if mesh is not None:
             # the rank's row slab: the terms, R and the projector on its rows;
             # Jacobi of R (the V-cycle runs on one device)
-            if not getattr(fom, "is_spd", False) or not hasattr(fom, "slab"):
+            if (not getattr(fom, "is_spd", False) or not hasattr(fom, "slab")
+                    or len(shape) != 2):
                 raise NotImplementedError(f"{type(fom).__name__}: the sharded SCM takes "
-                                          "the symmetric families with a slab form")
+                                          "the symmetric 2-D families with a slab form")
             if precond not in ("auto", None, "none"):
                 raise ValueError("on a mesh the preconditioner is Jacobi of R ('auto')")
             slab = fom.slab(mesh, kw.get("mesh_axis", "dof"))

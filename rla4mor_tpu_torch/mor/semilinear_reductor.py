@@ -187,9 +187,21 @@ class SemilinearROM:
             rnorm = rnorm + c * est.deim_indicator(g_pts, g_res)
         return rnorm
 
-    def solve_and_estimate_batch(self, mus_batched: Mu):
-        a = self.solve(mus_batched)
-        return a, self.estimate_error(mus_batched, a)
+    def solve_and_estimate_batch(self, mus_batched: Mu, mesh=None, axis: str = "mu"):
+        """(a (B, r), estimates (B,)) of a batched Mu. ``mesh``: the batch is
+        split over ``axis`` (a multiple of it), each rank solving its share
+        of the replicated ROM, and both gathered on every rank."""
+        if mesh is None:
+            a = self.solve(mus_batched)
+            return a, self.estimate_error(mus_batched, a)
+        from rla4mor_tpu_torch.parallel import mesh as pm
+
+        count = next(iter(mus_batched.values())).shape[0]
+        share = pm.batch_share(count, mesh, axis)
+        part = {key: v[share] for key, v in mus_batched.items()}
+        a = self.solve(part)
+        eta = self.estimate_error(part, a)
+        return pm.gather_batch(a, mesh, axis), pm.gather_batch(eta, mesh, axis)
 
 
 class SemilinearInstationaryROM:
@@ -395,6 +407,11 @@ def _deim_split(G, deim_modes, deim_rtol, n_reserve):
 @dataclass
 class SemilinearReductor:
     """POD-DEIM offline stage for ``SemilinearStencilFOM``.
+
+    The fit runs on one device, on whole snapshots: a DoF-sharded run
+    gathers its (small) Newton snapshots (``parallel.mesh.all_gather_rows``)
+    and fits replicated, as the JAX dryrun does; the fit on the ranks' rows
+    is not ported.
 
     ``embedding``: None -> the exact Gram residual estimator (small and
     medium n); an embedding on n_dof rows -> the sketched estimator (the

@@ -157,12 +157,12 @@ def make_sharded_greedy_step(
         if cg_precond != "jacobi":
             raise ValueError("on a mesh the solve is Jacobi-preconditioned: the port's "
                              "V-cycle runs on one device (as the JAX demo's)")
-        if not hasattr(fom, "slab"):
-            raise NotImplementedError(f"{type(fom).__name__} has no row-slab form yet: "
-                                      "it runs on one device")
+        if not hasattr(fom, "slab") or len(fom.solution_shape) != 2:
+            raise NotImplementedError(f"{type(fom).__name__}'s greedy step has no "
+                                      "row-slab form yet: it runs on one device")
         fom = fom.slab(mesh)
         group = fom.group
-        row0 = fom.slab.r0 * fom.n_nodes
+        row0 = fom.row_offset
     shape = fom.local_shape if mesh is not None else fom.solution_shape
     n_local = math.prod(shape)
 

@@ -149,6 +149,109 @@ def scm_anchor(mesh, inp: dict) -> dict:
 # the anchor's LOBPCG: every iteration is a few dozen collectives
 SCM_KW = dict(block=2, iters=40, tol=1e-6, device="cpu", log_level=30)
 
+# the time loops at the JAX tests' sizes (tests/test_parallel.py): grid 31 (32
+# node rows, 8 a rank), the 3-D block at grid 15 (16 z-planes, 4 a rank)
+TIME_GRID, TIME_GRID_3D = 31, 15
+TIME_KW = dict(tol=1e-12, maxiter=400)
+# POD-greedy on the (2, 2) mesh: grid 15 (8 node rows a rank), T 0.1, nt 3
+GREEDY_GRID, GREEDY_EXT, GREEDY_K = 15, 3, 64
+GREEDY_VIEW_KW = dict(tol=1e-10, maxiter=300)
+
+
+def time_foms():
+    """{case: (the port's one-device FOM, its solve, the case's Mu keys)} of
+    the sharded time loops; ``solve(fom, mu, **kw)`` runs one."""
+    from rla4mor_tpu_torch.models.instationary_stencil import InstationaryStencilFOM
+    from rla4mor_tpu_torch.models.semilinear import (
+        SemilinearInstationaryFOM,
+        SemilinearStencilFOM,
+    )
+    from rla4mor_tpu_torch.models.stencil import StencilThermalBlock
+    from rla4mor_tpu_torch.models.stencil3d import StencilThermalBlock3D
+    from rla4mor_tpu_torch.models.stencil_advection import StencilAdvectionDiffusion
+    from rla4mor_tpu_torch.models.wave_stencil import WaveStencilFOM
+
+    st = StencilThermalBlock((2, 2), TIME_GRID, dtype=DT, device="cpu")
+    semi = SemilinearStencilFOM((2, 2), TIME_GRID, dtype=DT, reaction_scale=50.0,
+                                device="cpu")
+    return {
+        "parabolic": InstationaryStencilFOM(st, T=0.5, nt=6),
+        "parabolic3d": InstationaryStencilFOM(
+            StencilThermalBlock3D((2, 2, 2), TIME_GRID_3D, dtype=DT, device="cpu"),
+            T=0.25, nt=4),
+        "advection": InstationaryStencilFOM(
+            StencilAdvectionDiffusion(TIME_GRID, dtype=DT, device="cpu"), T=0.25, nt=4),
+        "wave": WaveStencilFOM(st, T=0.25, nt=5),
+        "newton": semi,
+        "imex": SemilinearInstationaryFOM(semi, T=0.25, nt=4),
+    }
+
+
+def time_solve(case: str, fom, mu: dict, **kw):
+    """One run of a time-loop case (Newton: the solve to 1e-11)."""
+    if case == "newton":
+        return fom.solve_newton(mu, newton_tol=1e-11, **kw)
+    return fom.solve(mu, **TIME_KW, **kw)
+
+
+def time_loops(mesh, inp: dict) -> dict:
+    """Each time loop on the rank's slab (its slab of the result), the
+    refusal of the V-cycle on a mesh and of the reductor's slab view off
+    the 2-D thermal block."""
+    out = {}
+    foms = time_foms()
+    for case, fom in foms.items():
+        mu = {key: _t(v) for key, v in inp["time_mus"][case].items()}
+        out[case] = time_solve(case, fom, mu, mesh=mesh)
+    out["gathered"] = foms["parabolic"].gather(out["parabolic"], mesh)
+    try:
+        foms["parabolic"].solve({key: _t(v) for key, v in inp["time_mus"]["parabolic"].items()},
+                                precond="mg", mesh=mesh)
+        out["mg_refused"] = None
+    except ValueError as exc:
+        out["mg_refused"] = str(exc)
+    for case in ("parabolic3d", "advection"):
+        try:
+            foms[case].as_reductor_fom(mesh=mesh)
+            out[f"view_refused_{case}"] = None
+        except ValueError as exc:
+            out[f"view_refused_{case}"] = str(exc)
+    return out
+
+
+def factorisations(mesh, inp: dict) -> dict:
+    """``gram_schmidt`` / ``pod`` with ``group=`` on the rank's rows."""
+    from rla4mor_tpu_torch.core.orthonormalize import gram_schmidt, pod
+    from rla4mor_tpu_torch.parallel import mesh as pm
+
+    U = _t(inp["factor_U"])
+    r0, r1 = pm.row_range(U.shape[0], mesh)
+    group = pm.axis_group(mesh, "dof")
+    Q, R = gram_schmidt(U[r0:r1], return_R=True, group=group)
+    modes, svals = pod(U[r0:r1], modes=4, rtol=None, group=group)
+    return {"Q": Q, "R": R, "modes": modes, "svals": svals}
+
+
+def pod_greedy_mesh(mesh, inp: dict) -> dict:
+    """POD-greedy with the trajectories on the DoF slabs, the sweep split over
+    ``"mu"`` and the JAX SRHT plan carried in."""
+    from rla4mor_tpu_torch.models.instationary import InstationaryReductor, pod_greedy
+    from rla4mor_tpu_torch.models.instationary_stencil import InstationaryStencilFOM
+    from rla4mor_tpu_torch.models.stencil import StencilThermalBlock
+    from rla4mor_tpu_torch.parallel.embeddings import ShardedSrhtEmbedding
+
+    st = StencilThermalBlock((2, 2), GREEDY_GRID, dtype=DT, device="cpu")
+    view = InstationaryStencilFOM(st, T=0.1, nt=3).as_reductor_fom(mesh=mesh,
+                                                                   **GREEDY_VIEW_KW)
+    emb = ShardedSrhtEmbedding.from_plan(inp["greedy_signs"], inp["greedy_sampling"], mesh)
+    red = InstationaryReductor(view, embedding=emb, log_level=30)
+    train = [{"diffusion": _t(row)} for row in inp["greedy_train"]]
+    rom, hist = pod_greedy(view, red, train, max_extensions=GREEDY_EXT, log_level=30,
+                           mesh=mesh)
+    return {"rb": red.rb, "selected": [m["diffusion"] for m in hist["selected_mus"]],
+            "max_estimates": hist["max_estimates"], "reduce_calls": red.reduce_calls,
+            "mass_r": rom.mass_r}
+
 
 def run_cases(rank: int, inp: dict) -> dict:
     torch.set_num_threads(1)
@@ -164,6 +267,9 @@ def run_cases(rank: int, inp: dict) -> dict:
     out["greedy_dof2_mu2"] = greedy(dof_mu, inp)
     out["lobpcg"] = lobpcg(dof, inp)
     out["scm"] = scm_anchor(dof, inp)
+    out["time_loops"] = time_loops(dof, inp)
+    out["factorisations"] = factorisations(dof, inp)
+    out["pod_greedy"] = pod_greedy_mesh(dof_mu, inp)
     out["dryrun"] = dryrun(dof_mu, "cpu", log=lambda line: None)
     out["mesh_rows"] = (dof_mu.get_local_rank("dof"), dof_mu.get_local_rank("mu"))
     return out
